@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port's f32 P-frame serving path.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
+
+  1. device   — fail without CUDA; print the card's name and power limit; pin
+                f32 numerics (no TF32) and deterministic cuDNN, so encoder
+                and decoder compute bit-identical (σ, μ) from ẑ.
+  2. build    — the CUDA kernels (nvcc) and the rANS coder (g++), in parallel,
+                from the checkout's sources.
+  3. kernels  — each kernel against its plain PyTorch version on the card at
+                the serving path's shapes (gdn_fused: rtol 1e-5, atol 1e-6;
+                quantize_and_index: exact, with crafted ties, saturation and
+                table-edge scales), and timed with CUDA events.
+  4. slice    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
+                from seeds, the benchmark workload's weight surgery, then
+                StemVideoPipeline(sparse) encodes 3 P-frames of 4×3×1088×1920
+                with encode_frames and decodes them with decode_frames. Every
+                frame must take the sparse transport, the encoder's carried ŷ
+                must equal the decoder's ŷ exactly, x̂ must be finite and of
+                the right shape, bpp finite and below 1, and both kernels must
+                have launched during the run.
+  5. report   — one JSON line of kernels, then the card, then the result line.
+
+Exits non-zero, printing no result line, on any failure.
+"""
+
+import json
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+B, H, W = 4, 1088, 1920
+N = M = 192
+EBC = 256
+P_FRAMES = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+GDN_RTOL, GDN_ATOL = 1e-5, 1e-6
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median ms of fn() over `iters` runs, each timed with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_gdn(torch, kernels):
+    """gdn_fused, forward and inverse, at the three g_a/g_s widths."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    c = N
+    # a dense non-negative γ exercises the whole channel reduction
+    gamma = (0.02 * torch.rand((c, c), generator=gen, device="cuda")
+             + 0.1 * torch.eye(c, device="cuda"))
+    gamma_t = gamma.t().contiguous()
+    beta = 1.0 + torch.rand((c,), generator=gen, device="cuda")
+    worst_abs = worst_rel = 0.0
+    timing = None
+    for hh, ww in ((544, 960), (272, 480), (136, 240)):
+        x = torch.randn((B, c, hh, ww), generator=gen, device="cuda")
+        for inverse in (False, True):
+            out = kernels.gdn_fused(x, gamma_t, beta, inverse)
+            ref = kernels._gdn_ref(x, gamma_t, beta, inverse)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            abs_err = float(err.max())
+            rel_err = float((err / ref.abs().clamp_min(GDN_ATOL)).max())
+            ok = bool(torch.allclose(out, ref, rtol=GDN_RTOL, atol=GDN_ATOL))
+            log(f"  gdn_fused {'inv' if inverse else 'fwd'} "
+                f"({B * hh * ww}, {c}): max abs {abs_err:.3e} "
+                f"max rel {rel_err:.3e} ok={ok}")
+            if not ok:
+                raise AssertionError(
+                    f"gdn_fused disagrees with its plain version at "
+                    f"{tuple(x.shape)} inverse={inverse}")
+            worst_abs = max(worst_abs, abs_err)
+            worst_rel = max(worst_rel, rel_err)
+            del out, ref, err
+        if timing is None:  # the largest shape: g_a's first / g_s's last
+            rows = B * hh * ww
+            xsq_rows = (x * x).permute(0, 2, 3, 1).reshape(rows, c).contiguous()
+            ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, False))
+            plain_ms = cuda_ms(
+                lambda: kernels._gdn_ref(x, gamma_t, beta, False))
+            # the nearest single library call: the norm's product alone
+            lib_ms = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
+            b_ms, b_by = bound(2 * rows * c * 4 + c * c * 4 + c * 4,
+                               2 * rows * c * c + 4 * rows * c)
+            timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          shape=[rows, c])
+            del xsq_rows
+        del x
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, **timing)
+
+
+def check_qidx(torch, kernels, table):
+    """quantize_and_index at the y plane's shape, exact, with crafted
+    ties, saturation and table-edge scales."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    shape = (B, M, H // 16, W // 16)
+    n = B * M * (H // 16) * (W // 16)
+    means = 2.0 * torch.randn(shape, generator=gen, device="cuda")
+    y = means + 3.0 * torch.randn(shape, generator=gen, device="cuda")
+    scales = torch.exp(4.0 * torch.rand(shape, generator=gen, device="cuda")
+                       - 3.0)
+    yf, mf, sf = y.view(-1), means.view(-1), scales.view(-1)
+    k = torch.arange(-40, 41, device="cuda", dtype=torch.float32)
+    ties = k + 0.5  # y − μ exactly on ±k.5
+    mf[:ties.numel()] = 0.0
+    yf[:ties.numel()] = ties
+    big = torch.tensor([3e9, -3e9, 2.0**30 + 128, -(2.0**30) - 128, 1e38],
+                       device="cuda")
+    o = ties.numel()
+    mf[o:o + big.numel()] = 0.0
+    yf[o:o + big.numel()] = big
+    t = table.to(torch.float32)
+    edges = torch.cat([
+        t, torch.nextafter(t, torch.full_like(t, -1.0)),
+        torch.nextafter(t, torch.full_like(t, 1e9)),
+        torch.tensor([0.11, 0.0, -1.0, 0.05], device="cuda"),
+        torch.nextafter(torch.tensor([0.11], device="cuda"),
+                        torch.tensor([1.0], device="cuda")),
+    ])
+    sf[:edges.numel()] = edges
+    sym, idx = kernels.quantize_and_index(y, means, scales, table)
+    sym_ref, idx_ref = kernels._qidx_ref(y, means, scales, table, 0.11)
+    torch.cuda.synchronize()
+    bad_sym = int((sym != sym_ref).sum())
+    bad_idx = int((idx != idx_ref).sum())
+    # the largest difference over both outputs, in int64 (symbols span ±2³⁰)
+    max_abs_err = float(max(
+        (sym.long() - sym_ref.long()).abs().max(),
+        (idx.long() - idx_ref.long()).abs().max()))
+    log(f"  quantize_and_index {shape}: symbol mismatches {bad_sym}, "
+        f"index mismatches {bad_idx}, max abs err {max_abs_err} "
+        f"(must be 0)")
+    if bad_sym or bad_idx:
+        raise AssertionError("quantize_and_index disagrees with its plain "
+                             "version")
+    ms = cuda_ms(lambda: kernels.quantize_and_index(y, means, scales, table))
+    plain_ms = cuda_ms(
+        lambda: kernels._qidx_ref(y, means, scales, table, 0.11))
+    levels = table.numel() - 1
+    b_ms, b_by = bound(n * (3 * 4 + 4 + 1) + table.numel() * 4,
+                       n * (levels + 5))
+    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, shape=list(shape))
+
+
+def run_slice(torch, kernels, card):
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline, _Download, _shape4,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        match_latent_to_prior, realistic_stem,
+    )
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior, SpatioTemporalPriorModel,
+    )
+
+    t0 = time.perf_counter()
+    imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
+    stem = SpatioTemporalPriorModel(EBC, M, device="cuda", seed=1)
+    realistic_stem(stem)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = [torch.rand((B, 3, H, W), generator=gen, device="cuda")
+              for _ in range(P_FRAMES)]
+    y_cond = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
+                               device="cuda")
+    factor = match_latent_to_prior(imodel, stem, frames[0], y_cond)
+    pipe = StemVideoPipeline(imodel, stem, transport_mode="sparse")
+    log(f"  models + tables + surgery: {time.perf_counter() - t0:.1f} s "
+        f"(g_a last conv scaled per channel by {float(factor.min()):.4g}"
+        f"..{float(factor.max()):.4g})")
+
+    # warm-up frame (cuDNN set-up), outside the counted run
+    enc, _ = pipe.encode_frame(frames[0], y_cond)
+    pipe.decode_frame(enc, y_cond=y_cond)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    encs = list(pipe.encode_frames(frames, y_cond))
+    decoded = list(pipe.decode_frames(encs, y_cond))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"  main path: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
+        f"launches {launches}")
+
+    # ---- checks ----
+    transports = [e["transport"] for e in encs]
+    if transports != ["sparse"] * P_FRAMES:
+        raise AssertionError(f"not every frame took the sparse transport: "
+                             f"{transports}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    # the encoder's carry, recomputed frame by frame through encode_frame
+    # (same device expressions as encode_frames), against the decoder's ŷ;
+    # the streams must also repeat byte for byte
+    y_enc = y_cond
+    bpps = []
+    for i, (enc, (x_hat, y_dec)) in enumerate(zip(encs, decoded)):
+        enc2, y_enc = pipe.encode_frame(frames[i], y_enc)
+        if enc2["strings"] != enc["strings"]:
+            raise AssertionError(f"frame {i}: encode_frame and encode_frames "
+                                 f"streams differ")
+        if not torch.equal(y_enc, y_dec):
+            diff = int((y_enc != y_dec).sum())
+            raise AssertionError(f"frame {i}: encoder ŷ != decoder ŷ at "
+                                 f"{diff} elements")
+        if tuple(x_hat.shape) != (B, 3, H, W):
+            raise AssertionError(f"frame {i}: x̂ shape {tuple(x_hat.shape)}")
+        if not bool(torch.isfinite(x_hat).all()):
+            raise AssertionError(f"frame {i}: x̂ not finite")
+        n_bytes = sum(len(s) for g in enc["strings"] for s in g)
+        n_bytes += enc["counts"].nbytes
+        bpps.append(n_bytes * 8 / (B * H * W))
+    bpp = sum(bpps) / len(bpps)
+    if not (all(b == b for b in bpps) and max(bpps) < 1.0):
+        raise AssertionError(f"bpp out of range: {bpps}")
+    log(f"  checks: all sparse, encoder ŷ == decoder ŷ exactly on "
+        f"{P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
+
+    # ---- stage breakdown (synchronised, median of 3) ----
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3, out
+
+    stages = {k: [] for k in ("g_a", "enc_dispatch", "host_rans_enc",
+                              "host_rans_dec", "dec_dispatch")}
+    x = frames[0]
+    for _ in range(3):
+        ms, y_cur = timed(lambda: pipe.analysis(x))
+        stages["g_a"].append(ms)
+        ms, (packed, _) = timed(
+            lambda: stem.fused_encode_sparse_carry_expr(y_cur, y_cond))
+        ms_dl, buf = timed(lambda: _Download(packed).result())
+        stages["enc_dispatch"].append(ms + ms_dl)
+        ms, enc = timed(lambda: pipe.code_sparse_buffer(buf, _shape4(y_cur)))
+        stages["host_rans_enc"].append(ms)
+        ms, host = timed(lambda: pipe._host_decode_sparse(enc))
+        stages["host_rans_dec"].append(ms)
+        ms, _ = timed(lambda: pipe._device_decode_sparse(*host, y_cond))
+        stages["dec_dispatch"].append(ms)
+    med = {k: sorted(v)[1] for k, v in stages.items()}
+    fps = P_FRAMES * B / wall
+    log(f"  slice: bpp {bpp:.5f}, end-to-end {fps:.3f} frames/s "
+        f"({P_FRAMES}×{B} frames of {H}×{W}, encode+decode), stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f" | card: {card}")
+    return launches
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        log(f"FAIL: torch not importable: {e}")
+        return 2
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false; this check needs a "
+            "CUDA card")
+        return 2
+
+    # ---- 1. device ----
+    card = card_line()
+    log(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    log(f"[1/5] device: {torch.cuda.get_device_name(0)} × "
+        f"{torch.cuda.device_count()}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}")
+
+    # ---- 2. build ----
+    from spatiotemporalentropymodel_tpu_torch.coders import build as rans_build
+    from spatiotemporalentropymodel_tpu_torch.coders import rans
+    from spatiotemporalentropymodel_tpu_torch.ops import build as cu_build
+    from spatiotemporalentropymodel_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(cu_build.build), pool.submit(rans_build.build)]
+        paths = [f.result() for f in futs]
+    kernels.load()
+    rans.load()
+    log(f"[2/5] build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(p.name for p in paths)})")
+
+    # ---- 3. kernels vs plain ----
+    from spatiotemporalentropymodel_tpu_torch.entropy import get_scale_table
+
+    log("[3/5] kernels vs plain versions on the card")
+    table = kernels.scale_table_tensor(get_scale_table(), "cuda")
+    gdn = check_gdn(torch, kernels)
+    qidx = check_qidx(torch, kernels, table)
+    log(f"  gdn_fused {gdn['ms']:.3f} ms (plain {gdn['plain_ms']:.3f}, "
+        f"addmm {gdn['library_ms']:.3f}, bound {gdn['bound_ms']:.3f}); "
+        f"quantize_and_index {qidx['ms']:.3f} ms (plain "
+        f"{qidx['plain_ms']:.3f}, bound {qidx['bound_ms']:.3f}); launches "
+        f"so far {dict(kernels.LAUNCHES)}; max abs err gdn_fused "
+        f"{gdn['max_abs_err']:.3e}, quantize_and_index "
+        f"{qidx['max_abs_err']}")
+
+    # ---- 4. the slice ----
+    log("[4/5] slice: StemVideoPipeline(sparse), f32, "
+        f"{P_FRAMES} P-frames of {B}×3×{H}×{W}")
+    launches = run_slice(torch, kernels, card)
+
+    # ---- 5. report ----
+    src = "spatiotemporalentropymodel_tpu_torch/ops/csrc/kernels.cu"
+    pk = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
+    rows = []
+    for name, res, replaces in (("gdn_fused", gdn, f"{pk}:150"),
+                                ("quantize_and_index", qidx, f"{pk}:214")):
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+            "shape": res["shape"],
+        })
+    log(json.dumps({"kernels": rows}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
