@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's f32 P-frame serving path.
+"""On-card check of the PyTorch/CUDA port's P-frame serving paths, f32 and
+bf16.
 
     python3 chip_smoke.py
 
@@ -8,20 +9,29 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
   1. device   — fail without CUDA; print the card's name and power limit; pin
                 f32 numerics (no TF32) and deterministic cuDNN, so encoder
                 and decoder compute bit-identical (σ, μ) from ẑ.
-  2. build    — the CUDA kernels (nvcc) and the rANS coder (g++), in parallel,
-                from the checkout's sources.
+  2. build    — the CUDA kernels (nvcc, one process per source) and the rANS
+                coder (g++), in parallel, from the checkout's sources.
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                the serving path's shapes (gdn_fused: rtol 1e-5, atol 1e-6;
-                quantize_and_index: exact, with crafted ties, saturation and
-                table-edge scales), and timed with CUDA events.
-  4. slice    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
-                from seeds, the benchmark workload's weight surgery, then
-                StemVideoPipeline(sparse) encodes 3 P-frames of 4×3×1088×1920
-                with encode_frames and decodes them with decode_frames. Every
-                frame must take the sparse transport, the encoder's carried ŷ
-                must equal the decoder's ŷ exactly, x̂ must be finite and of
-                the right shape, bpp finite and below 1, and both kernels must
-                have launched during the run.
+                the serving paths' shapes, timed with CUDA events beside its
+                bound, its plain version and the nearest library call:
+                gdn_fused f32 (rtol 1e-5, atol 1e-6) and bf16 (rtol 2⁻⁷: one
+                bf16 step); quantize_and_index exact, with crafted ties,
+                saturation and table-edge scales; gdn_conv_fused at g_a's
+                three stages, igdn_deconv_wide_packed at 272×480 and
+                igdn_deconv_tail_packed at 544×960, each at
+                max|kernel − plain| ≤ 2⁻⁶·max|plain| (the kernels round the
+                (I)GDN'd window to bf16 for the tensor cores; the plain g_s
+                versions keep it f32, as the JAX refs do).
+  4. slices   — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
+                from seeds, the benchmark workload's weight surgery (at f32),
+                then StemVideoPipeline(sparse) encodes 3 P-frames of
+                4×3×1088×1920 with encode_frames and decodes them with
+                decode_frames: first in f32, then after
+                set_compute_dtype(bf16) on both models. In each, every frame
+                must take the sparse transport, the encoder's carried ŷ must
+                equal the decoder's ŷ exactly, x̂ must be finite and of the
+                right shape, bpp finite and below 1, and each kernel must
+                have launched exactly as often as the path calls it.
   5. report   — one JSON line of kernels, then the card, then the result line.
 
 Exits non-zero, printing no result line, on any failure.
@@ -39,7 +49,12 @@ EBC = 256
 P_FRAMES = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, bf16 dense on the tensor cores
 GDN_RTOL, GDN_ATOL = 1e-5, 1e-6
+GDN_BF16_RTOL = 2**-7  # one bf16 step: only the f32 summation order differs
+FUSED_TOL = 2**-6  # max|kernel − plain| ≤ FUSED_TOL · max|plain|
+PK = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
+CSRC = "spatiotemporalentropymodel_tpu_torch/ops/csrc"
 
 
 def log(*args):
@@ -74,9 +89,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, tc_ops: float = 0.0):
+    """Least ms for the work: bytes over the memory rate, or the operations
+    over their units' peak rates, f32 on the CUDA cores (``ops``) and bf16
+    on the tensor cores (``tc_ops``); the two units run side by side, so
+    the larger of their times bounds the operations."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(ops / F32_FLOPS_PER_S, tc_ops / BF16_TC_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -185,7 +204,183 @@ def check_qidx(torch, kernels, table):
                 bound_ms=b_ms, bound_by=b_by, shape=list(shape))
 
 
-def run_slice(torch, kernels, card):
+def _gdn_params(torch, gen, c):
+    """A dense non-negative γᵀ (the whole channel reduction matters) and β,
+    both f32, as the kernels take them."""
+    gamma = (0.02 * torch.rand((c, c), generator=gen, device="cuda")
+             + 0.1 * torch.eye(c, device="cuda"))
+    beta = 1.0 + torch.rand((c,), generator=gen, device="cuda")
+    return gamma.t().contiguous(), beta
+
+
+def _kaiming(torch, gen, shape, fan_in):
+    """bf16 weights at the models' init scale (layers/conv.py)."""
+    w = torch.randn(shape, generator=gen, device="cuda")
+    return (w * (2.0 / fan_in) ** 0.5).to(torch.bfloat16)
+
+
+def _scaled_err(torch, out, ref, name):
+    """max|out − ref|, held to FUSED_TOL · max|ref|."""
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    ok = bool(torch.isfinite(out).all()) and err <= FUSED_TOL * scale
+    log(f"  {name} {tuple(out.shape)}: max abs {err:.4g}, max|plain| "
+        f"{scale:.4g}, ratio {err / scale:.3e} (limit {FUSED_TOL:.3e}) "
+        f"ok={ok}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"{tuple(out.shape)}")
+    return err
+
+
+def check_gdn_bf16(torch, kernels):
+    """gdn_fused's bf16 entry at g_s's first IGDN: (4, 192, 136, 240)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    c = N
+    gamma_t, beta = _gdn_params(torch, gen, c)
+    x = torch.randn((B, c, H // 8, W // 8), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    worst = 0.0
+    for inverse in (False, True):
+        out = kernels.gdn_fused(x, gamma_t, beta, inverse)
+        ref = kernels._gdn_ref(x.float(), gamma_t, beta,
+                               inverse).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        ok = bool(torch.allclose(out.float(), ref.float(),
+                                 rtol=GDN_BF16_RTOL, atol=GDN_ATOL))
+        log(f"  gdn_fused bf16 {'inv' if inverse else 'fwd'} "
+            f"{tuple(x.shape)}: max abs {err:.3e} ok={ok}")
+        if not ok:
+            raise AssertionError("gdn_fused bf16 disagrees with its plain "
+                                 "version")
+        worst = max(worst, err)
+    rows = x.numel() // c
+    xsq_rows = (x.float() ** 2).permute(0, 2, 3, 1).reshape(rows, c)
+    xsq_rows = xsq_rows.contiguous()
+    ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, True))
+    plain_ms = cuda_ms(lambda: kernels._gdn_ref(
+        x.float(), gamma_t, beta, True).to(torch.bfloat16))
+    lib_ms = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
+    b_ms, b_by = bound(2 * rows * c * 2 + c * c * 4 + c * 4,
+                       2 * rows * c * c + 4 * rows * c)
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                shape=[rows, c])
+
+
+def _norm_ops(pixels, c):
+    """f32 operations of a (I)GDN over ``pixels`` pixels of c channels."""
+    return 2 * pixels * c * c + 4 * pixels * c
+
+
+def check_gdn_conv(torch, F, kernels):
+    """gdn_conv_fused at g_a's three GDN→conv stages; the row reports the
+    first (544×960 → 272×480), the log every stage."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    c = o = N
+    gamma_t, beta = _gdn_params(torch, gen, c)
+    weight = _kaiming(torch, gen, (o, c, 5, 5), 25 * c)
+    bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    stages, worst = [], 0.0
+    for hh, ww in ((H // 2, W // 2), (H // 4, W // 4), (H // 8, W // 8)):
+        x = torch.randn((B, c, hh, ww), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        out = kernels.gdn_conv_fused(x, gamma_t, beta, weight, bias)
+        ref = kernels._gdn_conv_ref(x, gamma_t, beta, weight, bias)
+        torch.cuda.synchronize()
+        worst = max(worst, _scaled_err(torch, out, ref, "gdn_conv_fused"))
+        del out, ref
+        g = kernels._gdn_ref(x.float(), gamma_t, beta,
+                             False).to(torch.bfloat16)
+        bias16 = bias.to(torch.bfloat16)
+        pix_in, pix_out = B * hh * ww, B * (hh // 2) * (ww // 2)
+        b_ms, b_by = bound(
+            pix_in * c * 2 + pix_out * o * 2 + o * c * 25 * 2 + c * c * 4
+            + (c + o) * 4,
+            _norm_ops(pix_in, c), 2 * pix_out * o * c * 25)
+        stages.append(dict(
+            shape=[B, c, hh, ww],
+            ms=cuda_ms(lambda: kernels.gdn_conv_fused(x, gamma_t, beta,
+                                                      weight, bias)),
+            plain_ms=cuda_ms(lambda: kernels._gdn_conv_ref(
+                x, gamma_t, beta, weight, bias)),
+            library_ms=cuda_ms(lambda: F.conv2d(g, weight, bias16, 2, 2)),
+            bound_ms=b_ms, bound_by=b_by))
+        log(f"    stage {hh}×{ww}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages[-1].items()
+            if k.endswith("ms")))
+        del x, g
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, stages=stages, **{
+        k: stages[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "shape")})
+
+
+def check_gs_pair(torch, F, kernels):
+    """igdn_deconv_wide_packed at 272×480 → 544×960 (N→N), then
+    igdn_deconv_tail_packed on its output, 544×960 → 1088×1920 (N→3)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    c = N
+    x = torch.randn((B, c, H // 4, W // 4), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    rows = []
+    for name, fn, f in (("igdn_deconv_wide_packed",
+                         kernels.igdn_deconv_wide_packed, c),
+                        ("igdn_deconv_tail_packed",
+                         kernels.igdn_deconv_tail_packed, 3)):
+        gamma_t, beta = _gdn_params(torch, gen, c)
+        weight = _kaiming(torch, gen, (c, f, 5, 5), 25 * c)
+        bias = 0.1 * torch.randn((f,), generator=gen, device="cuda")
+        out = fn(x, gamma_t, beta, weight, bias)
+        ref = kernels._igdn_deconv_ref(x, gamma_t, beta, weight, bias)
+        torch.cuda.synchronize()
+        err = _scaled_err(torch, out, ref, name)
+        del ref
+        g = kernels._gdn_ref(x.float(), gamma_t, beta,
+                             True).to(torch.bfloat16)
+        bias16 = bias.to(torch.bfloat16)
+        pix = x.numel() // c
+        b_ms, b_by = bound(
+            x.numel() * 2 + out.numel() * 2 + c * f * 25 * 2 + c * c * 4
+            + (c + f) * 4,
+            _norm_ops(pix, c), 2 * pix * c * f * 25)
+        rows.append(dict(
+            max_abs_err=err, shape=list(x.shape),
+            ms=cuda_ms(lambda: fn(x, gamma_t, beta, weight, bias)),
+            plain_ms=cuda_ms(lambda: kernels._igdn_deconv_ref(
+                x, gamma_t, beta, weight, bias)),
+            library_ms=cuda_ms(lambda: F.conv_transpose2d(
+                g, weight, bias16, 2, 2, 1)),
+            bound_ms=b_ms, bound_by=b_by))
+        log(f"    {name} {tuple(x.shape)}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rows[-1].items() if k.endswith("ms")))
+        del g
+        x = out  # the tail reads the wide kernel's output, as on the path
+    del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def expected_launches(bf16: bool):
+    """Launches per kernel over P_FRAMES encoded and decoded frames: g_a
+    runs 3 GDN stages per frame, g_s 3 IGDN stages, the STEM one quantizer;
+    at bf16 g_a's stages fuse into their convs and g_s's last two into the
+    packed pair, leaving its first IGDN to gdn_fused's bf16 entry."""
+    want = dict.fromkeys(("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
+                          "gdn_conv_fused", "igdn_deconv_wide_packed",
+                          "igdn_deconv_tail_packed"), 0)
+    want["quantize_and_index"] = P_FRAMES
+    if bf16:
+        want.update(gdn_conv_fused=3 * P_FRAMES, gdn_fused_bf16=P_FRAMES,
+                    igdn_deconv_wide_packed=P_FRAMES,
+                    igdn_deconv_tail_packed=P_FRAMES)
+    else:
+        want["gdn_fused"] = 6 * P_FRAMES
+    return want
+
+
+def run_slice(torch, kernels, card, bf16: bool):
     from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
         StemVideoPipeline, _Download, _shape4,
     )
@@ -196,6 +391,7 @@ def run_slice(torch, kernels, card):
         MeanScaleHyperprior, SpatioTemporalPriorModel,
     )
 
+    tag = "bf16" if bf16 else "f32"
     t0 = time.perf_counter()
     imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
     stem = SpatioTemporalPriorModel(EBC, M, device="cuda", seed=1)
@@ -206,9 +402,12 @@ def run_slice(torch, kernels, card):
     y_cond = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
                                device="cuda")
     factor = match_latent_to_prior(imodel, stem, frames[0], y_cond)
+    if bf16:  # after the surgery and update(), as set_compute_dtype needs
+        imodel.set_compute_dtype(torch.bfloat16)
+        stem.set_compute_dtype(torch.bfloat16)
     pipe = StemVideoPipeline(imodel, stem, transport_mode="sparse")
-    log(f"  models + tables + surgery: {time.perf_counter() - t0:.1f} s "
-        f"(g_a last conv scaled per channel by {float(factor.min()):.4g}"
+    log(f"  {tag}: models + tables + surgery: {time.perf_counter() - t0:.1f}"
+        f" s (g_a last conv scaled per channel by {float(factor.min()):.4g}"
         f"..{float(factor.max()):.4g})")
 
     # warm-up frame (cuDNN set-up), outside the counted run
@@ -224,17 +423,17 @@ def run_slice(torch, kernels, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    log(f"  main path: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
+    log(f"  {tag} main path: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
         f"launches {launches}")
 
     # ---- checks ----
     transports = [e["transport"] for e in encs]
     if transports != ["sparse"] * P_FRAMES:
-        raise AssertionError(f"not every frame took the sparse transport: "
-                             f"{transports}")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
+        raise AssertionError(f"{tag}: not every frame took the sparse "
+                             f"transport: {transports}")
+    want = expected_launches(bf16)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
     # the encoder's carry, recomputed frame by frame through encode_frame
     # (same device expressions as encode_frames), against the decoder's ŷ;
     # the streams must also repeat byte for byte
@@ -243,24 +442,27 @@ def run_slice(torch, kernels, card):
     for i, (enc, (x_hat, y_dec)) in enumerate(zip(encs, decoded)):
         enc2, y_enc = pipe.encode_frame(frames[i], y_enc)
         if enc2["strings"] != enc["strings"]:
-            raise AssertionError(f"frame {i}: encode_frame and encode_frames "
-                                 f"streams differ")
+            raise AssertionError(f"{tag} frame {i}: encode_frame and "
+                                 f"encode_frames streams differ")
         if not torch.equal(y_enc, y_dec):
             diff = int((y_enc != y_dec).sum())
-            raise AssertionError(f"frame {i}: encoder ŷ != decoder ŷ at "
-                                 f"{diff} elements")
+            raise AssertionError(f"{tag} frame {i}: encoder ŷ != decoder ŷ "
+                                 f"at {diff} elements")
         if tuple(x_hat.shape) != (B, 3, H, W):
-            raise AssertionError(f"frame {i}: x̂ shape {tuple(x_hat.shape)}")
+            raise AssertionError(f"{tag} frame {i}: x̂ shape "
+                                 f"{tuple(x_hat.shape)}")
+        if x_hat.dtype != (torch.bfloat16 if bf16 else torch.float32):
+            raise AssertionError(f"{tag} frame {i}: x̂ dtype {x_hat.dtype}")
         if not bool(torch.isfinite(x_hat).all()):
-            raise AssertionError(f"frame {i}: x̂ not finite")
+            raise AssertionError(f"{tag} frame {i}: x̂ not finite")
         n_bytes = sum(len(s) for g in enc["strings"] for s in g)
         n_bytes += enc["counts"].nbytes
         bpps.append(n_bytes * 8 / (B * H * W))
     bpp = sum(bpps) / len(bpps)
     if not (all(b == b for b in bpps) and max(bpps) < 1.0):
-        raise AssertionError(f"bpp out of range: {bpps}")
-    log(f"  checks: all sparse, encoder ŷ == decoder ŷ exactly on "
-        f"{P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
+        raise AssertionError(f"{tag}: bpp out of range: {bpps}")
+    log(f"  {tag} checks: all sparse, launches exact, encoder ŷ == decoder ŷ "
+        f"exactly on {P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
 
     # ---- stage breakdown (synchronised, median of 3) ----
     def timed(fn):
@@ -288,7 +490,7 @@ def run_slice(torch, kernels, card):
         stages["dec_dispatch"].append(ms)
     med = {k: sorted(v)[1] for k, v in stages.items()}
     fps = P_FRAMES * B / wall
-    log(f"  slice: bpp {bpp:.5f}, end-to-end {fps:.3f} frames/s "
+    log(f"  {tag} slice: bpp {bpp:.5f}, end-to-end {fps:.3f} frames/s "
         f"({P_FRAMES}×{B} frames of {H}×{W}, encode+decode), stage ms "
         + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
         + f" | card: {card}")
@@ -333,38 +535,58 @@ def main() -> int:
         f"({', '.join(p.name for p in paths)})")
 
     # ---- 3. kernels vs plain ----
+    import torch.nn.functional as F
     from spatiotemporalentropymodel_tpu_torch.entropy import get_scale_table
 
     log("[3/5] kernels vs plain versions on the card")
     table = kernels.scale_table_tensor(get_scale_table(), "cuda")
-    gdn = check_gdn(torch, kernels)
-    qidx = check_qidx(torch, kernels, table)
-    log(f"  gdn_fused {gdn['ms']:.3f} ms (plain {gdn['plain_ms']:.3f}, "
-        f"addmm {gdn['library_ms']:.3f}, bound {gdn['bound_ms']:.3f}); "
-        f"quantize_and_index {qidx['ms']:.3f} ms (plain "
-        f"{qidx['plain_ms']:.3f}, bound {qidx['bound_ms']:.3f}); launches "
-        f"so far {dict(kernels.LAUNCHES)}; max abs err gdn_fused "
-        f"{gdn['max_abs_err']:.3e}, quantize_and_index "
-        f"{qidx['max_abs_err']}")
+    results = {"gdn_fused": check_gdn(torch, kernels)}
+    results["quantize_and_index"] = check_qidx(torch, kernels, table)
+    results["gdn_fused_bf16"] = check_gdn_bf16(torch, kernels)
+    results["gdn_conv_fused"] = check_gdn_conv(torch, F, kernels)
+    wide, tail = check_gs_pair(torch, F, kernels)
+    results["igdn_deconv_wide_packed"] = wide
+    results["igdn_deconv_tail_packed"] = tail
+    for name, res in results.items():
+        lib = res["library_ms"]
+        log(f"  {name}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, "
+            f"library {'none' if lib is None else f'{lib:.3f}'}, bound "
+            f"{res['bound_ms']:.3f} by {res['bound_by']}), max abs err "
+            f"{res['max_abs_err']:.4g}")
+    log(f"  launches so far {dict(kernels.LAUNCHES)} (comparisons, not "
+        f"counted below)")
 
-    # ---- 4. the slice ----
-    log("[4/5] slice: StemVideoPipeline(sparse), f32, "
-        f"{P_FRAMES} P-frames of {B}×3×{H}×{W}")
-    launches = run_slice(torch, kernels, card)
+    # ---- 4. the slices ----
+    by_path = {}
+    for bf16 in (False, True):
+        tag = "bf16" if bf16 else "f32"
+        log(f"[4/5] slice: StemVideoPipeline(sparse), {tag}, "
+            f"{P_FRAMES} P-frames of {B}×3×{H}×{W}")
+        by_path[tag] = run_slice(torch, kernels, card, bf16)
+        torch.cuda.empty_cache()
 
     # ---- 5. report ----
-    src = "spatiotemporalentropymodel_tpu_torch/ops/csrc/kernels.cu"
-    pk = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
+    replaces = {
+        "gdn_fused": (f"{PK}:150", "kernels.cu"),
+        "gdn_fused_bf16": (f"{PK}:150", "kernels.cu"),
+        "quantize_and_index": (f"{PK}:214", "kernels.cu"),
+        "gdn_conv_fused": (f"{PK}:945", "gdn_conv.cu"),
+        "igdn_deconv_wide_packed": (f"{PK}:1389", "igdn_deconv.cu"),
+        "igdn_deconv_tail_packed": (f"{PK}:1561", "igdn_deconv.cu"),
+    }
     rows = []
-    for name, res, replaces in (("gdn_fused", gdn, f"{pk}:150"),
-                                ("quantize_and_index", qidx, f"{pk}:214")):
+    for name, res in results.items():
+        line, src = replaces[name]
+        per_path = {tag: counts[name] for tag, counts in by_path.items()}
         rows.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": line, "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
             "shape": res["shape"],
+            **({"stages": res["stages"]} if "stages" in res else {}),
         })
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -11,7 +11,10 @@ StemVideoPipeline, eager PyTorch on one device:
 
 Frames and latents are NCHW tensors on the models' device; the conditioning
 latent stays there across frames (GOP recurrence, stem/evalSTEM.py:93-153).
-The JAX package's spatial-mesh serving waits for the ``parallel`` slice.
+After ``set_compute_dtype(torch.bfloat16)`` on both models the transforms run
+in bf16: the frame is cast at ``analysis``, x̂ comes back in bf16, and the ŷ
+carry and the codec math stay f32. The JAX package's spatial-mesh serving
+waits for the ``parallel`` slice.
 """
 
 from typing import Tuple
@@ -80,11 +83,9 @@ class StemVideoPipeline:
 
     # -- device stages ---------------------------------------------------------
 
-    @torch.no_grad()
     def analysis(self, x):
-        """g_a only. The JAX pipeline calls ``analysis()[0]`` and XLA drops
-        the unused h_a; eager PyTorch would run it, so call g_a itself."""
-        return self.i_model.module.g_a(x)
+        """g_a only, in the I-model's compute dtype."""
+        return self.i_model.analysis(x)
 
     @torch.no_grad()
     def _encode(self, x, y_cond):
@@ -100,7 +101,7 @@ class StemVideoPipeline:
     @torch.no_grad()
     def _finish(self, y_sym, means, y_cond):
         y_hat = self.stem.fused_reconstruct_expr(y_sym, means, y_cond)
-        return y_hat, self.i_model.module.get_x(y_hat)
+        return y_hat, self.i_model.get_x(y_hat)
 
     # -- encoder side ---------------------------------------------------------
 
@@ -277,7 +278,7 @@ class StemVideoPipeline:
         y_hat = self.stem.fused_reconstruct_sparse_expr(
             maskbits, values, order, means, y_cond
         )
-        return self.i_model.module.get_x(y_hat), y_hat
+        return self.i_model.get_x(y_hat), y_hat
 
     def decode_frame(self, enc_or_strings, shape=None, y_cond=None):
         """decode_frame(enc, y_cond=...) or decode_frame(strings, shape,

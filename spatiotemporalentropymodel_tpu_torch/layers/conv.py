@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import kernels
+
 
 def _kaiming_normal(shape, fan_in: int, generator=None):
     """torch's kaiming_normal_ default (fan_in, gain √2), which the
@@ -63,22 +65,73 @@ class Deconv(nn.Module):
                                   self.padding, self.output_padding)
 
 
-class Sequential(nn.Module):
-    """Plain chain of layers (parameter names ``layers.<i>.*``).
+def _k5s2(layer, cls) -> bool:
+    return (isinstance(layer, cls) and layer.stride == 2
+            and layer.weight.shape[-1] == 5)
 
-    The JAX package's Sequential fuses GDN→conv and IGDN→deconv pairs into
-    Pallas kernels, but only for bf16 inputs; in f32 none of its peepholes
-    fires, so the f32 port is a plain chain. The bf16 serving slice adds the
-    fused kernels here: GDN→Conv(k5s2) as ``gdn_conv_fused`` and the last
-    two IGDN→Deconv pairs of g_s as ``igdn_deconv_wide_packed`` +
-    ``igdn_deconv_tail_packed``.
+
+class Sequential(nn.Module):
+    """Chain of layers (parameter names ``layers.<i>.*``) with the JAX
+    package's peepholes (layers/conv.py::Sequential there), which fire on
+    bf16 inputs only, so an f32 chain runs layer by layer:
+
+      * IGDN → Deconv(k5s2) → IGDN → Deconv(k5s2, ≤ 4 outputs), g_s's last
+        two stages: ``igdn_deconv_wide_packed`` then
+        ``igdn_deconv_tail_packed``;
+      * GDN → Conv(k5s2), g_a's stages: ``gdn_conv_fused``.
+
+    They are tried in the JAX package's order. The gates are the widths the
+    port's kernels take (``ops/kernels.py::*_supported``), not the TPU's lane
+    and VMEM rules; on the CPU the wrappers run their plain versions behind
+    the same gates. The fused paths read the layers' own parameters, so the
+    parameters and state-dict keys are those of the plain chain.
     """
 
     def __init__(self, layers):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
+    def _packed_pair_at(self, i, x) -> bool:
+        from .gdn import GDN
+
+        if i + 3 >= len(self.layers):
+            return False
+        g2, d2, g3, d3 = self.layers[i:i + 4]
+        return (isinstance(g2, GDN) and g2.inverse and _k5s2(d2, Deconv)
+                and isinstance(g3, GDN) and g3.inverse and _k5s2(d3, Deconv)
+                and kernels.igdn_deconv_wide_supported(x.shape[1],
+                                                       d2.weight.shape[1])
+                and kernels.igdn_deconv_tail_supported(d2.weight.shape[1],
+                                                       d3.weight.shape[1]))
+
+    def _gdn_conv_at(self, i, x) -> bool:
+        from .gdn import GDN
+
+        if i + 1 >= len(self.layers):
+            return False
+        gdn, conv = self.layers[i], self.layers[i + 1]
+        return (isinstance(gdn, GDN) and not gdn.inverse
+                and _k5s2(conv, Conv)
+                and kernels.gdn_conv_supported(x.shape[1],
+                                               conv.weight.shape[0]))
+
     def forward(self, x):
-        for layer in self.layers:
-            x = layer(x)
+        layers, i = self.layers, 0
+        fusable = x.dtype == torch.bfloat16 and x.dim() == 4
+        while i < len(layers):
+            if fusable and self._packed_pair_at(i, x):
+                g2, d2, g3, d3 = layers[i:i + 4]
+                x = kernels.igdn_deconv_wide_packed(
+                    x, *g2.kernel_weights(), d2.weight, d2.bias.float())
+                x = kernels.igdn_deconv_tail_packed(
+                    x, *g3.kernel_weights(), d3.weight, d3.bias.float())
+                i += 4
+            elif fusable and self._gdn_conv_at(i, x):
+                gdn, conv = layers[i], layers[i + 1]
+                x = kernels.gdn_conv_fused(x, *gdn.kernel_weights(),
+                                           conv.weight, conv.bias.float())
+                i += 2
+            else:
+                x = layers[i](x)
+                i += 1
         return x

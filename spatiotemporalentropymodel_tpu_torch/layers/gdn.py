@@ -5,6 +5,8 @@ Counterpart of spatiotemporalentropymodel_tpu/layers/gdn.py
 ``x · rsqrt(norm)`` (``x · sqrt(norm)`` for IGDN), run as the fused kernel
 ``ops/kernels.py::gdn_fused``. β and γ are stored in sqrt space (the
 non-negative reparametrization), γ as (out, in) like the torch conv weight.
+At bf16 (``set_compute_dtype``) the reparametrization runs in bf16, as in the
+JAX package, and the kernel takes γᵀ and β in f32 (x in and out stays bf16).
 """
 
 import torch
@@ -30,8 +32,15 @@ class GDN(nn.Module):
             self.gamma_reparam.init(gamma_init * torch.eye(c))
         )
 
-    def forward(self, x):
+    def kernel_weights(self):
+        """(γᵀ, β) in value space as the kernels take them: reparametrized
+        at the parameters' dtype, then f32 and contiguous. The fused
+        GDN + conv kernels read them here too (the JAX package's
+        ``return_weights=True``)."""
         beta_v = self.beta_reparam(self.beta)
         gamma_v = self.gamma_reparam(self.gamma)
-        return kernels.gdn_fused(x, gamma_v.t().contiguous(), beta_v,
-                                 self.inverse)
+        return gamma_v.t().float().contiguous(), beta_v.float()
+
+    def forward(self, x):
+        gamma_t, beta_v = self.kernel_weights()
+        return kernels.gdn_fused(x, gamma_t, beta_v, self.inverse)

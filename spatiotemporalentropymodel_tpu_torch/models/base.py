@@ -1,4 +1,4 @@
-"""CompressionModel host wrapper (f32).
+"""CompressionModel host wrapper.
 
 Counterpart of spatiotemporalentropymodel_tpu/models/base.py
 (compressai/models/priors.py:42-106): a thin host object around
@@ -6,9 +6,9 @@ Counterpart of spatiotemporalentropymodel_tpu/models/base.py
   * an ``nn.Module`` (``self.module``) holding the architecture and weights,
     on ``self.device``,
   * explicit :class:`CodecTables` per entropy-model instance
-    (``self.tables``), built by the pure NumPy ``update`` functions.
-
-bf16 serving (``set_compute_dtype``) waits for the bf16 slice.
+    (``self.tables``), built by the pure NumPy ``update`` functions,
+  * a serving compute dtype (``set_compute_dtype``): f32 by default, bf16
+    for the transform nets with f32 entropy math.
 """
 
 from typing import Any, Dict
@@ -39,6 +39,34 @@ class CompressionModel:
     @property
     def coder(self):
         return get_coder()
+
+    # serving compute dtype of the transform nets; None = float32. The
+    # fused codec expressions cast back to f32 before quantization and CDF
+    # indexing whatever it is.
+    compute_dtype = None
+
+    @torch.no_grad()
+    def set_compute_dtype(self, dtype=None):
+        """Serve the transform nets at ``dtype`` (e.g. ``torch.bfloat16``);
+        models/base.py:90-112 of the JAX package.
+
+        Casts the floating parameters of ``module`` and marks inputs for
+        casting (``_cast_in``); the codec tables stay exact. Call AFTER the
+        weights are final and AFTER ``update()``, so the tables come from
+        full-precision quantiles. The cast is lossy: ``None`` serves f32
+        again, but only reloading the weights recovers them exactly.
+        """
+        self.compute_dtype = dtype
+        target = torch.float32 if dtype is None else dtype
+        for p in self.module.parameters():
+            if p.is_floating_point():
+                p.data = p.data.to(target)
+
+    def _cast_in(self, t):
+        """An input in the compute dtype (models/base.py:114-119)."""
+        if self.compute_dtype is not None and t.is_floating_point():
+            return t.to(self.compute_dtype)
+        return t
 
     def update(self, scale_table=None, force: bool = False) -> bool:
         """(Re)build codec tables from parameters (priors.py:77-96).

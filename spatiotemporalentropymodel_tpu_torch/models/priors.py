@@ -3,8 +3,10 @@
 Counterpart of spatiotemporalentropymodel_tpu/models/priors.py::
 MeanScaleHyperprior (compressai/models/priors.py:316-402), NCHW. Every layer
 is here so the whole parameter tree carries across from the JAX package
-(convert.py); the serving slice calls ``g_a`` (analysis) and ``get_x``
-(g_s + clamp). The I-frame ``compress``/``decompress`` wait for a later slice.
+(convert.py); the serving slices call ``analysis`` (g_a) and ``get_x``
+(g_s + clamp), which cast their input to the compute dtype as the JAX
+package's ``_apply`` does. The I-frame ``compress``/``decompress`` wait for a
+later slice.
 """
 
 import torch
@@ -60,5 +62,11 @@ class MeanScaleHyperprior(CompressionModel):
         self.N, self.M = N, M
 
     @torch.no_grad()
+    def analysis(self, x):
+        """g_a only. The JAX package's ``analysis`` also runs h_a, which its
+        pipeline drops unused; eager PyTorch would run it."""
+        return self.module.g_a(self._cast_in(x))
+
+    @torch.no_grad()
     def get_x(self, y_hat):
-        return self.module.get_x(y_hat)
+        return self.module.get_x(self._cast_in(y_hat))

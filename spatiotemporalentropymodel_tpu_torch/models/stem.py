@@ -13,8 +13,12 @@ temporal and hyper priors (4M input channels).
 
 Tensors are NCHW on the device. Wherever symbols leave the device they are
 in the JAX package's NHWC order, so the packed buffers and the bitstreams
-are the JAX package's byte for byte. The SPM variants (wavefront AR codec)
-and ``without_spm_tpm`` wait for later slices.
+are the JAX package's byte for byte. At a bf16 compute dtype the nets run in
+bf16 and the codec math in f32, with the JAX package's casts
+(models/stem.py:254-258, 291-539 there): z, σ and μ go to f32 before
+quantizing, the target and the ŷ carry are f32, and ẑ and y_cond are cast
+for HE, HD, TPM and EPM. The SPM variants (wavefront AR codec) and
+``without_spm_tpm`` wait for later slices.
 """
 
 from typing import Any, Dict
@@ -39,13 +43,13 @@ def _as_bytes(t):
     return t.contiguous().view(torch.uint8).reshape(-1)
 
 
-def _nchw_f32(t):
-    """A float32 copy with the canonical NCHW strides. ``.contiguous()`` is
+def _nchw(t, dtype=torch.float32):
+    """A ``dtype`` copy with the canonical NCHW strides. ``.contiguous()`` is
     not enough: a permuted tensor with a size-1 dimension counts as
     contiguous yet keeps channels-last strides, which steer the convs to
     other algorithms, and then the decoder's (σ, μ) and ŷ would differ from
     the encoder's in the last bit."""
-    return torch.empty(t.shape, dtype=torch.float32, device=t.device).copy_(t)
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
 
 
 class STEMModule(nn.Module):
@@ -121,6 +125,20 @@ class SpatioTemporalPriorModel(CompressionModel):
     def levels(self) -> int:
         return int(self._scale_table.numel())
 
+    def _cast(self, t):
+        """A net input in the compute dtype, with the canonical NCHW
+        strides on encoder and decoder alike (see ``_nchw``); f32 inputs
+        pass as they are when no compute dtype is set."""
+        if self.compute_dtype is None:
+            return t
+        return _nchw(t, self.compute_dtype)
+
+    def _entropy_params_f32(self, z_sym, y_cond_c):
+        """(σ, μ) in f32 from the f32 symbols of ẑ and the cast y_cond."""
+        scales, means = self.module.entropy_params(
+            self._cast(z_sym + self._medians), y_cond_c)
+        return scales.float(), means.float().contiguous()
+
     # ---- dense transport ---------------------------------------------------
 
     @torch.no_grad()
@@ -128,13 +146,12 @@ class SpatioTemporalPriorModel(CompressionModel):
         """(y_cur, y_cond) → packed u8 buffer [y int16][z int16][idx u8],
         NHWC order (stem.py:291)."""
         lim = self._I16_LIM
-        z = self.module.hyper_encode(y_cur, y_cond)
-        z_sym = torch.clamp(torch.round(z - self._medians), -lim, lim)
-        scales, means = self.module.entropy_params(z_sym + self._medians,
-                                                   y_cond)
+        y_cond_c = self._cast(y_cond)
+        z = self.module.hyper_encode(self._cast(y_cur), y_cond_c)
+        z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim, lim)
+        scales, means = self._entropy_params_f32(z_sym, y_cond_c)
         y_sym, idx = kernels.quantize_and_index(
-            y_cur.float(), means.contiguous(), scales.contiguous(),
-            self._scale_table,
+            y_cur.float(), means, scales.contiguous(), self._scale_table,
         )
         b = y_cur.shape[0]
         y_sym = torch.clamp(y_sym, -int(lim), int(lim)).to(torch.int16)
@@ -149,10 +166,10 @@ class SpatioTemporalPriorModel(CompressionModel):
         """Decoder side: (z_sym, y_cond) → (means f32, idx u8), NCHW. ẑ gets
         the encoder's canonical layout, so the convs run the same algorithms
         and (σ, μ) match the encoder's bit for bit."""
-        z_hat = _nchw_f32(z_sym) + self._medians
-        scales, means = self.module.entropy_params(z_hat, y_cond)
-        idx = build_indexes(scales.float(), self._scale_table)
-        return means.float().contiguous(), idx.to(torch.uint8)
+        scales, means = self._entropy_params_f32(_nchw(z_sym),
+                                                 self._cast(y_cond))
+        idx = build_indexes(scales, self._scale_table)
+        return means, idx.to(torch.uint8)
 
     @staticmethod
     def fused_reconstruct_expr(y_sym, means, y_cond):
@@ -184,12 +201,12 @@ class SpatioTemporalPriorModel(CompressionModel):
         """
         lim16, lim8 = self._I16_LIM, self._I8_LIM
         b = y_cur.shape[0]
-        z = self.module.hyper_encode(y_cur, y_cond)
-        z_sym = torch.clamp(torch.round(z - self._medians), -lim16, lim16)
+        y_cond_c = self._cast(y_cond)
+        z = self.module.hyper_encode(self._cast(y_cur), y_cond_c)
+        z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim16,
+                            lim16)
         z_over = (z_sym.abs() > lim8).any()
-        scales, means = self.module.entropy_params(z_sym + self._medians,
-                                                   y_cond)
-        means = means.contiguous()
+        scales, means = self._entropy_params_f32(z_sym, y_cond_c)
         y_sym, idx = kernels.quantize_and_index(
             y_cur.float(), means, scales.contiguous(), self._scale_table
         )
@@ -257,8 +274,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         y_flat = torch.zeros((b, n), dtype=torch.int32, device=means.device)
         y_flat.scatter_(1, order, y_sorted.to(torch.int32))
         # canonical NCHW, like the encoder's ŷ, which is the next frame's TPM
-        # input and g_s's (see _nchw_f32)
-        return _nchw_f32(y_flat.view(b, h, w, m).permute(0, 3, 1, 2)) + means
+        # input and g_s's (see _nchw)
+        return _nchw(y_flat.view(b, h, w, m).permute(0, 3, 1, 2)) + means
 
     # ---- model API (dense order, the reference's CHW streams) --------------
 

@@ -1,4 +1,6 @@
-// Hand-written CUDA kernels of the port's f32 serving path, for sm_90a.
+// Hand-written CUDA kernels of the port's serving paths, for sm_90a:
+// gdn_fused (f32, and bf16 I/O with f32 math) and quantize_and_index here;
+// the fused GDN + conv kernels in gdn_conv.cu and igdn_deconv.cu.
 //
 // Plain C ABI (extern "C"): each launcher takes raw device pointers, sizes
 // and a cudaStream_t, launches on that stream, does not synchronise, and
@@ -7,6 +9,7 @@
 // loaded with ctypes (ops/build.py); no PyTorch headers.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -19,7 +22,10 @@ namespace {
 //
 //   out[b, o, p] = x[b, o, p] * rsqrt(beta[o] + sum_i gamma_t[i, o] * x[b, i, p]^2)
 //
-// (sqrt instead of rsqrt for IGDN), f32 throughout.
+// (sqrt instead of rsqrt for IGDN), f32 throughout. The bf16 entry is the
+// same kernel with bf16 loads and stores of x and out (the TPU kernel casts
+// x to f32 and the result back the same way, _gdn_kernel); γᵀ, β and the
+// math stay f32.
 //
 // Bound: at the serving widths (C = 192) the channel product is 2·C flops per
 // element against 8 bytes moved, so the kernel sits near the f32-FMA /
@@ -38,9 +44,23 @@ constexpr int kTileP = 64;
 constexpr int kTileK = 16;
 constexpr int kGdnThreads = 256;
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kGdnThreads)
-gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
-           const float* __restrict__ beta, float* __restrict__ out, int C,
+gdn_kernel(const T* __restrict__ x, const float* __restrict__ gamma_t,
+           const float* __restrict__ beta, T* __restrict__ out, int C,
            long long P, int n_otiles, int inverse) {
   __shared__ float s_g[kTileK][kTileO];
   __shared__ float s_x[kTileK][kTileP];
@@ -49,8 +69,8 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
   const int o0 = static_cast<int>(tile % n_otiles) * kTileO;
   const long long p0 = (tile / n_otiles) * kTileP;
   const long long base = static_cast<long long>(blockIdx.y) * C * P;
-  const float* xb = x + base;
-  float* ob = out + base;
+  const T* xb = x + base;
+  T* ob = out + base;
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;  // pixels tx + 16 j
@@ -72,7 +92,7 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
       const long long p = p0 + j;
       float v = 0.f;
       if (i < C && p < P) {
-        v = xb[static_cast<long long>(i) * P + p];
+        v = to_f32(xb[static_cast<long long>(i) * P + p]);
         v = v * v;
       }
       s_x[k][j] = v;
@@ -107,8 +127,8 @@ gdn_kernel(const float* __restrict__ x, const float* __restrict__ gamma_t,
       if (p >= P) continue;
       const long long off = static_cast<long long>(o) * P + p;
       const float norm = acc[i][j] + bo;
-      const float v = xb[off];
-      ob[off] = inverse ? v * sqrtf(norm) : v * rsqrtf(norm);
+      const float v = to_f32(xb[off]);
+      ob[off] = from_f32<T>(inverse ? v * sqrtf(norm) : v * rsqrtf(norm));
     }
   }
 }
@@ -155,6 +175,21 @@ qidx_kernel(const float* __restrict__ y, const float* __restrict__ means,
   }
 }
 
+template <typename T>
+int launch_gdn(const T* x, const float* gamma_t, const float* beta, T* out,
+               long long batch, int C, long long P, int inverse,
+               void* stream) {
+  if (batch == 0 || C == 0 || P == 0) return 0;
+  const int n_otiles = (C + kTileO - 1) / kTileO;
+  const long long n_tiles = ((P + kTileP - 1) / kTileP) * n_otiles;
+  if (batch > 65535 || n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(n_tiles),
+                  static_cast<unsigned>(batch));
+  gdn_kernel<T><<<grid, kGdnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, gamma_t, beta, out, C, P, n_otiles, inverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -162,15 +197,16 @@ extern "C" {
 int stem_gdn_fused_f32(const float* x, const float* gamma_t,
                        const float* beta, float* out, long long batch, int C,
                        long long P, int inverse, void* stream) {
-  if (batch == 0 || C == 0 || P == 0) return 0;
-  const int n_otiles = (C + kTileO - 1) / kTileO;
-  const long long n_tiles = ((P + kTileP - 1) / kTileP) * n_otiles;
-  if (batch > 65535 || n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(n_tiles),
-                  static_cast<unsigned>(batch));
-  gdn_kernel<<<grid, kGdnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, gamma_t, beta, out, C, P, n_otiles, inverse);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gdn(x, gamma_t, beta, out, batch, C, P, inverse, stream);
+}
+
+// x and out bf16, gamma_t and beta f32
+int stem_gdn_fused_bf16(const void* x, const float* gamma_t,
+                        const float* beta, void* out, long long batch, int C,
+                        long long P, int inverse, void* stream) {
+  return launch_gdn(static_cast<const __nv_bfloat16*>(x), gamma_t, beta,
+                    static_cast<__nv_bfloat16*>(out), batch, C, P, inverse,
+                    stream);
 }
 
 int stem_quantize_and_index_f32(const float* y, const float* means,

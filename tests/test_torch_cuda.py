@@ -3,21 +3,36 @@
 Marked ``cuda``: they skip without one. This file imports neither jax nor
 the JAX package, so it also runs on a machine that has only PyTorch:
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
+
+The fused bf16 kernels round the (I)GDN'd window to bf16 for the tensor
+cores, as the TPU kernels do, while the plain versions of the g_s pair keep
+it in f32 (pallas_kernels.py::_igdn_deconv_ref), and all sum in f32 in
+another order. That error grows with the output's magnitude, so each fused
+kernel is held to its plain version at max|out − plain| ≤ 2⁻⁶·max|plain|,
+and to the same arithmetic with the window rounded to bf16 (what the kernel
+computes) at ≤ 2⁻⁸·max|plain|: one bf16 step of the largest output. The
+bf16 ``gdn_fused`` differs from its plain version only in the f32 summation
+order, so by at most one bf16 step: rtol 2⁻⁷.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from spatiotemporalentropymodel_tpu_torch.entropy import get_scale_table
 from spatiotemporalentropymodel_tpu_torch.ops import kernels
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card, with the plain versions' f32 convs and products in full
+    f32 (no TF32)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (chip_smoke.py runs the same "
                     "checks at the serving shapes)")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     return torch.device("cuda")
 
 
@@ -84,4 +99,143 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
         kernels.gdn_fused(x.transpose(2, 3), g, b)
     with pytest.raises(ValueError):
         kernels.gdn_fused(x, torch.eye(4, device=cuda), b)
+    assert kernels.LAUNCHES == n0
+
+
+PLAIN_TOL, WINDOW_TOL = 2**-6, 2**-8
+
+
+def _assert_scaled_close(out, ref, tol):
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    assert err <= tol * scale, f"max err {err} > {tol} × max|ref| {scale}"
+
+
+def _window_bf16_conv(x, gt, beta, inverse, conv):
+    """The kernels' rounding points: (I)GDN in f32 rounded to bf16, then the
+    conv in f32 (``conv`` on the f32 window), then bf16."""
+    g = kernels._gdn_ref(x.float(), gt, beta, inverse).to(torch.bfloat16)
+    return conv(g.float()).to(torch.bfloat16)
+
+
+def _gdn_params(rng, c, device):
+    gt = (0.02 * rng.random((c, c)) + 0.1 * np.eye(c)).astype(np.float32)
+    beta = (1.0 + rng.random(c)).astype(np.float32)
+    return (torch.from_numpy(gt).to(device), torch.from_numpy(beta).to(device))
+
+
+def _bf16(rng, shape, device, scale=1.0):
+    a = (scale * rng.standard_normal(shape)).astype(np.float32)
+    return torch.from_numpy(a).to(device).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_gdn_fused_bf16_matches_plain(cuda):
+    rng = np.random.default_rng(6)
+    x = _bf16(rng, (2, 192, 24, 40), cuda)
+    gt, beta = _gdn_params(rng, 192, cuda)
+    n0 = dict(kernels.LAUNCHES)
+    for inverse in (False, True):
+        out = kernels.gdn_fused(x, gt, beta, inverse)
+        ref = kernels._gdn_ref(x.float(), gt, beta, inverse).to(x.dtype)
+        assert out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7,
+                                   atol=1e-6)
+    assert kernels.LAUNCHES["gdn_fused_bf16"] == n0["gdn_fused_bf16"] + 2
+    assert kernels.LAUNCHES["gdn_fused"] == n0["gdn_fused"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(64, 26, 38), (192, 17, 35)])
+def test_cuda_gdn_conv_fused_matches_plain(cuda, c, h, w):
+    """Odd and ragged sizes: partial output tiles on both edges."""
+    rng = np.random.default_rng(c + h)
+    x = _bf16(rng, (2, c, h, w), cuda)
+    gt, beta = _gdn_params(rng, c, cuda)
+    weight = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
+    bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(
+        cuda)
+    n0 = kernels.LAUNCHES["gdn_conv_fused"]
+    out = kernels.gdn_conv_fused(x, gt, beta, weight, bias)
+    ref = kernels._gdn_conv_ref(x, gt, beta, weight, bias)
+    win = _window_bf16_conv(x, gt, beta, False, lambda g: F.conv2d(
+        g, weight.float(), bias, 2, 2))
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (2, c, (h + 1) // 2, (w + 1) // 2)
+    _assert_scaled_close(out, ref, PLAIN_TOL)
+    _assert_scaled_close(out, win, WINDOW_TOL)
+    assert kernels.LAUNCHES["gdn_conv_fused"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(64, 12, 40), (192, 9, 33)])
+def test_cuda_igdn_deconv_pair_matches_plain(cuda, c, h, w):
+    """The wide N→N kernel, then the tail N→3 kernel on its output, each
+    against the plain version on the same input."""
+    rng = np.random.default_rng(c + w)
+    x = _bf16(rng, (2, c, h, w), cuda)
+    g1, b1 = _gdn_params(rng, c, cuda)
+    g2, b2 = _gdn_params(rng, c, cuda)
+    w1 = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
+    w2 = _bf16(rng, (c, 3, 5, 5), cuda, 0.05)
+    s1 = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    s2 = torch.from_numpy(rng.standard_normal(3).astype(np.float32)).to(cuda)
+    n0 = dict(kernels.LAUNCHES)
+    mid = kernels.igdn_deconv_wide_packed(x, g1, b1, w1, s1)
+    mid_ref = kernels._igdn_deconv_ref(x, g1, b1, w1, s1)
+    out = kernels.igdn_deconv_tail_packed(mid, g2, b2, w2, s2)
+    ref = kernels._igdn_deconv_ref(mid, g2, b2, w2, s2)
+    mid_win = _window_bf16_conv(x, g1, b1, True, lambda g: F.conv_transpose2d(
+        g, w1.float(), s1, 2, 2, 1))
+    win = _window_bf16_conv(mid, g2, b2, True, lambda g: F.conv_transpose2d(
+        g, w2.float(), s2, 2, 2, 1))
+    torch.cuda.synchronize()
+    assert mid.shape == (2, c, 2 * h, 2 * w)
+    assert out.shape == (2, 3, 4 * h, 4 * w)
+    _assert_scaled_close(mid, mid_ref, PLAIN_TOL)
+    _assert_scaled_close(mid, mid_win, WINDOW_TOL)
+    _assert_scaled_close(out, ref, PLAIN_TOL)
+    _assert_scaled_close(out, win, WINDOW_TOL)
+    assert (kernels.LAUNCHES["igdn_deconv_wide_packed"]
+            == n0["igdn_deconv_wide_packed"] + 1)
+    assert (kernels.LAUNCHES["igdn_deconv_tail_packed"]
+            == n0["igdn_deconv_tail_packed"] + 1)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_wrappers_reject_bad_inputs(cuda):
+    """Wrong dtype, shape, width or device raises; nothing launches and
+    nothing runs the plain version instead."""
+    rng = np.random.default_rng(8)
+    x = _bf16(rng, (1, 64, 8, 8), cuda)
+    gt, beta = _gdn_params(rng, 64, cuda)
+    wc = _bf16(rng, (64, 64, 5, 5), cuda)
+    bias = torch.zeros(64, device=cuda)
+    tail_w = _bf16(rng, (64, 3, 5, 5), cuda)
+    n0 = dict(kernels.LAUNCHES)
+    for fn, w_ok, b_ok in ((kernels.gdn_conv_fused, wc, bias),
+                           (kernels.igdn_deconv_wide_packed, wc, bias),
+                           (kernels.igdn_deconv_tail_packed, tail_w,
+                            bias[:3])):
+        with pytest.raises(TypeError):
+            fn(x.float(), gt, beta, w_ok, b_ok)
+        with pytest.raises(TypeError):
+            fn(x, gt, beta, w_ok.float(), b_ok)
+        with pytest.raises(ValueError):
+            fn(x.transpose(2, 3), gt, beta, w_ok, b_ok)
+        with pytest.raises(ValueError):
+            fn(x, gt[:32, :32].contiguous(), beta, w_ok, b_ok)
+        with pytest.raises(ValueError):
+            fn(x, gt, beta, w_ok.cpu(), b_ok)
+    with pytest.raises(ValueError):  # no kernel for 48 channels
+        x48 = _bf16(rng, (1, 48, 8, 8), cuda)
+        g48, b48 = _gdn_params(rng, 48, cuda)
+        kernels.gdn_conv_fused(x48, g48, b48, _bf16(rng, (48, 48, 5, 5), cuda),
+                               torch.zeros(48, device=cuda))
+    with pytest.raises(ValueError):  # the tail takes at most 4 outputs
+        kernels.igdn_deconv_tail_packed(x, gt, beta,
+                                        _bf16(rng, (64, 8, 5, 5), cuda),
+                                        torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError):  # bf16 gdn_fused needs f32 γᵀ and β
+        kernels.gdn_fused(x, gt.to(torch.bfloat16), beta)
     assert kernels.LAUNCHES == n0
