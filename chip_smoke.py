@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's P-frame serving paths, f32 and
-bf16.
+"""On-card check of the PyTorch/CUDA port's serving paths: the P-frame path
+in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, and
+the I-frame codec.
 
     python3 chip_smoke.py
 
@@ -17,12 +18,13 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 gdn_fused f32 (rtol 1e-5, atol 1e-6) and bf16 (rtol 2⁻⁷: one
                 bf16 step); quantize_and_index exact, with crafted ties,
                 saturation and table-edge scales; gdn_conv_fused at g_a's
-                three stages, igdn_deconv_wide_packed at 272×480 and
-                igdn_deconv_tail_packed at 544×960, each at
+                three stages, igdn_deconv_wide_packed at 272×480,
+                igdn_deconv_tail_packed at 544×960, igdn_deconv_wide at
+                136×240 and igdn_deconv_fused at 544×960, each at
                 max|kernel − plain| ≤ 2⁻⁶·max|plain| (the kernels round the
                 (I)GDN'd window to bf16 for the tensor cores; the plain g_s
                 versions keep it f32, as the JAX refs do).
-  4. slices   — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
+  4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
                 then StemVideoPipeline(sparse) encodes 3 P-frames of
                 4×3×1088×1920 with encode_frames and decodes them with
@@ -30,8 +32,15 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 set_compute_dtype(bf16) on both models. In each, every frame
                 must take the sparse transport, the encoder's carried ŷ must
                 equal the decoder's ŷ exactly, x̂ must be finite and of the
-                right shape, bpp finite and below 1, and each kernel must
-                have launched exactly as often as the path calls it.
+                right shape, bpp finite and below 1. Then, on the bf16
+                models: bf16_wide decodes the same streams under the wide
+                knobs (ops/kernels.py::WIDE_KNOBS), with ŷ equal to the
+                default decode's, mean|Δx̂| ≤ 2e-3 and the unclamped g_s
+                outputs within 2⁻⁵·max|default|; iframe_bf16 and
+                iframe_bf16_wide compress and decompress frame 0 with the
+                I-frame codec, with encoder ŷ == decoder ŷ and streams that
+                repeat. On every path each kernel must have launched exactly
+                as often as the path calls it.
   5. report   — one JSON line of kernels, then the card, then the result line.
 
 Exits non-zero, printing no result line, on any failure.
@@ -42,6 +51,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 B, H, W = 4, 1088, 1920
 N = M = 192
@@ -53,6 +63,15 @@ BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM, bf16 dense on the tensor cores
 GDN_RTOL, GDN_ATOL = 1e-5, 1e-6
 GDN_BF16_RTOL = 2**-7  # one bf16 step: only the f32 summation order differs
 FUSED_TOL = 2**-6  # max|kernel − plain| ≤ FUSED_TOL · max|plain|
+# the wide path: mean|x̂_wide − x̂_default| (the mean criterion of
+# tests/test_torch_bf16_pipeline.py), and max|Δ| of the unclamped g_s outputs
+# over max|default| (FUSED_TOL's scale, doubled for one differing stage
+# carried through two more)
+WIDE_X_MEAN = 2e-3
+WIDE_GS_TOL = 2**-5
+KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
+           "gdn_conv_fused", "igdn_deconv_wide_packed",
+           "igdn_deconv_tail_packed", "igdn_deconv_fused", "igdn_deconv_wide")
 PK = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
 CSRC = "spatiotemporalentropymodel_tpu_torch/ops/csrc"
 
@@ -87,6 +106,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def timed_ms(torch, fn):
+    """(host ms of fn() between two synchronisations, its result)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3, out
 
 
 def bound(bytes_moved: float, ops: float, tc_ops: float = 0.0):
@@ -317,49 +345,74 @@ def check_gdn_conv(torch, F, kernels):
                                   "bound_by", "shape")})
 
 
+def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
+    """One IGDN → k5 s2 deconv kernel C → f on x against its plain version,
+    with its times, bound and library yardstick. Returns (row, output)."""
+    c = x.shape[1]
+    gamma_t, beta = _gdn_params(torch, gen, c)
+    weight = _kaiming(torch, gen, (c, f, 5, 5), 25 * c)
+    bias = 0.1 * torch.randn((f,), generator=gen, device="cuda")
+    out = fn(x, gamma_t, beta, weight, bias)
+    ref = kernels._igdn_deconv_ref(x, gamma_t, beta, weight, bias)
+    torch.cuda.synchronize()
+    err = _scaled_err(torch, out, ref, name)
+    del ref
+    g = kernels._gdn_ref(x.float(), gamma_t, beta, True).to(torch.bfloat16)
+    bias16 = bias.to(torch.bfloat16)
+    pix = x.numel() // c
+    b_ms, b_by = bound(
+        x.numel() * 2 + out.numel() * 2 + c * f * 25 * 2 + c * c * 4
+        + (c + f) * 4,
+        _norm_ops(pix, c), 2 * pix * c * f * 25)
+    row = dict(
+        max_abs_err=err, shape=list(x.shape),
+        ms=cuda_ms(lambda: fn(x, gamma_t, beta, weight, bias)),
+        plain_ms=cuda_ms(lambda: kernels._igdn_deconv_ref(
+            x, gamma_t, beta, weight, bias)),
+        library_ms=cuda_ms(lambda: F.conv_transpose2d(
+            g, weight, bias16, 2, 2, 1)),
+        bound_ms=b_ms, bound_by=b_by)
+    log(f"    {name} {tuple(x.shape)} → {f}: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in row.items() if k.endswith("ms")))
+    del g
+    return row, out
+
+
 def check_gs_pair(torch, F, kernels):
     """igdn_deconv_wide_packed at 272×480 → 544×960 (N→N), then
     igdn_deconv_tail_packed on its output, 544×960 → 1088×1920 (N→3)."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    c = N
-    x = torch.randn((B, c, H // 4, W // 4), generator=gen,
+    x = torch.randn((B, N, H // 4, W // 4), generator=gen,
                     device="cuda").to(torch.bfloat16)
-    rows = []
-    for name, fn, f in (("igdn_deconv_wide_packed",
-                         kernels.igdn_deconv_wide_packed, c),
-                        ("igdn_deconv_tail_packed",
-                         kernels.igdn_deconv_tail_packed, 3)):
-        gamma_t, beta = _gdn_params(torch, gen, c)
-        weight = _kaiming(torch, gen, (c, f, 5, 5), 25 * c)
-        bias = 0.1 * torch.randn((f,), generator=gen, device="cuda")
-        out = fn(x, gamma_t, beta, weight, bias)
-        ref = kernels._igdn_deconv_ref(x, gamma_t, beta, weight, bias)
-        torch.cuda.synchronize()
-        err = _scaled_err(torch, out, ref, name)
-        del ref
-        g = kernels._gdn_ref(x.float(), gamma_t, beta,
-                             True).to(torch.bfloat16)
-        bias16 = bias.to(torch.bfloat16)
-        pix = x.numel() // c
-        b_ms, b_by = bound(
-            x.numel() * 2 + out.numel() * 2 + c * f * 25 * 2 + c * c * 4
-            + (c + f) * 4,
-            _norm_ops(pix, c), 2 * pix * c * f * 25)
-        rows.append(dict(
-            max_abs_err=err, shape=list(x.shape),
-            ms=cuda_ms(lambda: fn(x, gamma_t, beta, weight, bias)),
-            plain_ms=cuda_ms(lambda: kernels._igdn_deconv_ref(
-                x, gamma_t, beta, weight, bias)),
-            library_ms=cuda_ms(lambda: F.conv_transpose2d(
-                g, weight, bias16, 2, 2, 1)),
-            bound_ms=b_ms, bound_by=b_by))
-        log(f"    {name} {tuple(x.shape)}: " + ", ".join(
-            f"{k} {v:.3f}" for k, v in rows[-1].items() if k.endswith("ms")))
-        del g
-        x = out  # the tail reads the wide kernel's output, as on the path
+    wide, mid = _igdn_deconv_row(torch, F, kernels,
+                                 "igdn_deconv_wide_packed",
+                                 kernels.igdn_deconv_wide_packed, x, N, gen)
+    del x
+    # the tail reads the wide kernel's output, as on the path
+    tail, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_tail_packed",
+                               kernels.igdn_deconv_tail_packed, mid, 3, gen)
+    del mid
+    torch.cuda.empty_cache()
+    return wide, tail
+
+
+def check_gs_lone(torch, F, kernels):
+    """The wide chain's kernels at their first and last shapes:
+    igdn_deconv_wide at 136×240 → 272×480 (N→N; 240 columns leave a
+    partial 32-column tile) and igdn_deconv_fused at 544×960 → 1088×1920
+    (N→3)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((B, N, H // 8, W // 8), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    wide, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_wide",
+                               kernels.igdn_deconv_wide, x, N, gen)
+    x = torch.randn((B, N, H // 2, W // 2), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    fused, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_fused",
+                                kernels.igdn_deconv_fused, x, 3, gen)
     del x
     torch.cuda.empty_cache()
-    return rows
+    return fused, wide
 
 
 def expected_launches(bf16: bool):
@@ -367,9 +420,7 @@ def expected_launches(bf16: bool):
     runs 3 GDN stages per frame, g_s 3 IGDN stages, the STEM one quantizer;
     at bf16 g_a's stages fuse into their convs and g_s's last two into the
     packed pair, leaving its first IGDN to gdn_fused's bf16 entry."""
-    want = dict.fromkeys(("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
-                          "gdn_conv_fused", "igdn_deconv_wide_packed",
-                          "igdn_deconv_tail_packed"), 0)
+    want = dict.fromkeys(KERNELS, 0)
     want["quantize_and_index"] = P_FRAMES
     if bf16:
         want.update(gdn_conv_fused=3 * P_FRAMES, gdn_fused_bf16=P_FRAMES,
@@ -402,6 +453,7 @@ def run_slice(torch, kernels, card, bf16: bool):
     y_cond = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
                                device="cuda")
     factor = match_latent_to_prior(imodel, stem, frames[0], y_cond)
+    imodel.update()  # the I-frame codec's tables (the bf16_wide phase)
     if bf16:  # after the surgery and update(), as set_compute_dtype needs
         imodel.set_compute_dtype(torch.bfloat16)
         stem.set_compute_dtype(torch.bfloat16)
@@ -465,13 +517,7 @@ def run_slice(torch, kernels, card, bf16: bool):
         f"exactly on {P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
 
     # ---- stage breakdown (synchronised, median of 3) ----
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3, out
-
+    timed = partial(timed_ms, torch)
     stages = {k: [] for k in ("g_a", "enc_dispatch", "host_rans_enc",
                               "host_rans_dec", "dec_dispatch")}
     x = frames[0]
@@ -494,6 +540,113 @@ def run_slice(torch, kernels, card, bf16: bool):
         f"({P_FRAMES}×{B} frames of {H}×{W}, encode+decode), stage ms "
         + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
         + f" | card: {card}")
+    return launches, dict(imodel=imodel, pipe=pipe, frames=frames,
+                          y_cond=y_cond, encs=encs, decoded=decoded,
+                          dec_dispatch_ms=med["dec_dispatch"])
+
+
+def _want(**counts):
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(counts)
+    return want
+
+
+def _check_launches(kernels, tag, want):
+    got = dict(kernels.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    return got
+
+
+def run_wide_decode(torch, kernels, card, ctx):
+    """bf16_wide: the bf16 slice's P-frames decoded again under the JAX
+    package's wide knobs, where g_s runs igdn_deconv_wide twice and
+    igdn_deconv_fused once, held against the default decode."""
+    pipe, encs, y_cond = ctx["pipe"], ctx["encs"], ctx["y_cond"]
+    g_s = ctx["imodel"].module.g_s
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with kernels.knobs(**kernels.WIDE_KNOBS):
+        decoded = list(pipe.decode_frames(encs, y_cond))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _check_launches(kernels, "bf16_wide", _want(
+        igdn_deconv_wide=2 * P_FRAMES, igdn_deconv_fused=P_FRAMES))
+    log(f"  bf16_wide decode: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
+        f"launches {launches}")
+    for i, ((x_w, y_w), (x_d, y_d)) in enumerate(zip(decoded,
+                                                     ctx["decoded"])):
+        if not torch.equal(y_w, y_d):
+            raise AssertionError(f"bf16_wide frame {i}: ŷ differs from the "
+                                 f"default decode's")
+        if (tuple(x_w.shape) != (B, 3, H, W)
+                or not bool(torch.isfinite(x_w).all())):
+            raise AssertionError(f"bf16_wide frame {i}: x̂ of shape "
+                                 f"{tuple(x_w.shape)} or not finite")
+        mean = float((x_w.float() - x_d.float()).abs().mean())
+        log(f"    frame {i}: mean|x̂_wide − x̂_default| {mean:.3e} "
+            f"(limit {WIDE_X_MEAN:.0e})")
+        if mean > WIDE_X_MEAN:
+            raise AssertionError(f"bf16_wide frame {i}: x̂ mean difference "
+                                 f"{mean} > {WIDE_X_MEAN}")
+    # frame 0's ŷ through g_s under both knob sets, before the clamp
+    y0 = ctx["imodel"]._cast_in(ctx["decoded"][0][1])
+    with torch.no_grad():
+        ref = g_s(y0).float()
+        with kernels.knobs(**kernels.WIDE_KNOBS):
+            out = g_s(y0).float()
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    log(f"    g_s(ŷ₀) unclamped: max|Δ| {err:.4g}, max|default| {scale:.4g}, "
+        f"ratio {err / scale:.3e} (limit {WIDE_GS_TOL:.3e})")
+    if not err <= WIDE_GS_TOL * scale:
+        raise AssertionError("bf16_wide: g_s outputs differ beyond the "
+                             "tolerance")
+    host = pipe._host_decode_sparse(encs[0])
+    times = []
+    with kernels.knobs(**kernels.WIDE_KNOBS):
+        for _ in range(3):
+            times.append(timed_ms(torch, lambda: pipe._device_decode_sparse(
+                *host, y_cond))[0])
+    log(f"  bf16_wide checks: launches exact, ŷ == default ŷ on {P_FRAMES} "
+        f"frames, x̂ finite and close; dec_dispatch ms {sorted(times)[1]:.2f}"
+        f" (wide) vs {ctx['dec_dispatch_ms']:.2f} (default) | card: {card}")
+    return launches
+
+
+def run_iframe(torch, kernels, card, ctx, wide: bool):
+    """The I-frame codec on frames[0] in bf16: compress, decompress, under
+    the default or the wide knobs."""
+    tag = "iframe_bf16_wide" if wide else "iframe_bf16"
+    imodel, x = ctx["imodel"], ctx["frames"][0]
+    with kernels.knobs(**(kernels.WIDE_KNOBS if wide else {})):
+        imodel.decompress(**imodel.compress(x))  # warm-up (cuDNN set-up)
+        kernels.reset_launch_counts()
+        ms_c, enc = timed_ms(torch, lambda: imodel.compress(x))
+        ms_d, dec = timed_ms(torch, lambda: imodel.decompress(**enc))
+        gs = (dict(igdn_deconv_wide=2, igdn_deconv_fused=1) if wide else
+              dict(gdn_fused_bf16=1, igdn_deconv_wide_packed=1,
+                   igdn_deconv_tail_packed=1))
+        launches = _check_launches(kernels, tag, _want(
+            gdn_conv_fused=3, quantize_and_index=1, **gs))
+        _, y_enc = imodel.fused_encode_expr(x)
+        if imodel.compress(x)["strings"] != enc["strings"]:
+            raise AssertionError(f"{tag}: streams differ between two "
+                                 f"compress calls")
+    if not torch.equal(y_enc, dec["y_hat"]):
+        diff = int((y_enc != dec["y_hat"]).sum())
+        raise AssertionError(f"{tag}: encoder ŷ != decoder ŷ at {diff} "
+                             f"elements")
+    x_hat = dec["x_hat"]
+    if (tuple(x_hat.shape) != (B, 3, H, W) or x_hat.dtype != torch.bfloat16
+            or not bool(torch.isfinite(x_hat).all())):
+        raise AssertionError(f"{tag}: x̂ {tuple(x_hat.shape)} "
+                             f"{x_hat.dtype}, or not finite")
+    bpp = sum(len(s) for g in enc["strings"] for s in g) * 8 / (B * H * W)
+    if bpp != bpp or bpp <= 0:
+        raise AssertionError(f"{tag}: bpp {bpp}")
+    log(f"  {tag}: compress {ms_c:.2f} ms, decompress {ms_d:.2f} ms "
+        f"({B}×3×{H}×{W}), bpp {bpp:.5f}, encoder ŷ == decoder ŷ, streams "
+        f"repeat, launches {launches} | card: {card}")
     return launches
 
 
@@ -547,6 +700,9 @@ def main() -> int:
     wide, tail = check_gs_pair(torch, F, kernels)
     results["igdn_deconv_wide_packed"] = wide
     results["igdn_deconv_tail_packed"] = tail
+    fused, wide = check_gs_lone(torch, F, kernels)
+    results["igdn_deconv_fused"] = fused
+    results["igdn_deconv_wide"] = wide
     for name, res in results.items():
         lib = res["library_ms"]
         log(f"  {name}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, "
@@ -562,8 +718,21 @@ def main() -> int:
         tag = "bf16" if bf16 else "f32"
         log(f"[4/5] slice: StemVideoPipeline(sparse), {tag}, "
             f"{P_FRAMES} P-frames of {B}×3×{H}×{W}")
-        by_path[tag] = run_slice(torch, kernels, card, bf16)
+        by_path[tag], ctx = run_slice(torch, kernels, card, bf16)
+        if not bf16:
+            del ctx
         torch.cuda.empty_cache()
+    log(f"[4/5] slice: the bf16 models under the wide knobs "
+        f"{kernels.WIDE_KNOBS}: P-frame decode, then the I-frame codec")
+    by_path["bf16_wide"] = run_wide_decode(torch, kernels, card, ctx)
+    for wide in (False, True):
+        tag = "iframe_bf16_wide" if wide else "iframe_bf16"
+        by_path[tag] = run_iframe(torch, kernels, card, ctx, wide)
+    if (kernels.FUSE_GS_PACKED, kernels.FUSE_IGDN_DECONV_WIDE) != (True,
+                                                                   False):
+        raise AssertionError("the default knobs were not restored")
+    del ctx
+    torch.cuda.empty_cache()
 
     # ---- 5. report ----
     replaces = {
@@ -573,6 +742,8 @@ def main() -> int:
         "gdn_conv_fused": (f"{PK}:945", "gdn_conv.cu"),
         "igdn_deconv_wide_packed": (f"{PK}:1389", "igdn_deconv.cu"),
         "igdn_deconv_tail_packed": (f"{PK}:1561", "igdn_deconv.cu"),
+        "igdn_deconv_fused": (f"{PK}:387", "igdn_deconv.cu"),
+        "igdn_deconv_wide": (f"{PK}:1267", "igdn_deconv.cu"),
     }
     rows = []
     for name, res in results.items():

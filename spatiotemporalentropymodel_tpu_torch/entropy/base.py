@@ -130,6 +130,18 @@ def decompress(
     return out
 
 
+def unpack_symbol_buffer(packed, y_shape, z_shape):
+    """Split a fused-encoder byte buffer [y int16][z int16][idx u8] into
+    (y_sym int16, z_sym int16, idx int32) planes (zero-copy views + one cast)."""
+    packed = np.asarray(packed)
+    ny = int(np.prod(y_shape))
+    nz = int(np.prod(z_shape))
+    y_sym = packed[: 2 * ny].view(np.int16).reshape(y_shape)
+    z_sym = packed[2 * ny : 2 * (ny + nz)].view(np.int16).reshape(z_shape)
+    idx = packed[2 * (ny + nz) :].reshape(y_shape).astype(np.int32)
+    return y_sym, z_sym, idx
+
+
 def bottleneck_indexes(shape, channels: int) -> np.ndarray:
     """Channel-broadcast CDF indexes for EntropyBottleneck coding
     (entropy_models.py:454-459), NHWC: shape = (B, H, W, C)."""

@@ -24,7 +24,7 @@ import torch
 
 from ..entropy import base as entropy_base
 from ..entropy import transport
-from ..models.stem import _to_nchw
+from ..models.base import _to_nchw
 
 
 def _shape4(y):

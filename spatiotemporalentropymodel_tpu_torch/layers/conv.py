@@ -73,47 +73,58 @@ def _k5s2(layer, cls) -> bool:
 class Sequential(nn.Module):
     """Chain of layers (parameter names ``layers.<i>.*``) with the JAX
     package's peepholes (layers/conv.py::Sequential there), which fire on
-    bf16 inputs only, so an f32 chain runs layer by layer:
+    bf16 inputs only, so an f32 chain runs layer by layer. In the JAX
+    package's order, each under its knob (``ops/kernels.py::FUSE_*``, read
+    at every call):
 
-      * IGDN → Deconv(k5s2) → IGDN → Deconv(k5s2, ≤ 4 outputs), g_s's last
-        two stages: ``igdn_deconv_wide_packed`` then
-        ``igdn_deconv_tail_packed``;
-      * GDN → Conv(k5s2), g_a's stages: ``gdn_conv_fused``.
+      1. IGDN → Deconv(k5s2) → IGDN → Deconv(k5s2, ≤ 4 outputs), g_s's last
+         two stages (``FUSE_GS_PACKED``): ``igdn_deconv_wide_packed`` then
+         ``igdn_deconv_tail_packed``;
+      2. GDN → Conv(k5s2), g_a's stages (``FUSE_GDN_CONV``):
+         ``gdn_conv_fused``;
+      3. a lone IGDN → Deconv(k5s2, ≤ 32 outputs) (``FUSE_IGDN_DECONV``):
+         ``igdn_deconv_fused``;
+      4. a lone IGDN → Deconv(k5s2, N→N) (``FUSE_IGDN_DECONV_WIDE``, off by
+         default): ``igdn_deconv_wide``.
 
-    They are tried in the JAX package's order. The gates are the widths the
-    port's kernels take (``ops/kernels.py::*_supported``), not the TPU's lane
-    and VMEM rules; on the CPU the wrappers run their plain versions behind
-    the same gates. The fused paths read the layers' own parameters, so the
-    parameters and state-dict keys are those of the plain chain.
+    The gates are the widths the port's kernels take
+    (``ops/kernels.py::*_supported``), not the TPU's lane and VMEM rules; on
+    the CPU the wrappers run their plain versions behind the same gates. The
+    fused paths read the layers' own parameters, so the parameters and
+    state-dict keys are those of the plain chain.
     """
 
     def __init__(self, layers):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
-    def _packed_pair_at(self, i, x) -> bool:
-        from .gdn import GDN
-
-        if i + 3 >= len(self.layers):
-            return False
-        g2, d2, g3, d3 = self.layers[i:i + 4]
-        return (isinstance(g2, GDN) and g2.inverse and _k5s2(d2, Deconv)
-                and isinstance(g3, GDN) and g3.inverse and _k5s2(d3, Deconv)
-                and kernels.igdn_deconv_wide_supported(x.shape[1],
-                                                       d2.weight.shape[1])
-                and kernels.igdn_deconv_tail_supported(d2.weight.shape[1],
-                                                       d3.weight.shape[1]))
-
-    def _gdn_conv_at(self, i, x) -> bool:
+    def _pair_at(self, i, inverse: bool, cls) -> bool:
+        """layers[i], layers[i + 1] are a (I)GDN and a k5 s2 ``cls``."""
         from .gdn import GDN
 
         if i + 1 >= len(self.layers):
             return False
         gdn, conv = self.layers[i], self.layers[i + 1]
-        return (isinstance(gdn, GDN) and not gdn.inverse
-                and _k5s2(conv, Conv)
-                and kernels.gdn_conv_supported(x.shape[1],
-                                               conv.weight.shape[0]))
+        return (isinstance(gdn, GDN) and gdn.inverse == inverse
+                and _k5s2(conv, cls))
+
+    def _packed_pair_at(self, i, x) -> bool:
+        if not (kernels.FUSE_GS_PACKED and self._pair_at(i, True, Deconv)
+                and self._pair_at(i + 2, True, Deconv)):
+            return False
+        mid = self.layers[i + 1].weight.shape[1]
+        return (kernels.igdn_deconv_wide_supported(x.shape[1], mid)
+                and kernels.igdn_deconv_tail_supported(
+                    mid, self.layers[i + 3].weight.shape[1]))
+
+    def _gdn_conv_at(self, i, x) -> bool:
+        return (kernels.FUSE_GDN_CONV and self._pair_at(i, False, Conv)
+                and kernels.gdn_conv_supported(
+                    x.shape[1], self.layers[i + 1].weight.shape[0]))
+
+    def _igdn_deconv_at(self, i, x, knob, supported) -> bool:
+        return (knob and self._pair_at(i, True, Deconv)
+                and supported(x.shape[1], self.layers[i + 1].weight.shape[1]))
 
     def forward(self, x):
         layers, i = self.layers, 0
@@ -126,12 +137,22 @@ class Sequential(nn.Module):
                 x = kernels.igdn_deconv_tail_packed(
                     x, *g3.kernel_weights(), d3.weight, d3.bias.float())
                 i += 4
-            elif fusable and self._gdn_conv_at(i, x):
-                gdn, conv = layers[i], layers[i + 1]
-                x = kernels.gdn_conv_fused(x, *gdn.kernel_weights(),
-                                           conv.weight, conv.bias.float())
-                i += 2
+                continue
+            if fusable and self._gdn_conv_at(i, x):
+                fused = kernels.gdn_conv_fused
+            elif fusable and self._igdn_deconv_at(
+                    i, x, kernels.FUSE_IGDN_DECONV,
+                    kernels.igdn_deconv_fused_supported):
+                fused = kernels.igdn_deconv_fused
+            elif fusable and self._igdn_deconv_at(
+                    i, x, kernels.FUSE_IGDN_DECONV_WIDE,
+                    kernels.igdn_deconv_wide_supported):
+                fused = kernels.igdn_deconv_wide
             else:
                 x = layers[i](x)
                 i += 1
+                continue
+            gdn, conv = layers[i], layers[i + 1]
+            x = fused(x, *gdn.kernel_weights(), conv.weight, conv.bias.float())
+            i += 2
         return x

@@ -13,6 +13,7 @@ Counterpart of spatiotemporalentropymodel_tpu/models/base.py
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from ..coders import get_coder
@@ -21,6 +22,31 @@ from ..entropy import (
     update_bottleneck_tables,
     update_gaussian_tables,
 )
+from ..ops import kernels
+
+
+def _nhwc_flat(t, b):
+    """NCHW (b, c, h, w) → (b, h·w·c) in the JAX package's NHWC order."""
+    return t.permute(0, 2, 3, 1).reshape(b, -1)
+
+
+def _as_bytes(t):
+    return t.contiguous().view(torch.uint8).reshape(-1)
+
+
+def _nchw(t, dtype=torch.float32):
+    """A ``dtype`` copy with the canonical NCHW strides. ``.contiguous()`` is
+    not enough: a permuted tensor with a size-1 dimension counts as
+    contiguous yet keeps channels-last strides, which steer the convs to
+    other algorithms, and then the decoder's (σ, μ) and ŷ would differ from
+    the encoder's in the last bit."""
+    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+
+
+def _to_nchw(plane_nhwc: np.ndarray, device):
+    """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
+    t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))
+    return _nchw(t.to(device).permute(0, 3, 1, 2), torch.int32)
 
 
 class CompressionModel:
@@ -62,6 +88,14 @@ class CompressionModel:
             if p.is_floating_point():
                 p.data = p.data.to(target)
 
+    def _cast(self, t):
+        """A net input in the compute dtype, with the canonical NCHW
+        strides on encoder and decoder alike (see ``_nchw``); f32 inputs
+        pass as they are when no compute dtype is set."""
+        if self.compute_dtype is None:
+            return t
+        return _nchw(t, self.compute_dtype)
+
     def _cast_in(self, t):
         """An input in the compute dtype (models/base.py:114-119)."""
         if self.compute_dtype is not None and t.is_floating_point():
@@ -83,6 +117,16 @@ class CompressionModel:
                 scale_table = get_scale_table()
             self.tables["gaussian_conditional"] = update_gaussian_tables(
                 scale_table
+            )
+        # device copies of the constants every frame reads (an upload per
+        # frame would also sync the stream)
+        self._medians = torch.as_tensor(
+            self.tables["entropy_bottleneck"].medians, dtype=torch.float32,
+            device=self.device,
+        ).view(1, -1, 1, 1)
+        if self.has_gaussian:
+            self._scale_table = kernels.scale_table_tensor(
+                self.tables["gaussian_conditional"].scale_table, self.device
             )
         return True
 

@@ -32,24 +32,7 @@ from ..entropy import base as entropy_base
 from ..entropy.transport import sparse_capacity
 from ..layers import Conv, Deconv, Sequential
 from ..ops import kernels
-from .base import CompressionModel
-
-def _nhwc_flat(t, b):
-    """NCHW (b, c, h, w) → (b, h·w·c) in the JAX package's NHWC order."""
-    return t.permute(0, 2, 3, 1).reshape(b, -1)
-
-
-def _as_bytes(t):
-    return t.contiguous().view(torch.uint8).reshape(-1)
-
-
-def _nchw(t, dtype=torch.float32):
-    """A ``dtype`` copy with the canonical NCHW strides. ``.contiguous()`` is
-    not enough: a permuted tensor with a size-1 dimension counts as
-    contiguous yet keeps channels-last strides, which steer the convs to
-    other algorithms, and then the decoder's (σ, μ) and ŷ would differ from
-    the encoder's in the last bit."""
-    return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
+from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
 
 class STEMModule(nn.Module):
@@ -108,30 +91,9 @@ class SpatioTemporalPriorModel(CompressionModel):
         )
         self.in_channels = in_channels
 
-    def update(self, scale_table=None, force: bool = False) -> bool:
-        done = super().update(scale_table, force)
-        # device copies of the constants every frame reads (an upload per
-        # frame would also sync the stream)
-        self._medians = torch.as_tensor(
-            self.tables["entropy_bottleneck"].medians, dtype=torch.float32,
-            device=self.device,
-        ).view(1, -1, 1, 1)
-        self._scale_table = kernels.scale_table_tensor(
-            self.tables["gaussian_conditional"].scale_table, self.device
-        )
-        return done
-
     @property
     def levels(self) -> int:
         return int(self._scale_table.numel())
-
-    def _cast(self, t):
-        """A net input in the compute dtype, with the canonical NCHW
-        strides on encoder and decoder alike (see ``_nchw``); f32 inputs
-        pass as they are when no compute dtype is set."""
-        if self.compute_dtype is None:
-            return t
-        return _nchw(t, self.compute_dtype)
 
     def _entropy_params_f32(self, z_sym, y_cond_c):
         """(σ, μ) in f32 from the f32 symbols of ẑ and the cast y_cond."""
@@ -289,11 +251,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         zt = self.tables["entropy_bottleneck"]
         zc = zt.rows
         packed = self.fused_encode_expr(y_cur, y_conditioned).cpu().numpy()
-        ny, nz = b * hgt * wid * m, b * zh * zw * zc
-        y_sym = packed[: 2 * ny].view(np.int16).reshape(b, hgt, wid, m)
-        z_sym = packed[2 * ny: 2 * (ny + nz)].view(np.int16).reshape(
-            b, zh, zw, zc)
-        idx = packed[2 * (ny + nz):].reshape(b, hgt, wid, m).astype(np.int32)
+        y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
+            packed, (b, hgt, wid, m), (b, zh, zw, zc))
         z_idx = entropy_base.bottleneck_indexes(z_sym.shape, zc)
         z_strings = entropy_base.compress(z_sym.astype(np.int32), z_idx, zt,
                                           self.coder)
@@ -322,10 +281,3 @@ class SpatioTemporalPriorModel(CompressionModel):
         y_hat = self.fused_reconstruct_expr(
             _to_nchw(y_sym, self.device), means, y_conditioned)
         return {"y_hat": y_hat}
-
-
-def _to_nchw(plane_nhwc: np.ndarray, device):
-    """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
-    t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))
-    t = t.to(device).permute(0, 3, 1, 2)
-    return torch.empty(t.shape, dtype=torch.int32, device=device).copy_(t)

@@ -1,7 +1,7 @@
 """The serving paths' kernels: CUDA wrappers and their plain versions.
 
-Counterpart of spatiotemporalentropymodel_tpu/ops/pallas_kernels.py for the
-Pallas kernels that the f32 and bf16 P-frame paths engage:
+Counterpart of spatiotemporalentropymodel_tpu/ops/pallas_kernels.py, one
+wrapper per Pallas kernel:
 
   * ``gdn_fused``          — GDN/IGDN ``x · rsqrt(β + x²·γᵀ)`` (``sqrt`` for
     IGDN) over the channel axis, f32 math, f32 or bf16 I/O (``_gdn_ref`` is
@@ -14,6 +14,10 @@ Pallas kernels that the f32 and bf16 P-frame paths engage:
     into g_s's last two k5 s2 transposed convs, N→N then N→3, bf16
     (``_igdn_deconv_ref``). On the TPU the pair passes a phase-major packed
     tensor; here the tensor between them is the logical NCHW output.
+  * ``igdn_deconv_wide`` / ``igdn_deconv_fused`` — the lone IGDN → k5 s2
+    transposed conv, wide (N→N) and narrow (N→F, F ≤ 32), bf16
+    (``_igdn_deconv_ref``). They run the same CUDA kernels as the packed
+    pair, since the port's pair already writes and reads the logical layout.
 
 Each wrapper launches its hand-written kernel (csrc/*.cu) for a CUDA
 tensor and runs the plain PyTorch version only for a tensor on the CPU, where
@@ -22,10 +26,18 @@ the tests run. On a CUDA tensor it launches or raises; it never falls back.
 as ``gdn_fused_bf16``), so a caller can show that a path went through the
 kernels. The kernels' layout is the port's: channel-second (NCHW) for the
 GDN and conv kernels, any layout for the elementwise quantizer.
+
+Every wrapper but ``quantize_and_index`` (integer outputs) is differentiable
+on both devices: its backward recomputes the plain version and differentiates
+it, as the JAX package's ``custom_vjp`` rules do (``_KernelFn``).
+
+The ``FUSE_*`` knobs mirror the JAX package's A/B knobs of the same names,
+with its defaults; ``layers/conv.py::Sequential`` reads them at every call.
 """
 
+import contextlib
 import ctypes
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
@@ -41,11 +53,41 @@ LAUNCHES = {
     "gdn_conv_fused": 0,
     "igdn_deconv_wide_packed": 0,
     "igdn_deconv_tail_packed": 0,
+    "igdn_deconv_fused": 0,
+    "igdn_deconv_wide": 0,
 }
 
 # channel counts the fused GDN + conv kernels are instantiated for
 # (gdn_conv.cu, igdn_deconv.cu)
 FUSED_CHANNELS = (64, 128, 192)
+
+# the JAX package's peephole knobs (pallas_kernels.py:1341, :513, :262,
+# :1151), with its defaults
+FUSE_GS_PACKED = True
+FUSE_GDN_CONV = True
+FUSE_IGDN_DECONV = True
+FUSE_IGDN_DECONV_WIDE = False
+
+# the JAX package's "wide" g_s chain (tools/gs_packed_tune.py): the lone
+# IGDN→Deconv pairs in place of the packed quadruple
+WIDE_KNOBS = {"FUSE_GS_PACKED": False, "FUSE_IGDN_DECONV": True,
+              "FUSE_IGDN_DECONV_WIDE": True}
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Set ``FUSE_*`` knobs for the length of a ``with`` block, e.g.
+    ``with knobs(**WIDE_KNOBS):``; the old values come back after it."""
+    g = globals()
+    unknown = [k for k in values if not k.startswith("FUSE_") or k not in g]
+    if unknown:
+        raise KeyError(f"unknown knobs {unknown}")
+    old = {k: g[k] for k in values}
+    g.update(values)
+    try:
+        yield
+    finally:
+        g.update(old)
 
 
 def reset_launch_counts() -> None:
@@ -62,10 +104,12 @@ def _lib():
     for name in ("stem_gdn_fused_f32", "stem_gdn_fused_bf16"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp, vp, vp, vp, i64, i32, i64, i32, vp]
-    for name in ("stem_gdn_conv_fused_bf16", "stem_igdn_deconv_wide_bf16",
-                 "stem_igdn_deconv_tail_bf16"):
+    for name in ("stem_gdn_conv_fused_bf16", "stem_igdn_deconv_wide_bf16"):
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = [vp] * 6 + [i64, i32, i32, i32, i32, vp]
+    lib.stem_igdn_deconv_narrow_bf16.restype = i32
+    lib.stem_igdn_deconv_narrow_bf16.argtypes = (
+        [vp] * 6 + [i64, i32, i32, i32, i32, i32, vp])
     lib.stem_quantize_and_index_f32.restype = i32
     lib.stem_quantize_and_index_f32.argtypes = [
         vp, vp, vp, vp, i32, ctypes.c_float, vp, vp, i64, vp,
@@ -100,6 +144,40 @@ def _raise_on(rc: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
 
 
+class _KernelFn(torch.autograd.Function):
+    """One differentiable kernel call: forward runs ``launch`` on a CUDA
+    tensor (the kernel) or ``plain`` on a CPU tensor (the plain version), and
+    raises on any other device; backward recomputes ``plain`` with grad and
+    differentiates it, as the JAX package's VJPs differentiate their
+    ``_*_ref`` (pallas_kernels.py:164-182, :461-491, :1093, :1291, :1414,
+    :1621). Each gradient comes back in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, name, plain, launch, *inputs):
+        ctx.plain = plain
+        ctx.save_for_backward(*inputs)
+        x = inputs[0]
+        if x.device.type == "cpu":
+            return plain(*inputs)
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {x.device}")
+        return launch(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip(inputs, wanted)]
+            out = ctx.plain(*leaves)
+        live = [t for t, w in zip(leaves, wanted) if w]
+        got = iter(torch.autograd.grad(out, live, grad.to(out.dtype),
+                                       allow_unused=True))
+        return (None, None, None,
+                *(next(got) if w else None for w in wanted))
+
+
 # ---------------------------------------------------------------------------
 # fused GDN
 # ---------------------------------------------------------------------------
@@ -114,15 +192,13 @@ def _gdn_ref(x, gamma_t, beta, inverse: bool):
     return x * norm
 
 
-def gdn_fused(x, gamma_t, beta, inverse: bool = False):
-    """Fused GDN over channel-second x (B, C, ...), f32 or bf16. gamma_t is
-    (in, out) = γ transposed and beta is (C,), both f32 on the card. Output
-    has x's shape and dtype; the math is f32."""
-    if x.device.type == "cpu":
-        return _gdn_ref(x.float(), gamma_t.float(), beta.float(),
-                        inverse).to(x.dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"gdn_fused: unsupported device {x.device}")
+def _gdn_plain(x, gamma_t, beta, inverse: bool):
+    """``gdn_fused``'s plain version: f32 math, x's dtype out."""
+    return _gdn_ref(x.float(), gamma_t.float(), beta.float(),
+                    inverse).to(x.dtype)
+
+
+def _gdn_launch(x, gamma_t, beta, inverse: bool):
     f32 = torch.float32
     if x.dtype == torch.bfloat16:
         name, entry, io = "gdn_fused_bf16", _lib().stem_gdn_fused_bf16, x.dtype
@@ -144,6 +220,16 @@ def gdn_fused(x, gamma_t, beta, inverse: bool = False):
     _raise_on(rc, name)
     LAUNCHES[name] += 1
     return out
+
+
+def gdn_fused(x, gamma_t, beta, inverse: bool = False):
+    """Fused GDN over channel-second x (B, C, ...), f32 or bf16. gamma_t is
+    (in, out) = γ transposed and beta is (C,), both f32 on the card. Output
+    has x's shape and dtype; the math is f32."""
+    inverse = bool(inverse)
+    return _KernelFn.apply("gdn_fused", partial(_gdn_plain, inverse=inverse),
+                           partial(_gdn_launch, inverse=inverse),
+                           x, gamma_t, beta)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +301,7 @@ def _gdn_conv_ref(x, gamma_t, beta, weight, bias):
 
 
 def _igdn_deconv_ref(x, gamma_t, beta, weight, bias):
-    """Plain form of both g_s kernels; mirrors pallas_kernels.py::
+    """Plain form of the g_s kernels; mirrors pallas_kernels.py::
     _igdn_deconv_ref (of which _igdn_deconv_wide_packed_ref and
     _igdn_deconv_tail_packed_ref are the TPU's packed layouts): IGDN, the
     k5 s2 transposed conv and its bias in f32, one rounding to x's dtype.
@@ -235,6 +321,12 @@ def igdn_deconv_wide_supported(in_ch: int, out_ch: int) -> bool:
 
 def igdn_deconv_tail_supported(in_ch: int, out_ch: int) -> bool:
     return in_ch in FUSED_CHANNELS and 1 <= out_ch <= 4
+
+
+def igdn_deconv_fused_supported(in_ch: int, out_ch: int) -> bool:
+    """The narrow kernel's widths: F·4 ≤ 128 GEMM rows, as the JAX gate's
+    ``features · stride² ≤ 128`` (pallas_kernels.py:357)."""
+    return in_ch in FUSED_CHANNELS and 1 <= out_ch <= 32
 
 
 def _check_fused(name, x, gamma_t, beta, weight, bias, w_shape, supported):
@@ -277,18 +369,25 @@ def _tap_index(device):
     return ky.to(device), kx.to(device)
 
 
+def narrow_rows(f: int) -> int:
+    """GEMM rows of the narrow kernel for F outputs: 16 (one m-tile) for
+    F ≤ 4, else 4F rounded up to pairs of m-tiles, 32 rows each
+    (igdn_deconv.cu::igdn_deconv_narrow_kernel)."""
+    return 16 if f <= 4 else 32 * -(-f // 8)
+
+
 @lru_cache(maxsize=None)
-def _tail_index(device, f: int):
-    """The tail kernel's 16 GEMM rows m = o·4 + a·2 + b (live for o < F,
-    zero weights and bias past that) × 9 taps: (ky, kx) (9, 16), the output
-    channel of each row (16,) and the live mask (16,), on ``device``."""
+def _narrow_index(device, f: int):
+    """The narrow kernel's GEMM rows m = o·4 + a·2 + b (live for o < F, zero
+    weights and bias past that) × 9 taps: (ky, kx) (9, rows), the output
+    channel of each row (rows,) and the live mask (rows,), on ``device``."""
     ky, kx = _tap_index(device)
-    m = torch.arange(16, device=device)
+    m = torch.arange(narrow_rows(f), device=device)
     live = m < 4 * f
     rows_o = torch.where(live, m // 4, 0)
-    ky16 = torch.where(live[:, None], ky[m % 4], 5).t().contiguous()
-    kx16 = kx[m % 4].t().contiguous()
-    return ky16, kx16, rows_o, live
+    ky_m = torch.where(live[:, None], ky[m % 4], 5).t().contiguous()
+    kx_m = kx[m % 4].t().contiguous()
+    return ky_m, kx_m, rows_o, live
 
 
 def _padded_taps(weight):
@@ -299,14 +398,7 @@ def _padded_taps(weight):
     return wt
 
 
-def gdn_conv_fused(x, gamma_t, beta, weight, bias):
-    """``conv_k5s2(GDN(x)) + b`` on NCHW bf16 x (B, C, H, W) → (B, O,
-    ⌈H/2⌉, ⌈W/2⌉) bf16. gamma_t (C, C) = γ transposed and beta (C,) in f32,
-    weight (O, C, 5, 5) bf16 (the Conv's own), bias (O,) f32."""
-    if x.device.type == "cpu":
-        return _gdn_conv_ref(x, gamma_t, beta, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"gdn_conv_fused: unsupported device {x.device}")
+def _gdn_conv_launch(x, gamma_t, beta, weight, bias):
     c = x.shape[1] if x.dim() == 4 else -1
     o = weight.shape[0]
     _check_fused("gdn_conv_fused", x, gamma_t, beta, weight, bias,
@@ -323,20 +415,20 @@ def gdn_conv_fused(x, gamma_t, beta, weight, bias):
     return out
 
 
-def igdn_deconv_wide_packed(x, gamma_t, beta, weight, bias):
-    """IGDN then the k5 s2 transposed conv N→N on NCHW bf16 x (B, C, H, W)
-    → (B, O, 2H, 2W) bf16, the logical layout (the port's counterpart of the
-    TPU's phase-major packed output). gamma_t (C, C) and beta (C,) f32,
-    weight (C, O, 5, 5) bf16 (the Deconv's own), bias (O,) f32."""
-    if x.device.type == "cpu":
-        return _igdn_deconv_ref(x, gamma_t, beta, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"igdn_deconv_wide_packed: unsupported device {x.device}")
+def gdn_conv_fused(x, gamma_t, beta, weight, bias):
+    """``conv_k5s2(GDN(x)) + b`` on NCHW bf16 x (B, C, H, W) → (B, O,
+    ⌈H/2⌉, ⌈W/2⌉) bf16. gamma_t (C, C) = γ transposed and beta (C,) in f32,
+    weight (O, C, 5, 5) bf16 (the Conv's own), bias (O,) f32."""
+    return _KernelFn.apply("gdn_conv_fused", _gdn_conv_ref, _gdn_conv_launch,
+                           x, gamma_t, beta, weight, bias)
+
+
+def _wide_launch(name, x, gamma_t, beta, weight, bias):
+    """The wide IGDN → k5 s2 deconv kernel, counted under ``name``."""
     c = x.shape[1] if x.dim() == 4 else -1
     o = weight.shape[1] if weight.dim() == 4 else -1
-    _check_fused("igdn_deconv_wide_packed", x, gamma_t, beta, weight, bias,
-                 (c, o, 5, 5), igdn_deconv_wide_supported(c, o))
+    _check_fused(name, x, gamma_t, beta, weight, bias, (c, o, 5, 5),
+                 igdn_deconv_wide_supported(c, o))
     b, _, h, w = x.shape
     ky, kx = _tap_index(x.device)
     wp = _padded_taps(weight)[ky, kx]  # (4 phases, 9 taps, O, C)
@@ -344,9 +436,52 @@ def igdn_deconv_wide_packed(x, gamma_t, beta, weight, bias):
     rc = _lib().stem_igdn_deconv_wide_bf16(
         x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, c, o, h, w, _stream(x.device))
-    _raise_on(rc, "igdn_deconv_wide_packed")
-    LAUNCHES["igdn_deconv_wide_packed"] += 1
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
+
+
+def _narrow_launch(name, supported, x, gamma_t, beta, weight, bias):
+    """The narrow IGDN → k5 s2 deconv kernel (F ≤ 32 outputs), counted
+    under ``name``; ``supported(c, f)`` is the wrapper's gate."""
+    c = x.shape[1] if x.dim() == 4 else -1
+    f = weight.shape[1] if weight.dim() == 4 else -1
+    _check_fused(name, x, gamma_t, beta, weight, bias, (c, f, 5, 5),
+                 supported(c, f))
+    b, _, h, w = x.shape
+    ky_m, kx_m, rows_o, live = _narrow_index(x.device, f)
+    wp = _padded_taps(weight)[ky_m, kx_m, rows_o]  # (9 taps, rows, C)
+    bias_m = torch.where(live, bias[rows_o], 0.0)
+    out = torch.empty((b, f, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    rc = _lib().stem_igdn_deconv_narrow_bf16(
+        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
+        bias_m.data_ptr(), out.data_ptr(), b, c, f, narrow_rows(f), h, w,
+        _stream(x.device))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def igdn_deconv_wide_packed(x, gamma_t, beta, weight, bias):
+    """IGDN then the k5 s2 transposed conv N→N on NCHW bf16 x (B, C, H, W)
+    → (B, O, 2H, 2W) bf16, the logical layout (the port's counterpart of the
+    TPU's phase-major packed output). gamma_t (C, C) and beta (C,) f32,
+    weight (C, O, 5, 5) bf16 (the Deconv's own), bias (O,) f32."""
+    name = "igdn_deconv_wide_packed"
+    return _KernelFn.apply(name, _igdn_deconv_ref,
+                           partial(_wide_launch, name),
+                           x, gamma_t, beta, weight, bias)
+
+
+def igdn_deconv_wide(x, gamma_t, beta, weight, bias):
+    """The lone wide IGDN → k5 s2 transposed conv N→N (pallas_kernels.py::
+    igdn_deconv_wide), NCHW bf16 x (B, C, H, W) → (B, O, 2H, 2W) bf16 in the
+    shuffled (logical) layout: the kernel of ``igdn_deconv_wide_packed``,
+    counted on its own. Arguments as there."""
+    name = "igdn_deconv_wide"
+    return _KernelFn.apply(name, _igdn_deconv_ref,
+                           partial(_wide_launch, name),
+                           x, gamma_t, beta, weight, bias)
 
 
 def igdn_deconv_tail_packed(x, gamma_t, beta, weight, bias):
@@ -354,23 +489,20 @@ def igdn_deconv_tail_packed(x, gamma_t, beta, weight, bias):
     tail) on NCHW bf16 x (B, C, H, W), the output of
     ``igdn_deconv_wide_packed`` → (B, F, 2H, 2W) bf16. gamma_t (C, C) and
     beta (C,) f32, weight (C, F, 5, 5) bf16, bias (F,) f32."""
-    if x.device.type == "cpu":
-        return _igdn_deconv_ref(x, gamma_t, beta, weight, bias)
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"igdn_deconv_tail_packed: unsupported device {x.device}")
-    c = x.shape[1] if x.dim() == 4 else -1
-    f = weight.shape[1] if weight.dim() == 4 else -1
-    _check_fused("igdn_deconv_tail_packed", x, gamma_t, beta, weight, bias,
-                 (c, f, 5, 5), igdn_deconv_tail_supported(c, f))
-    b, _, h, w = x.shape
-    ky16, kx16, rows_o, live = _tail_index(x.device, f)
-    wp = _padded_taps(weight)[ky16, kx16, rows_o]  # (9 taps, 16 rows, C)
-    bias16 = torch.where(live, bias[rows_o], 0.0)
-    out = torch.empty((b, f, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
-    rc = _lib().stem_igdn_deconv_tail_bf16(
-        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
-        bias16.data_ptr(), out.data_ptr(), b, c, f, h, w, _stream(x.device))
-    _raise_on(rc, "igdn_deconv_tail_packed")
-    LAUNCHES["igdn_deconv_tail_packed"] += 1
-    return out
+    name = "igdn_deconv_tail_packed"
+    return _KernelFn.apply(
+        name, _igdn_deconv_ref,
+        partial(_narrow_launch, name, igdn_deconv_tail_supported),
+        x, gamma_t, beta, weight, bias)
+
+
+def igdn_deconv_fused(x, gamma_t, beta, weight, bias):
+    """The lone narrow IGDN → k5 s2 transposed conv N→F, F ≤ 32
+    (pallas_kernels.py::igdn_deconv_fused), NCHW bf16 x (B, C, H, W) →
+    (B, F, 2H, 2W) bf16. gamma_t (C, C) and beta (C,) f32, weight
+    (C, F, 5, 5) bf16, bias (F,) f32."""
+    name = "igdn_deconv_fused"
+    return _KernelFn.apply(
+        name, _igdn_deconv_ref,
+        partial(_narrow_launch, name, igdn_deconv_fused_supported),
+        x, gamma_t, beta, weight, bias)
