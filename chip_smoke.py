@@ -23,7 +23,11 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 136×240 and igdn_deconv_fused at 544×960, each at
                 max|kernel − plain| ≤ 2⁻⁶·max|plain| (the kernels round the
                 (I)GDN'd window to bf16 for the tensor cores; the plain g_s
-                versions keep it f32, as the JAX refs do).
+                versions keep it f32, as the JAX refs do). The fused rows'
+                bound holds for any split of the norm between the CUDA
+                cores and the tensor cores (fused_bound); gdn_conv_fused
+                and the wide g_s rows also time the unfused pair of library
+                calls (pair_ms: the norm's torch.addmm, then the bf16 conv).
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
                 then StemVideoPipeline(sparse) encodes 3 P-frames of
@@ -117,14 +121,42 @@ def timed_ms(torch, fn):
     return (time.perf_counter() - t) * 1e3, out
 
 
-def bound(bytes_moved: float, ops: float, tc_ops: float = 0.0):
-    """Least ms for the work: bytes over the memory rate, or the operations
-    over their units' peak rates, f32 on the CUDA cores (``ops``) and bf16
-    on the tensor cores (``tc_ops``); the two units run side by side, so
-    the larger of their times bounds the operations."""
+def _norm_ops(pixels, c):
+    """f32 operations of a (I)GDN over ``pixels`` pixels of c channels."""
+    return 2 * pixels * c * c + 4 * pixels * c
+
+
+def bound(bytes_moved: float, ops: float):
+    """Least ms for the work: bytes over the memory rate, or f32 operations
+    over the CUDA cores' peak, whichever is larger."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / F32_FLOPS_PER_S, tc_ops / BF16_TC_FLOPS_PER_S) * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fused_bound(bytes_moved: float, norm_pixels: int, c: int,
+                conv_ops: float):
+    """Least ms for a fused (I)GDN + conv on any design. The conv runs on the
+    bf16 tensor cores (c = conv_ops / 989 TFLOP/s); the norm, 2·pixels·C²
+    products, can run in f32 on the CUDA cores (a = its f32 operations /
+    67 TFLOP/s) or as three bf16 products on the tensor cores (b = 3 ·
+    2·pixels·C² / 989 TFLOP/s), and a design may split it between the two.
+    The operations take c where a ≤ c (the CUDA cores keep up); otherwise
+    a·(b + c)/(a + b), the norm shared so that both units finish together.
+    The bound is the larger of that and the bytes over the memory rate."""
+    a = _norm_ops(norm_pixels, c) / F32_FLOPS_PER_S
+    b = 3 * 2 * norm_pixels * c * c / BF16_TC_FLOPS_PER_S
+    cc = conv_ops / BF16_TC_FLOPS_PER_S
+    t_ops = (cc if a <= cc else a * (b + cc) / (a + b)) * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _norm_rows(torch, x):
+    """x² of NCHW x as (pixels, C) f32 rows: the operand of the norm's
+    library product (torch.addmm)."""
+    c = x.shape[1]
+    return (x.float() ** 2).permute(0, 2, 3, 1).reshape(-1, c).contiguous()
 
 
 def check_gdn(torch, kernels):
@@ -160,7 +192,7 @@ def check_gdn(torch, kernels):
             del out, ref, err
         if timing is None:  # the largest shape: g_a's first / g_s's last
             rows = B * hh * ww
-            xsq_rows = (x * x).permute(0, 2, 3, 1).reshape(rows, c).contiguous()
+            xsq_rows = _norm_rows(torch, x)
             ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, False))
             plain_ms = cuda_ms(
                 lambda: kernels._gdn_ref(x, gamma_t, beta, False))
@@ -284,8 +316,7 @@ def check_gdn_bf16(torch, kernels):
                                  "version")
         worst = max(worst, err)
     rows = x.numel() // c
-    xsq_rows = (x.float() ** 2).permute(0, 2, 3, 1).reshape(rows, c)
-    xsq_rows = xsq_rows.contiguous()
+    xsq_rows = _norm_rows(torch, x)
     ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, True))
     plain_ms = cuda_ms(lambda: kernels._gdn_ref(
         x.float(), gamma_t, beta, True).to(torch.bfloat16))
@@ -295,11 +326,6 @@ def check_gdn_bf16(torch, kernels):
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 shape=[rows, c])
-
-
-def _norm_ops(pixels, c):
-    """f32 operations of a (I)GDN over ``pixels`` pixels of c channels."""
-    return 2 * pixels * c * c + 4 * pixels * c
 
 
 def check_gdn_conv(torch, F, kernels):
@@ -322,11 +348,12 @@ def check_gdn_conv(torch, F, kernels):
         g = kernels._gdn_ref(x.float(), gamma_t, beta,
                              False).to(torch.bfloat16)
         bias16 = bias.to(torch.bfloat16)
+        xsq = _norm_rows(torch, x)
         pix_in, pix_out = B * hh * ww, B * (hh // 2) * (ww // 2)
-        b_ms, b_by = bound(
+        b_ms, b_by = fused_bound(
             pix_in * c * 2 + pix_out * o * 2 + o * c * 25 * 2 + c * c * 4
             + (c + o) * 4,
-            _norm_ops(pix_in, c), 2 * pix_out * o * c * 25)
+            pix_in, c, 2 * pix_out * o * c * 25)
         stages.append(dict(
             shape=[B, c, hh, ww],
             ms=cuda_ms(lambda: kernels.gdn_conv_fused(x, gamma_t, beta,
@@ -334,20 +361,24 @@ def check_gdn_conv(torch, F, kernels):
             plain_ms=cuda_ms(lambda: kernels._gdn_conv_ref(
                 x, gamma_t, beta, weight, bias)),
             library_ms=cuda_ms(lambda: F.conv2d(g, weight, bias16, 2, 2)),
+            # the unfused pair: the norm's product, then the conv
+            pair_ms=cuda_ms(lambda: (torch.addmm(beta, xsq, gamma_t),
+                                     F.conv2d(g, weight, bias16, 2, 2))),
             bound_ms=b_ms, bound_by=b_by))
         log(f"    stage {hh}×{ww}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages[-1].items()
             if k.endswith("ms")))
-        del x, g
+        del x, g, xsq
     torch.cuda.empty_cache()
     return dict(max_abs_err=worst, stages=stages, **{
-        k: stages[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                  "bound_by", "shape")})
+        k: stages[0][k] for k in ("ms", "plain_ms", "library_ms", "pair_ms",
+                                  "bound_ms", "bound_by", "shape")})
 
 
 def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
     """One IGDN → k5 s2 deconv kernel C → f on x against its plain version,
-    with its times, bound and library yardstick. Returns (row, output)."""
+    with its times, bound and library yardstick, and for the wide kernel
+    (f = C) the unfused pair of library calls. Returns (row, output)."""
     c = x.shape[1]
     gamma_t, beta = _gdn_params(torch, gen, c)
     weight = _kaiming(torch, gen, (c, f, 5, 5), 25 * c)
@@ -360,10 +391,10 @@ def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
     g = kernels._gdn_ref(x.float(), gamma_t, beta, True).to(torch.bfloat16)
     bias16 = bias.to(torch.bfloat16)
     pix = x.numel() // c
-    b_ms, b_by = bound(
+    b_ms, b_by = fused_bound(
         x.numel() * 2 + out.numel() * 2 + c * f * 25 * 2 + c * c * 4
         + (c + f) * 4,
-        _norm_ops(pix, c), 2 * pix * c * f * 25)
+        pix, c, 2 * pix * c * f * 25)
     row = dict(
         max_abs_err=err, shape=list(x.shape),
         ms=cuda_ms(lambda: fn(x, gamma_t, beta, weight, bias)),
@@ -371,9 +402,17 @@ def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
             x, gamma_t, beta, weight, bias)),
         library_ms=cuda_ms(lambda: F.conv_transpose2d(
             g, weight, bias16, 2, 2, 1)),
+        pair_ms=None,
         bound_ms=b_ms, bound_by=b_by)
+    if f == c:  # the unfused pair: the norm's product, then the deconv
+        xsq = _norm_rows(torch, x)
+        row["pair_ms"] = cuda_ms(lambda: (
+            torch.addmm(beta, xsq, gamma_t),
+            F.conv_transpose2d(g, weight, bias16, 2, 2, 1)))
+        del xsq
     log(f"    {name} {tuple(x.shape)} → {f}: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in row.items() if k.endswith("ms")))
+        f"{k} {v:.3f}" for k, v in row.items()
+        if k.endswith("ms") and v is not None))
     del g
     return row, out
 
@@ -756,7 +795,7 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "shape": res["shape"],
+            "pair_ms": res.get("pair_ms"), "shape": res["shape"],
             **({"stages": res["stages"]} if "stages" in res else {}),
         })
     log(json.dumps({"kernels": rows}))

@@ -18,9 +18,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu")
-HEADERS = ("gdn_window.cuh",)
+HEADERS = ("gdn_window.cuh", "gdn_window_tc.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-O3", "-arch=sm_90a", "-std=c++17", "-Xcompiler", "-fPIC")
+# -gencode names the sm_90a PTX target, which wgmma needs; "-arch=sm_90a"
+# alone gave ptxas a plain sm_90 target
+NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-Xcompiler", "-fPIC")
 
 
 def nvcc() -> str:

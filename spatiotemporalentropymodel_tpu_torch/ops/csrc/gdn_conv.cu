@@ -10,25 +10,43 @@
 //
 // with the conv summed in f32. The GDN'd input never reaches device memory.
 //
-// Bound on the H100, at g_a's first stage (4 × 192 × 544 × 960 → 272 × 480):
-// 9.6e11 conv operations (0.97 ms on the bf16 tensor cores) and 1.5e11 f32
-// norm operations (2.3 ms on the CUDA cores), against 0.3 ms of memory
-// traffic. So the norm, not the bytes, is the bound: the norm runs as f32
-// FMAs from registers with γᵀ broadcast from shared memory, and the conv runs
-// on the tensor cores (mma.sync). Design: one block per 4 × 16 output tile of
-// one image, all O channels. Its input window of 11 × 35 pixels × C (154 KB
-// at C = 192, opt-in dynamic shared memory) is loaded once, normalised in
-// place (gdn_window.cuh) and consumed by the 25 taps of an implicit GEMM
-// (M = O, N = 64 pixels, K = 25·C). Halo pixels are normalised again by the
-// neighbouring block: 385 window pixels for 256 input pixels of the tile.
-// Window columns are stored even ones first, then odd ones, so the stride-2
-// taps read consecutive slots (no bank conflicts). wgmma/TMA, a pipelined
-// weight stage and a tensor-core norm are later work.
+// Design (gdn_window_tc.cuh): one block of two warpgroups per 4 × 16 output
+// tile of one image, all O channels. Its input window of 11 × 35 pixels × C
+// is loaded once, normalised in place on the tensor cores (split-bf16 norm
+// at f32 accuracy on wgmma, 64 window pixels per warpgroup over all C
+// channels) and consumed by the 25 taps of an implicit GEMM on wgmma with
+// the 64 output pixels as rows (M = 64, K = 25·C): warpgroup wg takes
+// output channels [wg·O/2, (wg + 1)·O/2) (N = O/2), its warp w output row w
+// of the tile, whose 16 pixels it loads from the window with ldmatrix. γ's
+// hi/lo split (32 channels a stage) and then the weights (64 channels of
+// one tap a stage) stream through a 3-slot cp.async ring that both
+// warpgroups read, so a block fetches each weight once: 1.84 MB of L2
+// traffic per block at C = 192.
+// Halo pixels are normalised again by the neighbouring block: 385 window
+// pixels for 256 input pixels. Window columns are stored even ones first,
+// then odd ones, so a stride-2 tap reads consecutive slots (conflict-free
+// ldmatrix rows).
+//
+// Shared memory at C = 192: window 385 × 400 B = 154,000 B + ring 3 × 192
+// rows × 128 B = 73,728 B + up to 1,024 B to align the ring: 228,752 B of
+// the 232,448 B a block may have, so one block per SM. Registers
+// (nvcc -Xptxas -v): 149 / 110 / 89 at C = 192 / 128 / 64, no spills.
+//
+// Bound on the H100 at g_a's first stage (4 × 192 × 544 × 960 → 272 × 480):
+// 9.6e11 conv operations (0.97 ms at the bf16 tensor-core peak) and 1.5e11
+// norm operations, which shared between the CUDA cores and the tensor cores
+// (3 bf16 products each there) leave 1.20 ms (chip_smoke.py::fused_bound).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 5.52 ms
+// at stage 1 and 1.73 / 0.64 ms at stages 2 / 3. A block of stage 1 takes
+// about 150k cycles: 13 % window load, 36 % norm, 51 % conv, the conv
+// bound by its weight reads from L2 (ops/phase_probe.py; PERF.md §5-6).
 
-#include "gdn_window.cuh"
+#include "gdn_window_tc.cuh"
 
 namespace stem {
 namespace {
+
+using tc::bf16;
 
 constexpr int kTileH = 4, kTileW = 16;           // output pixels per block
 constexpr int kWinH = 2 * kTileH + 3;            // 11 input rows
@@ -40,78 +58,86 @@ __device__ __forceinline__ int conv_slot(int r, int c) {
   return r * kWinW + (c & 1) * kHalf + (c >> 1);
 }
 
-// Warps: 4 along the output channels (O/4 each = MT m-tiles of 16) × 2 along
-// the pixels (32 each = 4 n-tiles of 8, i.e. two output rows of the tile).
-template <int C, int O>
-__global__ void __launch_bounds__(kThreads, 1)
-gdn_conv_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma_t,
+// gamma_s: (C/32, C, 64) bf16, γ's hi/lo split (ops/kernels.py::
+// split_gamma); w: (25, C/64, O, 64) bf16, [ky·5 + kx][c / 64][o][c % 64]
+// (pack_conv_weight). O = C.
+template <int C>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
                 const float* __restrict__ beta, const bf16* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ out, int H,
                 int W, int Ho, int Wo, int tiles_w) {
-  static_assert(O % 64 == 0, "output channels must be a multiple of 64");
-  constexpr int MT = O / 64;
-  constexpr int NT = 4;
+  constexpr int O = C;
+  constexpr int KC = C / 64;   // ring stages per tap
+  constexpr int KN = C / 32;   // ring stages per norm round
+  constexpr int kNorm = tc::norm_stages<C>(kSlots);
+  constexpr int kStagesAll = kNorm + 25 * KC;
+  using L = tc::Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* win = reinterpret_cast<bf16*>(smem);
-  float* gs = reinterpret_cast<float*>(
-      smem + static_cast<size_t>(kSlots) * Window<C>::kStride * sizeof(bf16));
+  const uint32_t win_u32 = tc::smem_u32(smem);
+
+  STEM_PHASE(0);
+  auto src = [=](int q) -> const bf16* {
+    return q < kNorm ? gamma_s + (q % KN) * (C * 64)
+                     : w + (q - kNorm) * (O * 64);
+  };
+  const auto ring =
+      tc::make_ring<C>(tc::ring_base<C>(smem, kSlots), kStagesAll, src);
+  ring.prefetch();
 
   const int b = blockIdx.y;
   const int oy0 = (blockIdx.x / tiles_w) * kTileH;
   const int ox0 = (blockIdx.x % tiles_w) * kTileW;
-  const bf16* xb = x + static_cast<long long>(b) * C * H * W;
+  tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
+                        2 * oy0 - 2, 2 * ox0 - 2, kWinH, kWinW, conv_slot);
+  STEM_PHASE(1);
+  const int q0 = tc::gdn_window_tc<C, false>(win, kSlots, ring, 0, beta);
+  STEM_PHASE(2);
 
-  load_window<C>(win, xb, H, W, 2 * oy0 - 2, 2 * ox0 - 2, kWinH, kWinW,
-                 conv_slot);
-  gdn_window<C, false>(win, kSlots, gs, gamma_t, beta);
-
+  // warpgroup wg: output channels [wg·O/2, (wg + 1)·O/2) of all 64 pixels;
+  // its warp w: output row w of the tile, as the A rows 0..15
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 3) * (O / 4);
-  const int wn = warp >> 2;
-  // n-tile j = 4·wn + nt covers output row j / 2, columns (j % 2)·8 + 0..7
-  int slot[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int j = 4 * wn + nt;
-    slot[nt] = 2 * (j >> 1) * kWinW + (j & 1) * 8 + g;
+  const int wg = warp >> 2, w4 = warp & 3;
+  constexpr int N = O / 2;
+  const uint32_t apix = tc::a_row<C>(win_u32, 2 * w4 * kWinW, kSlots);
+  const uint32_t half = wg * N * tc::kRowBytes;  // the warpgroup's B rows
+
+  float acc[N / 8][4];
+  tc::init_bias<N>(acc, bias, wg * N);
+#pragma unroll 1
+  for (int s = 0; s < 25 * KC; ++s) {
+    const uint32_t wslot = ring.next(q0 + s);
+    const int tap = s / KC, kc = s - tap * KC;
+    const int ky = tap / 5, kx = tap - ky * 5;
+    const int off = ky * kWinW + (kx & 1) * kHalf + (kx >> 1);
+    tc::conv_stage_wg<N>(acc, wslot + half, apix,
+                         off * (L::kStride * 2) + kc * 128);
   }
 
-  float acc[MT][NT][4];
-  init_bias(acc, bias, m0, O);
-  const bf16* wl = w + static_cast<long long>(m0 + g) * C + 2 * t;
-#pragma unroll 1
-  for (int ky = 0; ky < 5; ++ky) {
-#pragma unroll 1
-    for (int kx = 0; kx < 5; ++kx) {
-      const int off = ky * kWinW + (kx & 1) * kHalf + (kx >> 1);
-      mma_tap<C, MT, NT>(acc, win, slot, off,
-                         wl + static_cast<long long>(ky * 5 + kx) * O * C);
-    }
-  }
-
+  // acc[j][e]: output row w4, column g + 8·(e / 2), channel
+  // wg·N + 8j + 2t + e % 2
+  const int oy = oy0 + w4;
   bf16* ob = out + static_cast<long long>(b) * O * Ho * Wo;
+  if (oy < Ho) {
+    const long long plane8 = 8LL * Ho * Wo;  // 8 output channels
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int j = 4 * wn + nt;
-    const int oy = oy0 + (j >> 1);
-    if (oy >= Ho) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int ox = ox0 + (j & 1) * 8 + 2 * t + (q & 1);
+    for (int e = 0; e < 4; ++e) {
+      const int ox = ox0 + g + 8 * (e >> 1);
       if (ox >= Wo) continue;
+      const int o = wg * N + 2 * t + (e & 1);
+      bf16* dst = ob + (static_cast<long long>(o) * Ho + oy) * Wo + ox;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int o = m0 + 16 * mt + g + (q >> 1) * 8;
-        ob[(static_cast<long long>(o) * Ho + oy) * Wo + ox] =
-            __float2bfloat16_rn(acc[mt][nt][q]);
-      }
+      for (int j = 0; j < N / 8; ++j, dst += plane8)
+        *dst = __float2bfloat16_rn(acc[j][e]);
     }
   }
+  STEM_PHASE(3);
 }
 
-template <int C, int O>
-int launch(const bf16* x, const float* gamma_t, const float* beta,
+template <int C>
+int launch(const bf16* x, const bf16* gamma_s, const float* beta,
            const bf16* w, const float* bias, bf16* out, long long batch,
            int H, int W, cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
@@ -119,13 +145,13 @@ int launch(const bf16* x, const float* gamma_t, const float* beta,
   const long long tiles =
       static_cast<long long>((Ho + kTileH - 1) / kTileH) * tiles_w;
   if (batch > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = Window<C>::bytes(kSlots);
-  cudaError_t err = allow_smem(gdn_conv_kernel<C, O>, smem);
+  const size_t smem = tc::Layout<C>::bytes(kSlots);
+  cudaError_t err = tc::allow_smem(gdn_conv_kernel<C>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gdn_conv_kernel<C, O>
+  gdn_conv_kernel<C>
       <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)),
-         kThreads, smem, stream>>>(x, gamma_t, beta, w, bias, out, H, W, Ho,
-                                   Wo, tiles_w);
+         tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias, out, H, W,
+                                       Ho, Wo, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -134,27 +160,28 @@ int launch(const bf16* x, const float* gamma_t, const float* beta,
 
 extern "C" {
 
-// x (B, C, H, W) bf16; gamma_t (C, C) f32 = γ transposed; beta (C,) f32;
-// w (25, O, C) bf16 = the conv weight as [ky·5 + kx][o][c]; bias (O,) f32;
-// out (B, O, ⌈H/2⌉, ⌈W/2⌉) bf16. C = O ∈ {64, 128, 192}.
-int stem_gdn_conv_fused_bf16(const void* x, const float* gamma_t,
+// x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and lo
+// (ops/kernels.py::split_gamma); beta (C,) f32; w (25, C/64, O, 64) bf16 =
+// the conv weight as [ky·5 + kx][c / 64][o][c % 64] (pack_conv_weight);
+// bias (O,) f32; out (B, O, ⌈H/2⌉, ⌈W/2⌉) bf16. C = O ∈ {64, 128, 192}.
+int stem_gdn_conv_fused_bf16(const void* x, const void* gamma_s,
                              const float* beta, const void* w,
                              const float* bias, void* out, long long batch,
                              int C, int O, int H, int W, void* stream) {
-  using stem::bf16;
+  using stem::tc::bf16;
   if (batch == 0 || H == 0 || W == 0) return 0;
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gs = static_cast<const bf16*>(gamma_s);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 64 && O == 64)
-    return stem::launch<64, 64>(xb, gamma_t, beta, wb, bias, ob, batch, H, W, s);
-  if (C == 128 && O == 128)
-    return stem::launch<128, 128>(xb, gamma_t, beta, wb, bias, ob, batch, H, W,
-                                  s);
-  if (C == 192 && O == 192)
-    return stem::launch<192, 192>(xb, gamma_t, beta, wb, bias, ob, batch, H, W,
-                                  s);
+  if (C != O) return cudaErrorInvalidValue;
+  if (C == 64)
+    return stem::launch<64>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 128)
+    return stem::launch<128>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 192)
+    return stem::launch<192>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
   return cudaErrorInvalidValue;
 }
 

@@ -24,29 +24,45 @@
 // the sub-pixel form of the transposed conv (layers/conv.py::_subpixel_kernel
 // in the JAX package), 25 useful taps for every 2 × 2 output phases.
 //
-// Both kernels: one block per 8 × 32 input tile of one image. Its window of
-// 10 × 34 pixels × C (136 KB at C = 192, opt-in dynamic shared memory) is
-// loaded once and IGDN'd in place in f32 (gdn_window.cuh); the deconv then
-// runs on the tensor cores (mma.sync, f32 accumulators) reading the window.
+// Both kernels: one block per 8 × 32 input tile of one image, whose window
+// of 10 × 34 pixels × C is loaded once and IGDN'd in place; the deconv then
+// runs on the tensor cores (f32 accumulators) reading the window.
 // A partial tile at the right or bottom edge loads zeros past the image and
 // stores nothing there.
 //
-// igdn_deconv_wide_kernel (C → O = C): bound on the H100 by the 9.6e11 useful
-// deconv operations (0.97 ms on the bf16 tensor cores) at 272 × 480 → 544 ×
-// 960; the norm adds 3.9e10 f32 operations. Each of the 4 output phases is
-// its own implicit GEMM (M = O, N = 64 pixels, K = taps·C), so no zero tap is
-// multiplied; 4 pixel sub-tiles × 4 phases per block.
+// igdn_deconv_wide_kernel (C → O = C), on gdn_window_tc.cuh: bound on the
+// H100 by the 9.6e11 useful deconv operations (0.97 ms at the bf16
+// tensor-core peak) at 272 × 480 → 544 × 960; its norm, 3.9e10 f32
+// operations, runs on the tensor cores as a split-bf16 GEMM at f32
+// accuracy. Each of the 4 output phases is its own implicit GEMM on wgmma
+// (pixels as rows, N = O, K = taps·C; 9, 6, 6 and 4 taps, so no zero tap is
+// multiplied) over 128 input pixels (4 rows × 32), in 2 passes per block:
+// each warpgroup takes 64 pixels (two rows of 32; a warp 16, loaded from
+// the window with ldmatrix) × all O channels, 96 f32 accumulators per
+// thread. The weights, 64 channels of one tap a stage, stream through the
+// 3-slot cp.async ring that both warpgroups read, so each staged tile
+// serves 128 pixels: 3.7 MB of L2 traffic per block at C = 192. Shared
+// memory at C = 192: window 340 × 400 B = 136,000 B + ring 73,728 B + up
+// to 1,024 B of alignment = 210,752 B.
+// Registers (nvcc -Xptxas -v): 192 / 142 / 103 at C = 192 / 128 / 64, no
+// spills. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W:
+// 4.11 ms at 272 × 480 and 1.54 ms at 136 × 240; a block at 272 × 480
+// takes about 423k cycles, 6 % window load, 16 % norm, 78 % conv
+// (ops/phase_probe.py; PERF.md §5-6).
 //
-// igdn_deconv_narrow_kernel (C → F ≤ 32): at F = 3 bound by its IGDN, 1.5e11
-// f32 norm operations at 544 × 960 × 192 (2.3 ms on the CUDA cores); the
-// deconv is rows × 9 × C per pixel on the tensor cores. All 4 phases share
-// one GEMM of M = rows (row = o·4 + a·2 + b; rows ≥ 4F are zero) over the 9
-// taps of the 3 × 3 neighbourhood, the unused (phase, tap) weights being
-// zero. rows = 16 (one m-tile) for F ≤ 4, else 32·⌈F/8⌉ ≤ 128; a warp runs
-// the m-tiles MG = 1 or 2 at a time, so its accumulators stay at 16·MG
-// floats whatever F is.
+// igdn_deconv_narrow_kernel (C → F ≤ 32), on gdn_window.cuh: at F = 3 bound
+// by its IGDN, 1.5e11 f32 norm operations at 544 × 960 × 192 (2.3 ms on the
+// CUDA cores; 0.44 ms if the norm shares the tensor cores, as the wide
+// kernel's does); the deconv is rows × 9 × C per pixel on the tensor cores.
+// All 4 phases share one GEMM of M = rows (row = o·4 + a·2 + b; rows ≥ 4F
+// are zero) over the 9 taps of the 3 × 3 neighbourhood, the unused (phase,
+// tap) weights being zero. rows = 16 (one m-tile) for F ≤ 4, else
+// 32·⌈F/8⌉ ≤ 128; a warp runs the m-tiles MG = 1 or 2 at a time, so its
+// accumulators stay at 16·MG floats whatever F is (mma.sync, weights read
+// from L2, the window normalised on the CUDA cores 64 pixels at a time).
 
 #include "gdn_window.cuh"
+#include "gdn_window_tc.cuh"
 
 namespace stem {
 namespace {
@@ -68,78 +84,94 @@ __device__ __forceinline__ long long out_index(int o, int iy, int ix, int a,
          2 * ix + b;
 }
 
-// Warps: 4 along O (O/4 each) × 2 along the 64 pixels of a sub-tile (two
-// input rows × 32 columns; 4 n-tiles of 8 per warp).
-// w: (4 phases, 9 taps, O, C) bf16, phase a·2 + b, tap (dy+1)·3 + (dx+1).
-template <int C, int O>
-__global__ void __launch_bounds__(kThreads, 1)
+// Warpgroups: 2 along the 128 pixels of a pass (two input rows × 32
+// columns each), every O channel; warp w of a warpgroup owns 16 pixels
+// (row w / 2, columns (w % 2)·16 + 0..15).
+// gamma_s: (C/32, C, 64) bf16 (ops/kernels.py::split_gamma); w: (25, C/64,
+// O, 64) bf16, the 25 taps of the sub-pixel form in phase order (phase
+// a·2 + b, then dy, then dx; ops/kernels.py::pack_wide_weight).
+template <int C>
+__global__ void __launch_bounds__(tc::kThreads, 1)
 igdn_deconv_wide_kernel(const bf16* __restrict__ x,
-                        const float* __restrict__ gamma_t,
+                        const bf16* __restrict__ gamma_s,
                         const float* __restrict__ beta,
                         const bf16* __restrict__ w,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         int H, int W, int tiles_w) {
-  static_assert(O % 64 == 0, "output channels must be a multiple of 64");
-  constexpr int MT = O / 64;
-  constexpr int NT = 4;
+  constexpr int O = C;
+  constexpr int KC = C / 64;   // ring stages per tap
+  constexpr int KN = C / 32;   // ring stages per norm round
+  constexpr int kPassRows = 4;
+  constexpr int kNorm = tc::norm_stages<C>(kSlots);
+  constexpr int kPassStages = 25 * KC;
+  constexpr int kStagesAll = kNorm + (kTileH / kPassRows) * kPassStages;
+  using L = tc::Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* win = reinterpret_cast<bf16*>(smem);
-  float* gs = reinterpret_cast<float*>(
-      smem + static_cast<size_t>(kSlots) * Window<C>::kStride * sizeof(bf16));
+  const uint32_t win_u32 = tc::smem_u32(smem);
+
+  STEM_PHASE(0);
+  auto src = [=](int q) -> const bf16* {
+    return q < kNorm ? gamma_s + (q % KN) * (C * 64)
+                     : w + ((q - kNorm) % kPassStages) * (O * 64);
+  };
+  const auto ring =
+      tc::make_ring<C>(tc::ring_base<C>(smem, kSlots), kStagesAll, src);
+  ring.prefetch();
 
   const int b = blockIdx.y;
   const int iy0 = (blockIdx.x / tiles_w) * kTileH;
   const int ix0 = (blockIdx.x % tiles_w) * kTileW;
-  load_window<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
-                 iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
-  gdn_window<C, true>(win, kSlots, gs, gamma_t, beta);
+  tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
+                        iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
+  STEM_PHASE(1);
+  int q = tc::gdn_window_tc<C, true>(win, kSlots, ring, 0, beta);
+  STEM_PHASE(2);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 3) * (O / 4);
-  const int wn = warp >> 2;
-  const bf16* wl = w + static_cast<long long>(m0 + g) * C + 2 * t;
+  const int wrow = 2 * (warp >> 2) + ((warp & 3) >> 1);  // row in the pass
+  const int wcol = (warp & 1) * 16;                      // first column
   bf16* ob = out + static_cast<long long>(b) * O * 4 * H * W;
 
-  for (int sub = 0; sub < kTileH / 2; ++sub) {
-    // n-tile j = 4·wn + nt: tile row 2·sub + j / 4, columns (j % 4)·8 + 0..7;
-    // slot of the tap (dy, dx) = (-1, -1)
-    int slot[NT];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int j = 4 * wn + nt;
-      slot[nt] = (2 * sub + (j >> 2)) * kWinW + (j & 3) * 8 + g;
-    }
+#pragma unroll 1
+  for (int pass = 0; pass < kTileH / kPassRows; ++pass) {
+    // this warp's 16 pixels as A rows, at the tap (dy, dx) = (-1, -1)
+    const int row = pass * kPassRows + wrow;
+    const uint32_t apix = tc::a_row<C>(win_u32, row * kWinW + wcol, kSlots);
+#pragma unroll 1
     for (int ph = 0; ph < 4; ++ph) {
       const int pa = ph >> 1, pb = ph & 1;
-      float acc[MT][NT][4];
-      init_bias(acc, bias, m0, O);
+      // acc[j][e]: pixel wcol + g + 8·(e / 2), channel o = 8j + 2t + e % 2
+      float acc[O / 8][4];
+      tc::init_bias<O>(acc, bias, 0);
+#pragma unroll 1
       for (int dy = pa ? 0 : -1; dy <= 1; ++dy) {
+#pragma unroll 1
         for (int dx = pb ? 0 : -1; dx <= 1; ++dx) {
-          const int tap = ph * 9 + (dy + 1) * 3 + (dx + 1);
-          mma_tap<C, MT, NT>(acc, win, slot, (dy + 1) * kWinW + (dx + 1),
-                             wl + static_cast<long long>(tap) * O * C);
+          const uint32_t off =
+              ((dy + 1) * kWinW + (dx + 1)) * (L::kStride * 2);
+#pragma unroll 1
+          for (int kc = 0; kc < KC; ++kc)
+            tc::conv_stage_wg<O>(acc, ring.next(q++), apix, off + kc * 128);
         }
       }
+      const int iy = iy0 + row;
+      if (iy < H) {
+        const long long plane8 = 8 * 4LL * H * W;  // 8 output channels
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int j = 4 * wn + nt;
-        const int iy = iy0 + 2 * sub + (j >> 2);
-        if (iy >= H) continue;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ix = ix0 + (j & 3) * 8 + 2 * t + (q & 1);
+        for (int e = 0; e < 4; ++e) {
+          const int ix = ix0 + wcol + g + 8 * (e >> 1);
           if (ix >= W) continue;
+          bf16* dst = ob + out_index(2 * t + (e & 1), iy, ix, pa, pb, H, W);
 #pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const int o = m0 + 16 * mt + g + (q >> 1) * 8;
-            ob[out_index(o, iy, ix, pa, pb, H, W)] =
-                __float2bfloat16_rn(acc[mt][nt][q]);
-          }
+          for (int j = 0; j < O / 8; ++j, dst += plane8)
+            *dst = __float2bfloat16_rn(acc[j][e]);
         }
       }
     }
   }
+  STEM_PHASE(3);
 }
 
 // Warps: one input row of the tile each (4 n-tiles of 8 columns), every
@@ -214,20 +246,20 @@ bool grid_of(long long batch, int H, int W, int* tiles_w, long long* tiles) {
   return batch <= 65535 && *tiles <= 0x7fffffffLL;
 }
 
-template <int C, int O>
-int launch_wide(const bf16* x, const float* gamma_t, const float* beta,
+template <int C>
+int launch_wide(const bf16* x, const bf16* gamma_s, const float* beta,
                 const bf16* w, const float* bias, bf16* out, long long batch,
                 int H, int W, cudaStream_t stream) {
   int tiles_w;
   long long tiles;
   if (!grid_of(batch, H, W, &tiles_w, &tiles)) return cudaErrorInvalidValue;
-  const size_t smem = Window<C>::bytes(kSlots);
-  cudaError_t err = allow_smem(igdn_deconv_wide_kernel<C, O>, smem);
+  const size_t smem = tc::Layout<C>::bytes(kSlots);
+  cudaError_t err = tc::allow_smem(igdn_deconv_wide_kernel<C>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  igdn_deconv_wide_kernel<C, O>
+  igdn_deconv_wide_kernel<C>
       <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)),
-         kThreads, smem, stream>>>(x, gamma_t, beta, w, bias, out, H, W,
-                                   tiles_w);
+         tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias, out, H, W,
+                                       tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,28 +298,28 @@ int launch_narrow_rows(const bf16* x, const float* gamma_t, const float* beta,
 
 extern "C" {
 
-// x (B, C, H, W) bf16; gamma_t (C, C) f32; beta (C,) f32; w (4, 9, O, C)
-// bf16 (see igdn_deconv_wide_kernel); bias (O,) f32; out (B, O, 2H, 2W)
-// bf16. C = O ∈ {64, 128, 192}.
-int stem_igdn_deconv_wide_bf16(const void* x, const float* gamma_t,
+// x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and
+// lo (ops/kernels.py::split_gamma); beta (C,) f32; w (25, C/64, O, 64) bf16
+// (see igdn_deconv_wide_kernel); bias (O,) f32; out (B, O, 2H, 2W) bf16.
+// C = O ∈ {64, 128, 192}.
+int stem_igdn_deconv_wide_bf16(const void* x, const void* gamma_s,
                                const float* beta, const void* w,
                                const float* bias, void* out, long long batch,
                                int C, int O, int H, int W, void* stream) {
   using stem::bf16;
   if (batch == 0 || H == 0 || W == 0) return 0;
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gs = static_cast<const bf16*>(gamma_s);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 64 && O == 64)
-    return stem::launch_wide<64, 64>(xb, gamma_t, beta, wb, bias, ob, batch, H,
-                                     W, s);
-  if (C == 128 && O == 128)
-    return stem::launch_wide<128, 128>(xb, gamma_t, beta, wb, bias, ob, batch,
-                                       H, W, s);
-  if (C == 192 && O == 192)
-    return stem::launch_wide<192, 192>(xb, gamma_t, beta, wb, bias, ob, batch,
-                                       H, W, s);
+  if (C != O) return cudaErrorInvalidValue;
+  if (C == 64)
+    return stem::launch_wide<64>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 128)
+    return stem::launch_wide<128>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 192)
+    return stem::launch_wide<192>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
   return cudaErrorInvalidValue;
 }
 

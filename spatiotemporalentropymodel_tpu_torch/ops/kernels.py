@@ -398,17 +398,65 @@ def _padded_taps(weight):
     return wt
 
 
+def split_gamma(gamma_t):
+    """γᵀ (C, C) f32 → γ's split for the tensor-core norm (gdn_window_tc.cuh),
+    (C/32, C, 64) bf16: stage k, row o holds hi = bf16(γ[o][i]) for the 32
+    input channels i = 32k .. 32k + 31, then lo = bf16(γ[o][i] − hi), so
+    hi + lo is γ to 2⁻¹⁶ relative."""
+    g = gamma_t.t().float()
+    hi = g.to(torch.bfloat16)
+    lo = (g - hi.float()).to(torch.bfloat16)
+    c = g.shape[0]
+    return torch.cat([hi.reshape(c, c // 32, 32), lo.reshape(c, c // 32, 32)],
+                     dim=2).permute(1, 0, 2).contiguous()
+
+
+def _stage_major(taps):
+    """(T, O, C) per-tap weights → (T, C/64, O, 64): one ring stage (64
+    input channels of one tap, all O rows) after another."""
+    t, o, c = taps.shape
+    return taps.reshape(t, o, c // 64, 64).permute(0, 2, 1, 3).contiguous()
+
+
+def pack_conv_weight(weight):
+    """Conv2d weight (O, C, 5, 5) → ``gdn_conv_fused``'s (25, C/64, O, 64),
+    taps ky·5 + kx."""
+    o, c = weight.shape[:2]
+    return _stage_major(weight.permute(2, 3, 0, 1).reshape(25, o, c))
+
+
+def wide_taps():
+    """The wide kernel's 25 taps in its order: phase a·2 + b, then dy, then
+    dx (dy from −1 for a = 0, from 0 for a = 1; dx likewise with b), each as
+    (phase, dy, dx, ky, kx) with ky = a + 2 − 2·dy and kx = b + 2 − 2·dx
+    (igdn_deconv.cu::igdn_deconv_wide_kernel)."""
+    taps = []
+    for ph in range(4):
+        a, b = ph >> 1, ph & 1
+        for dy in range(-1 + a, 2):
+            for dx in range(-1 + b, 2):
+                taps.append((ph, dy, dx, a + 2 - 2 * dy, b + 2 - 2 * dx))
+    return taps
+
+
+def pack_wide_weight(weight):
+    """ConvTranspose2d weight (C, O, 5, 5) → the wide kernel's
+    (25, C/64, O, 64), taps in ``wide_taps()`` order."""
+    _, _, _, ky, kx = zip(*wide_taps())
+    return _stage_major(weight.permute(2, 3, 1, 0)[list(ky), list(kx)])
+
+
 def _gdn_conv_launch(x, gamma_t, beta, weight, bias):
     c = x.shape[1] if x.dim() == 4 else -1
     o = weight.shape[0]
     _check_fused("gdn_conv_fused", x, gamma_t, beta, weight, bias,
                  (o, c, 5, 5), gdn_conv_supported(c, o))
     b, _, h, w = x.shape
-    wp = weight.permute(2, 3, 0, 1).contiguous()  # [ky][kx][o][c]
+    gs, wp = split_gamma(gamma_t), pack_conv_weight(weight)
     out = torch.empty((b, o, (h + 1) // 2, (w + 1) // 2), dtype=x.dtype,
                       device=x.device)
     rc = _lib().stem_gdn_conv_fused_bf16(
-        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
+        x.data_ptr(), gs.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, c, o, h, w, _stream(x.device))
     _raise_on(rc, "gdn_conv_fused")
     LAUNCHES["gdn_conv_fused"] += 1
@@ -430,11 +478,10 @@ def _wide_launch(name, x, gamma_t, beta, weight, bias):
     _check_fused(name, x, gamma_t, beta, weight, bias, (c, o, 5, 5),
                  igdn_deconv_wide_supported(c, o))
     b, _, h, w = x.shape
-    ky, kx = _tap_index(x.device)
-    wp = _padded_taps(weight)[ky, kx]  # (4 phases, 9 taps, O, C)
+    gs, wp = split_gamma(gamma_t), pack_wide_weight(weight)
     out = torch.empty((b, o, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     rc = _lib().stem_igdn_deconv_wide_bf16(
-        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
+        x.data_ptr(), gs.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, c, o, h, w, _stream(x.device))
     _raise_on(rc, name)
     LAUNCHES[name] += 1

@@ -158,12 +158,19 @@ def test_cuda_gdn_fused_bf16_matches_plain(cuda):
     assert kernels.LAUNCHES["gdn_fused"] == n0["gdn_fused"]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c,h,w", [(64, 26, 38), (192, 17, 35)])
-def test_cuda_gdn_conv_fused_matches_plain(cuda, c, h, w):
-    """Odd and ragged sizes: partial output tiles on both edges."""
+def _wide_range(rng, shape, device):
+    """bf16 x whose pixels span 10⁻¹..10^1.5 in magnitude, so x²·γ dominates
+    β at most pixels: the norm's dynamic range is what the kernels' split
+    bf16 products must keep at f32 accuracy."""
+    scale = 10.0 ** rng.uniform(-1.0, 1.5, (shape[0], 1) + tuple(shape[2:]))
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(device).to(torch.bfloat16)
+
+
+def _check_gdn_conv(cuda, c, h, w, wide_range=False):
     rng = np.random.default_rng(c + h)
-    x = _bf16(rng, (2, c, h, w), cuda)
+    x = (_wide_range(rng, (2, c, h, w), cuda) if wide_range
+         else _bf16(rng, (2, c, h, w), cuda))
     gt, beta = _gdn_params(rng, c, cuda)
     weight = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
     bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(
@@ -178,6 +185,25 @@ def test_cuda_gdn_conv_fused_matches_plain(cuda, c, h, w):
     _assert_scaled_close(out, ref, PLAIN_TOL)
     _assert_scaled_close(out, win, WINDOW_TOL)
     assert kernels.LAUNCHES["gdn_conv_fused"] == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(64, 26, 38), (192, 17, 35),
+                                   (128, 21, 48), (128, 9, 35),
+                                   (192, 20, 72), (64, 8, 32)])
+def test_cuda_gdn_conv_fused_matches_plain(cuda, c, h, w):
+    """C = 64, 128 and 192; partial 4 × 16 output tiles on the bottom and
+    right edges with W a multiple of 8 (the 16-byte window load) and not
+    (the 2-byte gather), and whole tiles only (8 × 32 → 4 × 16)."""
+    _check_gdn_conv(cuda, c, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(192, 20, 72), (128, 17, 35)])
+def test_cuda_gdn_conv_fused_wide_dynamic_range(cuda, c, h, w):
+    """x over two and a half decades, so x²·γ dominates β: the tensor-core
+    norm keeps the plain version's f32 accuracy."""
+    _check_gdn_conv(cuda, c, h, w, wide_range=True)
 
 
 @pytest.mark.cuda
@@ -287,14 +313,10 @@ def test_cuda_igdn_deconv_fused_matches_plain(cuda, c, f):
             == n0["igdn_deconv_tail_packed"])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", [(2, 17, 30), (1, 136, 240)])
-def test_cuda_igdn_deconv_wide_matches_plain(cuda, b, h, w):
-    """The lone wide kernel at C = O = 192: a ragged 17 × 30 input, and the
-    wide chain's first stage, 136 × 240 (240 columns = 7.5 tiles)."""
-    c = 192
+def _check_wide(cuda, c, b, h, w, wide_range=False):
     rng = np.random.default_rng(h + w)
-    x = _bf16(rng, (b, c, h, w), cuda)
+    x = (_wide_range(rng, (b, c, h, w), cuda) if wide_range
+         else _bf16(rng, (b, c, h, w), cuda))
     gt, beta = _gdn_params(rng, c, cuda)
     weight = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
     bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(
@@ -311,6 +333,31 @@ def test_cuda_igdn_deconv_wide_matches_plain(cuda, b, h, w):
     assert kernels.LAUNCHES["igdn_deconv_wide"] == n0["igdn_deconv_wide"] + 1
     assert (kernels.LAUNCHES["igdn_deconv_wide_packed"]
             == n0["igdn_deconv_wide_packed"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(2, 17, 30), (1, 136, 240)])
+def test_cuda_igdn_deconv_wide_matches_plain(cuda, b, h, w):
+    """The lone wide kernel at C = O = 192: a ragged 17 × 30 input, and the
+    wide chain's first stage, 136 × 240 (240 columns = 7.5 tiles)."""
+    _check_wide(cuda, 192, b, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(128, 13, 40), (64, 6, 24),
+                                   (192, 16, 64)])
+def test_cuda_igdn_deconv_wide_widths_and_edge_tiles(cuda, c, h, w):
+    """C = 64 and 128; partial 8 × 32 input tiles on both edges with W a
+    multiple of 8 (13 rows: the second pass of 4 rows runs past the
+    image), a tile taller than the image, and whole tiles only."""
+    _check_wide(cuda, c, 2, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,h,w", [(192, 13, 40), (128, 9, 33)])
+def test_cuda_igdn_deconv_wide_dynamic_range(cuda, c, h, w):
+    """x over two and a half decades, so x²·γ dominates β in the IGDN."""
+    _check_wide(cuda, c, 2, h, w, wide_range=True)
 
 
 def _grad_case(name, rng, device):
