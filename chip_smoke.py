@@ -16,7 +16,10 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 the serving paths' shapes, timed with CUDA events beside its
                 bound, its plain version and the nearest library call:
                 gdn_fused f32 (rtol 1e-5, atol 1e-6) and bf16 (rtol 2⁻⁷: one
-                bf16 step); quantize_and_index exact, with crafted ties,
+                bf16 step), each with a bound that holds for any split of
+                its norm between the CUDA cores and the tensor cores
+                (gdn_bound);
+                quantize_and_index exact, with crafted ties,
                 saturation and table-edge scales; gdn_conv_fused at g_a's
                 three stages, igdn_deconv_wide_packed at 272×480,
                 igdn_deconv_tail_packed at 544×960, igdn_deconv_wide at
@@ -26,7 +29,7 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 versions keep it f32, as the JAX refs do). The fused rows'
                 bound holds for any split of the norm between the CUDA
                 cores and the tensor cores (fused_bound); gdn_conv_fused
-                and the wide g_s rows also time the unfused pair of library
+                and the g_s rows also time the unfused pair of library
                 calls (pair_ms: the norm's torch.addmm, then the bf16 conv).
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
@@ -134,6 +137,21 @@ def bound(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gdn_bound(bytes_moved: float, pixels: int, c: int, products: int):
+    """Least ms for a standalone (I)GDN on any design. Its norm, 2·pixels·C²
+    products, can run in f32 on the CUDA cores (a = its f32 operations /
+    67 TFLOP/s) or as `products` bf16 products on the tensor cores (b =
+    products · 2·pixels·C² / 989 TFLOP/s: 6 keep an f32 x² and γ, 3 a bf16
+    x²), and a design may split it between the two: the operations take
+    a·b/(a + b), both units finishing together. The bound is the larger of
+    that and the bytes over the memory rate."""
+    a = _norm_ops(pixels, c) / F32_FLOPS_PER_S
+    b = products * 2 * pixels * c * c / BF16_TC_FLOPS_PER_S
+    t_ops = a * b / (a + b) * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def fused_bound(bytes_moved: float, norm_pixels: int, c: int,
                 conv_ops: float):
     """Least ms for a fused (I)GDN + conv on any design. The conv runs on the
@@ -198,8 +216,8 @@ def check_gdn(torch, kernels):
                 lambda: kernels._gdn_ref(x, gamma_t, beta, False))
             # the nearest single library call: the norm's product alone
             lib_ms = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
-            b_ms, b_by = bound(2 * rows * c * 4 + c * c * 4 + c * 4,
-                               2 * rows * c * c + 4 * rows * c)
+            b_ms, b_by = gdn_bound(2 * rows * c * 4 + c * c * 4 + c * 4,
+                                   rows, c, 6)
             timing = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by,
                           shape=[rows, c])
@@ -321,8 +339,7 @@ def check_gdn_bf16(torch, kernels):
     plain_ms = cuda_ms(lambda: kernels._gdn_ref(
         x.float(), gamma_t, beta, True).to(torch.bfloat16))
     lib_ms = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
-    b_ms, b_by = bound(2 * rows * c * 2 + c * c * 4 + c * 4,
-                       2 * rows * c * c + 4 * rows * c)
+    b_ms, b_by = gdn_bound(2 * rows * c * 2 + c * c * 4 + c * 4, rows, c, 3)
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 shape=[rows, c])
@@ -377,8 +394,8 @@ def check_gdn_conv(torch, F, kernels):
 
 def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
     """One IGDN → k5 s2 deconv kernel C → f on x against its plain version,
-    with its times, bound and library yardstick, and for the wide kernel
-    (f = C) the unfused pair of library calls. Returns (row, output)."""
+    with its times, bound, library yardstick and the unfused pair of
+    library calls. Returns (row, output)."""
     c = x.shape[1]
     gamma_t, beta = _gdn_params(torch, gen, c)
     weight = _kaiming(torch, gen, (c, f, 5, 5), 25 * c)
@@ -402,14 +419,12 @@ def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
             x, gamma_t, beta, weight, bias)),
         library_ms=cuda_ms(lambda: F.conv_transpose2d(
             g, weight, bias16, 2, 2, 1)),
-        pair_ms=None,
         bound_ms=b_ms, bound_by=b_by)
-    if f == c:  # the unfused pair: the norm's product, then the deconv
-        xsq = _norm_rows(torch, x)
-        row["pair_ms"] = cuda_ms(lambda: (
-            torch.addmm(beta, xsq, gamma_t),
-            F.conv_transpose2d(g, weight, bias16, 2, 2, 1)))
-        del xsq
+    xsq = _norm_rows(torch, x)  # the unfused pair: the norm, then the deconv
+    row["pair_ms"] = cuda_ms(lambda: (
+        torch.addmm(beta, xsq, gamma_t),
+        F.conv_transpose2d(g, weight, bias16, 2, 2, 1)))
+    del xsq
     log(f"    {name} {tuple(x.shape)} → {f}: " + ", ".join(
         f"{k} {v:.3f}" for k, v in row.items()
         if k.endswith("ms") and v is not None))

@@ -18,7 +18,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu")
-HEADERS = ("gdn_window.cuh", "gdn_window_tc.cuh")
+HEADERS = ("gdn_window_tc.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # -gencode names the sm_90a PTX target, which wgmma needs; "-arch=sm_90a"
 # alone gave ptxas a plain sm_90 target
@@ -40,11 +40,11 @@ def nvcc() -> str:
     )
 
 
-def lib_path() -> Path:
+def lib_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libstem_kernels_{h.hexdigest()[:16]}.so"
 
@@ -57,15 +57,16 @@ def _check(res, cmd):
         )
 
 
-def build() -> Path:
-    """Compile csrc/*.cu → cached .so; returns its path."""
-    out = lib_path()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile csrc/*.cu → cached .so; returns its path. ``csrc`` may be
+    another tree's sources of the same files (ops/kernel_ab.py)."""
+    out = lib_path(csrc)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
-    cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(csrc / s), "-o", str(o)]
             for s, o in zip(SOURCES, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)

@@ -1,6 +1,7 @@
-// Shared device code of the fused (I)GDN + convolution kernels that run both
-// the norm and the convolution on the tensor cores (gdn_conv.cu and the wide
-// kernel of igdn_deconv.cu), for sm_90a.
+// Shared device code of the kernels that run the (I)GDN norm on the tensor
+// cores, for sm_90a: the fused (I)GDN + convolution kernels (gdn_conv.cu,
+// both kernels of igdn_deconv.cu), which use all three steps below, and
+// gdn_fused (kernels.cu), which uses the wgmma wrappers and the ring.
 //
 // A block of 256 threads (two warpgroups of 4 warps) owns one spatial tile
 // of one image:
@@ -28,11 +29,13 @@
 // of `rows` × 128 bytes in shared memory, filled with cp.async (16 bytes a
 // thread) kStages − 1 stages ahead of the MMAs: one barrier per stage, and
 // each tile is fetched from L2 once per block and read by every warpgroup.
-// A stage is 64 input channels of one conv tap, or 32 input channels of γ
-// as [o][hi 0..31 | lo 0..31]; the wrappers lay both out stage after stage
-// (ops/kernels.py::split_gamma, pack_conv_weight, pack_wide_weight). A ring
-// slot is wgmma's K-major operand with the 128-byte swizzle: 16-byte chunk
-// j of row r lives at chunk j ^ (r & 7), slots 1024-byte aligned.
+// A stage is 64 input channels of one conv tap (or of several, for the
+// narrow g_s kernel), or 32 input channels of γ as [o][hi 0..31 |
+// lo 0..31]; the wrappers lay them out stage after stage
+// (ops/kernels.py::split_gamma, pack_conv_weight, pack_wide_weight,
+// pack_narrow_weight). A ring slot is wgmma's K-major operand with the
+// 128-byte swizzle: 16-byte chunk j of row r lives at chunk j ^ (r & 7),
+// slots 1024-byte aligned.
 //
 // The window's pixel stride is C + 8 bf16 (≡ 16 bytes mod 128 for C ≡ 0 mod
 // 64): ldmatrix rows of 8 consecutive slots, the 16-byte window stores and
@@ -160,6 +163,22 @@ __device__ __forceinline__ uint64_t ring_desc(uint32_t saddr) {
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// d[m64 × n16] += a (registers: this warp's 16 rows × 16, as for
+// mma.m16n8k16) · B (desc: 16 rows × 16 of K-major bf16, 128-byte
+// swizzle), f32 accumulators d[j][e] laid out as mma's for n-tile j.
+__device__ __forceinline__ void wgmma_n16(float (&d)[2][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
 // d[m64 × n32] += a (registers: this warp's 16 rows × 16, as for
@@ -327,7 +346,8 @@ __device__ __forceinline__ void wgmma_n192(float (&d)[24][4],
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
                                       const uint32_t (&a)[4], uint64_t desc) {
-  static_assert(N % 32 == 0 && N <= 192, "wgmma width");
+  static_assert((N == 16 || N % 32 == 0) && N <= 192, "wgmma width");
+  if constexpr (N == 16) wgmma_n16(d, a, desc);
   if constexpr (N == 32) wgmma_n32(d, a, desc);
   if constexpr (N == 64) wgmma_n64(d, a, desc);
   if constexpr (N == 96) wgmma_n96(d, a, desc);
@@ -336,38 +356,40 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
 }
 
 // One stage, `ROWS` rows of 128 bytes contiguous at src, into the ring slot
-// at dst with the swizzle above; 16 bytes per cp.async.
+// at dst with the swizzle above; 16 bytes per cp.async (threads past the
+// stage's chunks issue none).
 template <int ROWS>
 __device__ __forceinline__ void load_stage(uint32_t dst, const bf16* src) {
   constexpr int kChunks = ROWS * (kRowBytes / 16);
-  static_assert(kChunks % kThreads == 0, "whole chunks per thread");
   const char* s = reinterpret_cast<const char*>(src);
 #pragma unroll
-  for (int k = 0; k < kChunks / kThreads; ++k) {
+  for (int k = 0; k < (kChunks + kThreads - 1) / kThreads; ++k) {
     const int i = threadIdx.x + k * kThreads;
+    if (kChunks % kThreads != 0 && i >= kChunks) break;
     const int r = i >> 3, j = i & 7;
     cp_async16(dst + r * kRowBytes + ((j ^ (r & 7)) << 4), s + i * 16);
   }
 }
 
-// The ring: stage q of n lives in slot q % kStages. prefetch issues stages
-// 0 .. kStages − 2; next(q) waits for stage q, makes it visible to every
-// warp (the barrier also retires stage q − 1, whose slot it refills with
-// stage q + kStages − 1) and returns stage q's slot address. src(q) is the
-// device address of stage q.
-template <int ROWS, typename SrcFn>
+// The ring: stage q of n lives in slot q % kStages, slots SLOT_ROWS rows
+// of 128 bytes apart. prefetch issues stages 0 .. kStages − 2; next(q)
+// waits for stage q, makes it visible to every warp (the barrier also
+// retires stage q − 1, whose slot it refills with stage q + kStages − 1)
+// and returns stage q's slot address. load(dst, q) issues the cp.asyncs of
+// stage q into the slot at dst.
+template <int SLOT_ROWS, typename LoadFn>
 struct Ring {
   uint32_t base;
   int n;
-  SrcFn src;
+  LoadFn load;
 
   __device__ __forceinline__ uint32_t slot(int q) const {
-    return base + (q % kStages) * (ROWS * kRowBytes);
+    return base + (q % kStages) * (SLOT_ROWS * kRowBytes);
   }
   __device__ __forceinline__ void prefetch() const {
 #pragma unroll
     for (int q = 0; q < kStages - 1; ++q) {
-      if (q < n) load_stage<ROWS>(slot(q), src(q));
+      if (q < n) load(slot(q), q);
       cp_async_commit();
     }
   }
@@ -376,16 +398,25 @@ struct Ring {
     fence_proxy_async();  // the copies are visible to wgmma's reads
     __syncthreads();
     const int ahead = q + kStages - 1;
-    if (ahead < n) load_stage<ROWS>(slot(ahead), src(ahead));
+    if (ahead < n) load(slot(ahead), ahead);
     cp_async_commit();  // possibly empty, so the group count stays uniform
     return slot(q);
   }
 };
 
+template <int SLOT_ROWS, typename LoadFn>
+__device__ __forceinline__ Ring<SLOT_ROWS, LoadFn> make_ring_fn(
+    uint32_t base, int n, LoadFn load) {
+  return Ring<SLOT_ROWS, LoadFn>{base, n, load};
+}
+
+// A ring whose every stage is `ROWS` rows contiguous at src(q), the device
+// address of stage q.
 template <int ROWS, typename SrcFn>
-__device__ __forceinline__ Ring<ROWS, SrcFn> make_ring(uint32_t base, int n,
-                                                      SrcFn src) {
-  return Ring<ROWS, SrcFn>{base, n, src};
+__device__ __forceinline__ auto make_ring(uint32_t base, int n, SrcFn src) {
+  return make_ring_fn<ROWS>(base, n, [=](uint32_t dst, int q) {
+    load_stage<ROWS>(dst, src(q));
+  });
 }
 
 // Rows [y0, y0 + rows) × cols [x0, x0 + cols) of image xb (NCHW, C

@@ -24,11 +24,14 @@
 // the sub-pixel form of the transposed conv (layers/conv.py::_subpixel_kernel
 // in the JAX package), 25 useful taps for every 2 × 2 output phases.
 //
-// Both kernels: one block per 8 × 32 input tile of one image, whose window
-// of 10 × 34 pixels × C is loaded once and IGDN'd in place; the deconv then
-// runs on the tensor cores (f32 accumulators) reading the window.
-// A partial tile at the right or bottom edge loads zeros past the image and
-// stores nothing there.
+// Both kernels run on gdn_window_tc.cuh: one block of two warpgroups per
+// 8 × 32 input tile of one image, whose window of 10 × 34 pixels × C is
+// loaded once and IGDN'd in place on the tensor cores (split-bf16 norm at
+// f32 accuracy); the deconv then runs on wgmma with the window pixels as
+// rows (ldmatrix), its weights streaming through the header's 3-slot
+// cp.async ring after γ's split, so every staged tile serves all the
+// block's pixels. A partial tile at the right or bottom edge loads zeros
+// past the image and stores nothing there.
 //
 // igdn_deconv_wide_kernel (C → O = C), on gdn_window_tc.cuh: bound on the
 // H100 by the 9.6e11 useful deconv operations (0.97 ms at the bf16
@@ -50,22 +53,35 @@
 // takes about 423k cycles, 6 % window load, 16 % norm, 78 % conv
 // (ops/phase_probe.py; PERF.md §5-6).
 //
-// igdn_deconv_narrow_kernel (C → F ≤ 32), on gdn_window.cuh: at F = 3 bound
-// by its IGDN, 1.5e11 f32 norm operations at 544 × 960 × 192 (2.3 ms on the
-// CUDA cores; 0.44 ms if the norm shares the tensor cores, as the wide
-// kernel's does); the deconv is rows × 9 × C per pixel on the tensor cores.
-// All 4 phases share one GEMM of M = rows (row = o·4 + a·2 + b; rows ≥ 4F
-// are zero) over the 9 taps of the 3 × 3 neighbourhood, the unused (phase,
-// tap) weights being zero. rows = 16 (one m-tile) for F ≤ 4, else
-// 32·⌈F/8⌉ ≤ 128; a warp runs the m-tiles MG = 1 or 2 at a time, so its
-// accumulators stay at 16·MG floats whatever F is (mma.sync, weights read
-// from L2, the window normalised on the CUDA cores 64 pixels at a time).
+// igdn_deconv_narrow_kernel (C → F ≤ 32): bound on the H100 by its norm,
+// 1.5e11 f32 operations at F = 3 and 544 × 960 × 192 against 1.2e10 of
+// deconv: 0.44 ms with the norm shared between the CUDA cores and the
+// tensor cores (chip_smoke.py::fused_bound), 2.3 ms on the CUDA cores
+// alone, so it runs on the tensor cores as the wide kernel's does. All 4
+// phases share one implicit GEMM on wgmma with the pixels as rows and
+// N = rows GEMM columns (row = o·4 + a·2 + b; rows ≥ 4F are zero) over the
+// 9 taps of the 3 × 3 neighbourhood, K = 9·C, the unused (phase, tap)
+// weights being zero. rows = 16 (wgmma m64n16) for F ≤ 4, else
+// 32·⌈F/8⌉ ≤ 128. Each warpgroup takes MT = 2 m-tiles of 64 pixels at
+// once where N ≤ 64 (one sweep over the weights), else one at a time in two
+// sweeps, so the accumulators stay at ≤ 64 per thread. A ring stage holds
+// KS = C/64 chunks of 64 channels (a whole tap) where the slot has room
+// (KS·rows ≤ C), else one: 9 stages a sweep at F ≤ 4 and C = 192, each
+// issuing all its wgmmas before one wait. Shared memory at C = 192: window
+// 136,000 B + ring 3 × 192 rows × 128 B = 73,728 B + up to 1,024 B =
+// 210,752 B. Registers (nvcc -Xptxas -v) at C = 192 / 128 / 64: 143 / 110
+// / 93 (rows 16), 154 / 122 / 91 (32), 190 / 154 / 123 (64), 145 / 135 /
+// 157 (96), 168 / 164 / 182 (128), no spills.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 3.75-3.93
+// ms at 544 × 960 → 3; a block takes about 98k cycles, 18 % window load,
+// 66 % norm, 16 % conv (ops/phase_probe.py; PERF.md §5-6).
 
-#include "gdn_window.cuh"
 #include "gdn_window_tc.cuh"
 
 namespace stem {
 namespace {
+
+using tc::bf16;
 
 constexpr int kTileH = 8, kTileW = 32;    // input pixels per block
 constexpr int kWinH = kTileH + 2;         // 10 rows
@@ -174,70 +190,150 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
   STEM_PHASE(3);
 }
 
-// Warps: one input row of the tile each (4 n-tiles of 8 columns), every
-// row of the GEMM in `groups` passes of MG m-tiles (16·MG rows) each.
-// w: (9 taps, rows, C) bf16, row o·4 + a·2 + b; bias_m: (rows,) f32;
-// rows = 16·MG·groups.
-template <int C, int MG>
-__global__ void __launch_bounds__(kThreads, 1)
+// One stage of the narrow kernel's GEMM: KS chunks of 64 input channels of
+// one tap for MT m-tiles of the warpgroup's pixels (this warp's 16 of m-tile
+// mt at apix[mt] + aoff, as a_row addresses them) × all N rows of the ring
+// slot wslot (chunk ks at wslot + ks·N·128):
+//   acc[mt][n-tile][e] += Σ_c win[pixel + tap][c] · W[tap][row][c].
+// Issues every wgmma before it waits for them.
+template <int N, int MT, int KS>
+__device__ __forceinline__ void narrow_stage(float (&acc)[MT][N / 8][4],
+                                             uint32_t wslot,
+                                             const uint32_t (&apix)[MT],
+                                             uint32_t aoff) {
+  uint32_t a[MT][KS][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::ldmatrix_x4(a[mt][ks][kk], apix[mt] + aoff + ks * 128 + kk * 32);
+  tc::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint64_t d = tc::ring_desc(wslot + ks * N * tc::kRowBytes);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma<N>(acc[mt], a[mt][ks][kk], d + kk * 2);
+  }
+  tc::wgmma_commit();
+  tc::wgmma_wait_all();
+}
+
+// The narrow kernel's shape at C channels and N GEMM rows: MT m-tiles of 64
+// pixels per warpgroup in each of kSweeps sweeps over the weights (4 m-tiles
+// a block), and KS chunks of 64 channels per ring stage (a whole tap where
+// the slot holds it).
+template <int C, int N>
+struct Narrow {
+  static constexpr int KC = C / 64;
+  static constexpr int MT = N <= 64 ? 2 : 1;
+  static constexpr int kSweeps = 2 / MT;
+  static constexpr int KS = KC * N <= C ? KC : 1;
+  static constexpr int kSlotRows = (C > KS * N ? C : KS * N);
+  static constexpr size_t smem() {
+    return tc::Layout<C>::window_bytes(kSlots) + 1024 +
+           static_cast<size_t>(tc::kStages) * kSlotRows * tc::kRowBytes;
+  }
+};
+
+// Warpgroups: 2 along the 128 pixels of a pass (two input rows × 32
+// columns each, as the wide kernel's), all N GEMM rows; warp w of a
+// warpgroup owns 16 pixels (row w / 2, columns (w % 2)·16 + 0..15).
+// gamma_s: (C/32, C, 64) bf16 (ops/kernels.py::split_gamma); w: (9, C/64,
+// N, 64) bf16, GEMM row o·4 + a·2 + b of tap (dy + 1)·3 + (dx + 1), zero
+// past 4F and where the tap is past the 5 × 5 kernel (ops/kernels.py::
+// pack_narrow_weight); bias_m: (N,) f32, zero past 4F.
+template <int C, int N>
+__global__ void __launch_bounds__(tc::kThreads, 1)
 igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
-                          const float* __restrict__ gamma_t,
+                          const bf16* __restrict__ gamma_s,
                           const float* __restrict__ beta,
                           const bf16* __restrict__ w,
                           const float* __restrict__ bias_m,
-                          bf16* __restrict__ out, int F, int groups, int H,
-                          int W, int tiles_w) {
-  constexpr int NT = 4;
+                          bf16* __restrict__ out, int F, int H, int W,
+                          int tiles_w) {
+  using S = Narrow<C, N>;
+  constexpr int KN = C / 32;   // ring stages per norm round
+  constexpr int MT = S::MT, KS = S::KS;
+  constexpr int kNorm = tc::norm_stages<C>(kSlots);
+  constexpr int kSweepStages = 9 * S::KC / KS;
+  constexpr int kStagesAll = kNorm + S::kSweeps * kSweepStages;
+  using L = tc::Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* win = reinterpret_cast<bf16*>(smem);
-  float* gs = reinterpret_cast<float*>(
-      smem + static_cast<size_t>(kSlots) * Window<C>::kStride * sizeof(bf16));
+  const uint32_t win_u32 = tc::smem_u32(smem);
+
+  STEM_PHASE(0);
+  const auto ring = tc::make_ring_fn<S::kSlotRows>(
+      tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
+        if (q < kNorm)
+          tc::load_stage<C>(dst, gamma_s + (q % KN) * (C * 64));
+        else
+          tc::load_stage<KS * N>(
+              dst, w + ((q - kNorm) % kSweepStages) * (KS * N * 64));
+      });
+  ring.prefetch();
 
   const int b = blockIdx.y;
   const int iy0 = (blockIdx.x / tiles_w) * kTileH;
   const int ix0 = (blockIdx.x % tiles_w) * kTileW;
-  load_window<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
-                 iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
-  gdn_window<C, true>(win, kSlots, gs, gamma_t, beta);
+  tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
+                        iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
+  STEM_PHASE(1);
+  int q = tc::gdn_window_tc<C, true>(win, kSlots, ring, 0, beta);
+  STEM_PHASE(2);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  int slot[NT];
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) slot[nt] = warp * kWinW + nt * 8 + g;
-
-  // MG = 1 is the F ≤ 4 case: one pass, with a constant row count
-  const int passes = MG == 1 ? 1 : groups;
-  const int rows = 16 * MG * passes;
-  const int iy = iy0 + warp;
+  const int wrow = 2 * (warp >> 2) + ((warp & 3) >> 1);  // row in 4
+  const int wcol = (warp & 1) * 16;                      // first column
   bf16* ob = out + static_cast<long long>(b) * F * 4 * H * W;
-  for (int grp = 0; grp < passes; ++grp) {
-    const int m0 = 16 * MG * grp;
-    float acc[MG][NT][4];
-    init_bias(acc, bias_m, m0, rows);
-    const bf16* wl = w + static_cast<long long>(m0 + g) * C + 2 * t;
+
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * kWinW + tap % 3;
-      mma_tap<C, MG, NT>(acc, win, slot, off,
-                         wl + static_cast<long long>(tap) * rows * C);
+  for (int sweep = 0; sweep < S::kSweeps; ++sweep) {
+    // m-tile mt: input rows 4·(sweep·MT + mt) + 0..3, this warp's at wrow
+    uint32_t apix[MT];
+    float acc[MT][N / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row = 4 * (sweep * MT + mt) + wrow;
+      apix[mt] = tc::a_row<C>(win_u32, row * kWinW + wcol, kSlots);
+      tc::init_bias<N>(acc[mt], bias_m, 0);
     }
-    if (iy >= H) continue;
+#pragma unroll 1
+    for (int s = 0; s < kSweepStages; ++s) {
+      const int tap = s / (S::KC / KS), kc0 = (s % (S::KC / KS)) * KS;
+      const uint32_t off =
+          ((tap / 3) * kWinW + tap % 3) * (L::kStride * 2) + kc0 * 128;
+      narrow_stage<N, MT, KS>(acc, ring.next(q++), apix, off);
+    }
+    // acc[mt][j][e]: pixel wcol + g + 8·(e / 2) of the m-tile's row, GEMM
+    // row n = 8j + 2t + e % 2 = o·4 + a·2 + b; e and e + 1 are b = 0, 1 of
+    // one (o, a), two neighbouring output columns
 #pragma unroll
-    for (int mt = 0; mt < MG; ++mt) {
+    for (int mt = 0; mt < MT; ++mt) {
+      const int iy = iy0 + 4 * (sweep * MT + mt) + wrow;
+      if (iy >= H) continue;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+      for (int e = 0; e < 4; e += 2) {
+        const int ix = ix0 + wcol + g + 8 * (e >> 1);
+        if (ix >= W) continue;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int ix = ix0 + nt * 8 + 2 * t + (q & 1);
-          const int row = m0 + 16 * mt + g + (q >> 1) * 8;
-          if (ix >= W || row >= 4 * F) continue;
-          ob[out_index(row >> 2, iy, ix, (row >> 1) & 1, row & 1, H, W)] =
-              __float2bfloat16_rn(acc[mt][nt][q]);
+        for (int j = 0; j < N / 8; ++j) {
+          const int n = 8 * j + 2 * t;
+          if (n >= 4 * F) continue;
+          *reinterpret_cast<__nv_bfloat162*>(
+              ob + out_index(n >> 2, iy, ix, (n >> 1) & 1, 0, H, W)) =
+              __floats2bfloat162_rn(acc[mt][j][e], acc[mt][j][e + 1]);
         }
       }
     }
   }
+  STEM_PHASE(3);
 }
 
 bool grid_of(long long batch, int H, int W, int* tiles_w, long long* tiles) {
@@ -263,34 +359,46 @@ int launch_wide(const bf16* x, const bf16* gamma_s, const float* beta,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int C, int MG>
-int launch_narrow(const bf16* x, const float* gamma_t, const float* beta,
+template <int C, int N>
+int launch_narrow(const bf16* x, const bf16* gamma_s, const float* beta,
                   const bf16* w, const float* bias_m, bf16* out,
-                  long long batch, int F, int groups, int H, int W,
-                  cudaStream_t stream) {
+                  long long batch, int F, int H, int W, cudaStream_t stream) {
   int tiles_w;
   long long tiles;
   if (!grid_of(batch, H, W, &tiles_w, &tiles)) return cudaErrorInvalidValue;
-  const size_t smem = Window<C>::bytes(kSlots);
-  cudaError_t err = allow_smem(igdn_deconv_narrow_kernel<C, MG>, smem);
+  const size_t smem = Narrow<C, N>::smem();
+  cudaError_t err = tc::allow_smem(igdn_deconv_narrow_kernel<C, N>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  igdn_deconv_narrow_kernel<C, MG>
+  igdn_deconv_narrow_kernel<C, N>
       <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)),
-         kThreads, smem, stream>>>(x, gamma_t, beta, w, bias_m, out, F,
-                                   groups, H, W, tiles_w);
+         tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias_m, out, F,
+                                       H, W, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int C>
-int launch_narrow_rows(const bf16* x, const float* gamma_t, const float* beta,
+int launch_narrow_rows(const bf16* x, const bf16* gamma_s, const float* beta,
                        const bf16* w, const float* bias_m, bf16* out,
                        long long batch, int F, int rows, int H, int W,
                        cudaStream_t stream) {
-  if (rows == 16)
-    return launch_narrow<C, 1>(x, gamma_t, beta, w, bias_m, out, batch, F, 1,
-                               H, W, stream);
-  return launch_narrow<C, 2>(x, gamma_t, beta, w, bias_m, out, batch, F,
-                             rows / 32, H, W, stream);
+  switch (rows) {
+    case 16:
+      return launch_narrow<C, 16>(x, gamma_s, beta, w, bias_m, out, batch,
+                                  F, H, W, stream);
+    case 32:
+      return launch_narrow<C, 32>(x, gamma_s, beta, w, bias_m, out, batch,
+                                  F, H, W, stream);
+    case 64:
+      return launch_narrow<C, 64>(x, gamma_s, beta, w, bias_m, out, batch,
+                                  F, H, W, stream);
+    case 96:
+      return launch_narrow<C, 96>(x, gamma_s, beta, w, bias_m, out, batch,
+                                  F, H, W, stream);
+    case 128:
+      return launch_narrow<C, 128>(x, gamma_s, beta, w, bias_m, out, batch,
+                                   F, H, W, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -306,7 +414,7 @@ int stem_igdn_deconv_wide_bf16(const void* x, const void* gamma_s,
                                const float* beta, const void* w,
                                const float* bias, void* out, long long batch,
                                int C, int O, int H, int W, void* stream) {
-  using stem::bf16;
+  using stem::tc::bf16;
   if (batch == 0 || H == 0 || W == 0) return 0;
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gs = static_cast<const bf16*>(gamma_s);
@@ -323,32 +431,34 @@ int stem_igdn_deconv_wide_bf16(const void* x, const void* gamma_s,
   return cudaErrorInvalidValue;
 }
 
-// x (B, C, H, W) bf16; gamma_t (C, C) f32; beta (C,) f32; w (9, rows, C)
+// x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and
+// lo (ops/kernels.py::split_gamma); beta (C,) f32; w (9, C/64, rows, 64)
 // bf16 (see igdn_deconv_narrow_kernel); bias_m (rows,) f32; out
 // (B, F, 2H, 2W) bf16. C ∈ {64, 128, 192}, 1 ≤ F ≤ 32, rows = 16 for F ≤ 4
 // and 32·⌈F/8⌉ otherwise (ops/kernels.py::narrow_rows).
-int stem_igdn_deconv_narrow_bf16(const void* x, const float* gamma_t,
+int stem_igdn_deconv_narrow_bf16(const void* x, const void* gamma_s,
                                  const float* beta, const void* w,
                                  const float* bias_m, void* out,
                                  long long batch, int C, int F, int rows,
                                  int H, int W, void* stream) {
-  using stem::bf16;
+  using stem::tc::bf16;
   if (batch == 0 || H == 0 || W == 0) return 0;
   if (F < 1 || F > 32) return cudaErrorInvalidValue;
   if (rows != (F <= 4 ? 16 : 32 * ((F + 7) / 8))) return cudaErrorInvalidValue;
   const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gs = static_cast<const bf16*>(gamma_s);
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 64)
-    return stem::launch_narrow_rows<64>(xb, gamma_t, beta, wb, bias_m, ob,
-                                        batch, F, rows, H, W, s);
+    return stem::launch_narrow_rows<64>(xb, gs, beta, wb, bias_m, ob, batch,
+                                        F, rows, H, W, s);
   if (C == 128)
-    return stem::launch_narrow_rows<128>(xb, gamma_t, beta, wb, bias_m, ob,
-                                         batch, F, rows, H, W, s);
+    return stem::launch_narrow_rows<128>(xb, gs, beta, wb, bias_m, ob, batch,
+                                         F, rows, H, W, s);
   if (C == 192)
-    return stem::launch_narrow_rows<192>(xb, gamma_t, beta, wb, bias_m, ob,
-                                         batch, F, rows, H, W, s);
+    return stem::launch_narrow_rows<192>(xb, gs, beta, wb, bias_m, ob, batch,
+                                         F, rows, H, W, s);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "gdn_window_tc.cuh"
+
 namespace {
+
+using stem::tc::bf16;
+namespace tc = stem::tc;
 
 // ---------------------------------------------------------------------------
 // gdn_fused
@@ -22,115 +27,256 @@ namespace {
 //
 //   out[b, o, p] = x[b, o, p] * rsqrt(beta[o] + sum_i gamma_t[i, o] * x[b, i, p]^2)
 //
-// (sqrt instead of rsqrt for IGDN), f32 throughout. The bf16 entry is the
-// same kernel with bf16 loads and stores of x and out (the TPU kernel casts
-// x to f32 and the result back the same way, _gdn_kernel); γᵀ, β and the
-// math stay f32.
+// (sqrt instead of rsqrt for IGDN) at f32 accuracy. The bf16 entry takes x
+// and writes out in bf16, with f32 math and one rounding at the end, as
+// the TPU kernel casts x to f32 and the result back (_gdn_kernel).
 //
-// Bound: at the serving widths (C = 192) the channel product is 2·C flops per
-// element against 8 bytes moved, so the kernel sits near the f32-FMA /
-// bandwidth ridge; memory traffic is what it must keep low. Design: a plain
-// SGEMM tiling of the (C_out x C_in) x (C_in x P) product. One block owns a
-// 64-output-channel x 64-pixel tile and walks C_in in chunks of 16 through
-// shared memory (gamma_t chunk and x^2 chunk, 8 KB — no opt-in needed); each
-// of the 256 threads keeps a 4 x 4 accumulator in registers. x^2 and the norm
-// never touch device memory. The o-tile index varies fastest over the grid, so
-// the C/64 blocks that read the same pixels run together and the re-reads hit
-// L2. wgmma/TMA (tf32 would break the f32 contract) are later work.
+// Bound on the H100: bytes. The f32 entry at (2088960, 192) moves 3.2 GB
+// (0.958 ms at 3.35 TB/s); its norm, 1.5e11 products, takes 2.3 ms on the
+// CUDA cores in f32 but 0.93 ms as six bf16 products on the tensor cores,
+// and less shared between the two (chip_smoke.py::gdn_bound).
+//
+// Design (gdn_kernel, both entries): the norm is a GEMM on wgmma with the
+// pixels as rows. A block takes 128 pixels of one image over all C
+// channels, one warpgroup per 64 (wgmma m64nCk16, C/2 f32 accumulators per
+// thread), so every pixel is read from device memory once and written once.
+//   1. The window, x in its own type channel-major [C][128 + pad], arrives
+//      by 16-byte cp.async along P (plain loads when a row of P is not a
+//      whole number of 16-byte chunks). A row is 16 bytes longer than its
+//      128 pixels, ≡ 4 words mod 32, so the 8 pixels × 4 channel pairs of
+//      an A fragment fall in distinct banks.
+//   2. x² is split exactly into K bf16 pieces, s₀ + … + s_{K−1}, each the
+//      bf16 rounding of what the earlier ones leave; the wrapper splits γ
+//      the same way (ops/kernels.py::split_gamma_pieces), and
+//      norm = Σ s_i·g_j over i + j < K, summed in f32 on the tensor cores.
+//      f32 entry: K = 3, six products (an f32 x² has 24 significant bits;
+//      the dropped terms are below 3·2⁻²⁴ of the norm). bf16 entry: K = 2,
+//      three products (a bf16 square has 16 bits, so s₀ + s₁ is exact; γ
+//      keeps 16 bits). A ring stage is one γ piece for 64 input channels,
+//      C rows × 128 bytes in the header's 3-slot cp.async ring, read by both
+//      warpgroups; a warp computes the pieces of its 16 pixels × 64
+//      channels from the window once and keeps them in registers across
+//      the K stages that use them.
+//   3. x·rsqrt(β + norm) in f32 on the accumulators, x read again from the
+//      window, rounded to the I/O type into the window in place (a warp
+//      owns its 16 pixels over all channels), then 16-byte stores along P.
+// Shared memory at C = 192: window 101,376 B (f32) or 52,224 B (bf16) +
+// ring 73,728 B + up to 1,024 B of alignment: 176,128 or 126,976 B, so one
+// block per SM. Registers (nvcc -Xptxas -v) at C = 192 / 128 / 64: 201 /
+// 157 / 106 (f32), 182 / 140 / 90 (bf16), no spills.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, through
+// the wrapper (γ's split included): f32 2.24-2.35 ms at (2088960, 192),
+// 2.3-2.4× its byte bound; bf16 0.22-0.23 ms at (130560, 192), bound
+// 0.030 ms (PERF.md §6).
 // ---------------------------------------------------------------------------
 
-constexpr int kTileO = 64;
-constexpr int kTileP = 64;
-constexpr int kTileK = 16;
-constexpr int kGdnThreads = 256;
+constexpr int kGdnTile = 128;  // pixels per block
+
+template <typename T>
+struct GdnIo {
+  static constexpr int kStride = kGdnTile + 16 / sizeof(T);  // window row
+  static constexpr int kChunk = 16 / sizeof(T);  // pixels per 16 bytes
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kGdnThreads)
-gdn_kernel(const T* __restrict__ x, const float* __restrict__ gamma_t,
-           const float* __restrict__ beta, T* __restrict__ out, int C,
-           long long P, int n_otiles, int inverse) {
-  __shared__ float s_g[kTileK][kTileO];
-  __shared__ float s_x[kTileK][kTileP];
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-  const long long tile = blockIdx.x;
-  const int o0 = static_cast<int>(tile % n_otiles) * kTileO;
-  const long long p0 = (tile / n_otiles) * kTileP;
+// The K bf16 pieces of the squares of two values, packed in pairs (the
+// first value in the low half): piece i is the bf16 rounding of what
+// pieces 0 .. i − 1 leave, each remainder exact in f32.
+template <int K>
+__device__ __forceinline__ void split_squares(float a, float b,
+                                              uint32_t (&p)[K]) {
+  a *= a;
+  b *= b;
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    p[i] = *reinterpret_cast<const uint32_t*>(&h);
+    const float2 f = __bfloat1622float2(h);
+    a -= f.x;
+    b -= f.y;
+  }
+}
+
+// gamma_p: (C/64 · K, C, 64) bf16, γ's K pieces, stage kc·K + j = piece j
+// of input channels 64·kc .. 64·kc + 63 for every output row o
+// (ops/kernels.py::split_gamma_pieces).
+template <typename T, int C, int K, bool INVERSE>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+gdn_kernel(const T* __restrict__ x, const bf16* __restrict__ gamma_p,
+           const float* __restrict__ beta, T* __restrict__ out, int P) {
+  using Io = GdnIo<T>;
+  constexpr int S = Io::kStride, KC = C / 64;
+  constexpr int kRowChunks = kGdnTile / Io::kChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* win = reinterpret_cast<T*>(smem);
+  const uint32_t win_u32 = tc::smem_u32(smem);
+  const int p0 = blockIdx.x * kGdnTile;
   const long long base = static_cast<long long>(blockIdx.y) * C * P;
   const T* xb = x + base;
   T* ob = out + base;
+  const bool vec = (P % Io::kChunk) == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // pixels tx + 16 j
-  const int ty = tid / 16;  // output channels ty + 16 i
+  // the window: one cp.async group, complete at the ring's first stage
+  if (vec) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < C * kRowChunks; e += tc::kThreads) {
+      const int c = e / kRowChunks, j = (e % kRowChunks) * Io::kChunk;
+      const bool valid = p0 + j < P;
+      cp_async_zfill(win_u32 + (c * S + j) * sizeof(T),
+                     valid ? xb + static_cast<long long>(c) * P + p0 + j : xb,
+                     valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < C * kGdnTile; e += tc::kThreads) {
+      const int c = e / kGdnTile, j = e % kGdnTile;
+      win[c * S + j] = p0 + j < P ? xb[static_cast<long long>(c) * P + p0 + j]
+                                  : from_f32<T>(0.f);
+    }
+  }
+  tc::cp_async_commit();
+  const auto ring = tc::make_ring<C>(
+      (win_u32 + C * S * sizeof(T) + 1023u) & ~1023u, K * KC,
+      [=](int q) { return gamma_p + q * (C * 64); });
+  ring.prefetch();
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // warp w: pixels m0 .. m0 + 15 of the tile as A rows (warps 0-3 the first
+  // warpgroup's 64, 4-7 the second's); this lane's rows m0 + g and
+  // m0 + g + 8, its channels 2t, 2t + 1, 2t + 8 and 2t + 9 of each k-step
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * warp;
+  T* xr = win + 2 * t * S + m0 + g;
 
-  for (int k0 = 0; k0 < C; k0 += kTileK) {
+  float acc[C / 8][4];
 #pragma unroll
-    for (int r = 0; r < (kTileK * kTileP) / kGdnThreads; ++r) {
-      const int e = tid + r * kGdnThreads;
-      const int k = e / kTileP;
-      const int j = e % kTileP;
-      const int i = k0 + k;
-      const long long p = p0 + j;
-      float v = 0.f;
-      if (i < C && p < P) {
-        v = to_f32(xb[static_cast<long long>(i) * P + p]);
-        v = v * v;
+  for (int nt = 0; nt < C / 8; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll 1
+  for (int kc = 0; kc < KC; ++kc) {
+    uint32_t s[4][4][K];  // [k-step][A fragment register][piece]
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const uint32_t slot = ring.next(kc * K + j);
+      if (j == 0) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          // fragment register i: rows + 8·(i & 1), channels + 8·(i >> 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const T* q = xr + (kc * 64 + kk * 16 + (i >> 1) * 8) * S +
+                         (i & 1) * 8;
+            split_squares<K>(to_f32(q[0]), to_f32(q[S]), s[kk][i]);
+          }
+        }
       }
-      s_x[k][j] = v;
-      const int o = o0 + j;  // kTileO == kTileP
-      s_g[k][j] = (i < C && o < C) ? gamma_t[static_cast<long long>(i) * C + o]
-                                   : 0.f;
+      tc::wgmma_fence();
+      const uint64_t d = tc::ring_desc(slot);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = K - 1 - j; i >= 0; --i) {  // the small products first
+          const uint32_t a[4] = {s[kk][0][i], s[kk][1][i], s[kk][2][i],
+                                 s[kk][3][i]};
+          tc::wgmma<C>(acc, a, d + kk * 2);
+        }
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait_all();
     }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = s_g[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = s_x[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
+  // acc[nt][e]: pixel m0 + g + 8·(e / 2), channel o = 8·nt + 2t + e % 2
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = o0 + ty + 16 * i;
-    if (o >= C) continue;
-    const float bo = beta[o];
+  for (int nt = 0; nt < C / 8; ++nt) {
+    const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + 8 * nt +
+                                                            2 * t));
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const long long p = p0 + tx + 16 * j;
-      if (p >= P) continue;
-      const long long off = static_cast<long long>(o) * P + p;
-      const float norm = acc[i][j] + bo;
-      const float v = to_f32(xb[off]);
-      ob[off] = from_f32<T>(inverse ? v * sqrtf(norm) : v * rsqrtf(norm));
+    for (int e = 0; e < 4; ++e) {
+      T* px = xr + (8 * nt + (e & 1)) * S + 8 * (e >> 1);
+      const float n = acc[nt][e] + ((e & 1) ? bb.y : bb.x);
+      const float v = to_f32(*px);
+      *px = from_f32<T>(INVERSE ? v * sqrtf(n) : v * rsqrtf(n));
     }
   }
+  __syncthreads();
+  if (vec) {
+#pragma unroll 4
+    for (int e = threadIdx.x; e < C * kRowChunks; e += tc::kThreads) {
+      const int c = e / kRowChunks, j = (e % kRowChunks) * Io::kChunk;
+      if (p0 + j < P)
+        *reinterpret_cast<uint4*>(ob + static_cast<long long>(c) * P + p0 +
+                                  j) =
+            *reinterpret_cast<const uint4*>(win + c * S + j);
+    }
+  } else {
+    for (int e = threadIdx.x; e < C * kGdnTile; e += tc::kThreads) {
+      const int c = e / kGdnTile, j = e % kGdnTile;
+      if (p0 + j < P) ob[static_cast<long long>(c) * P + p0 + j] = win[c * S + j];
+    }
+  }
+}
+
+template <typename T, int C, int K, bool INVERSE>
+int launch_gdn_c(const T* x, const bf16* gamma_p, const float* beta, T* out,
+                 long long batch, int P, cudaStream_t stream) {
+  const size_t smem =
+      static_cast<size_t>(C) * GdnIo<T>::kStride * sizeof(T) + 1024 +
+      static_cast<size_t>(tc::kStages) * C * tc::kRowBytes;
+  cudaError_t err = tc::allow_smem(gdn_kernel<T, C, K, INVERSE>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((P + kGdnTile - 1) / kGdnTile, static_cast<unsigned>(batch));
+  gdn_kernel<T, C, K, INVERSE><<<grid, tc::kThreads, smem, stream>>>(
+      x, gamma_p, beta, out, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K = 3 pieces for f32 x, 2 for bf16 x
+template <int C, typename T>
+int launch_gdn_inv(const T* x, const bf16* gamma_p, const float* beta, T* out,
+                   long long batch, int P, int inverse, cudaStream_t stream) {
+  constexpr int K = sizeof(T) == 4 ? 3 : 2;
+  return inverse
+             ? launch_gdn_c<T, C, K, true>(x, gamma_p, beta, out, batch, P,
+                                           stream)
+             : launch_gdn_c<T, C, K, false>(x, gamma_p, beta, out, batch, P,
+                                            stream);
+}
+
+template <typename T>
+int launch_gdn(const T* x, const void* gamma_p, const float* beta, T* out,
+               long long batch, int C, long long P, int inverse,
+               void* stream) {
+  if (batch == 0 || P == 0) return 0;
+  if (batch > 65535 || P > 0x7fffffffLL - kGdnTile)
+    return cudaErrorInvalidValue;
+  const bf16* g = static_cast<const bf16*>(gamma_p);
+  const int p = static_cast<int>(P);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 64) return launch_gdn_inv<64>(x, g, beta, out, batch, p, inverse, s);
+  if (C == 128)
+    return launch_gdn_inv<128>(x, g, beta, out, batch, p, inverse, s);
+  if (C == 192)
+    return launch_gdn_inv<192>(x, g, beta, out, batch, p, inverse, s);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -175,38 +321,27 @@ qidx_kernel(const float* __restrict__ y, const float* __restrict__ means,
   }
 }
 
-template <typename T>
-int launch_gdn(const T* x, const float* gamma_t, const float* beta, T* out,
-               long long batch, int C, long long P, int inverse,
-               void* stream) {
-  if (batch == 0 || C == 0 || P == 0) return 0;
-  const int n_otiles = (C + kTileO - 1) / kTileO;
-  const long long n_tiles = ((P + kTileP - 1) / kTileP) * n_otiles;
-  if (batch > 65535 || n_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(n_tiles),
-                  static_cast<unsigned>(batch));
-  gdn_kernel<T><<<grid, kGdnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, gamma_t, beta, out, C, P, n_otiles, inverse);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
 
-int stem_gdn_fused_f32(const float* x, const float* gamma_t,
-                       const float* beta, float* out, long long batch, int C,
-                       long long P, int inverse, void* stream) {
-  return launch_gdn(x, gamma_t, beta, out, batch, C, P, inverse, stream);
+// x and out (B, C, P) f32; gamma_p (C/64 · 3, C, 64) bf16 = γ in three
+// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32.
+// C ∈ {64, 128, 192}.
+int stem_gdn_fused_f32(const float* x, const void* gamma_p, const float* beta,
+                       float* out, long long batch, int C, long long P,
+                       int inverse, void* stream) {
+  return launch_gdn(x, gamma_p, beta, out, batch, C, P, inverse, stream);
 }
 
-// x and out bf16, gamma_t and beta f32
-int stem_gdn_fused_bf16(const void* x, const float* gamma_t,
+// x and out (B, C, P) bf16; gamma_p (C/64 · 2, C, 64) bf16 = γ in two
+// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32.
+// C ∈ {64, 128, 192}.
+int stem_gdn_fused_bf16(const void* x, const void* gamma_p,
                         const float* beta, void* out, long long batch, int C,
                         long long P, int inverse, void* stream) {
-  return launch_gdn(static_cast<const __nv_bfloat16*>(x), gamma_t, beta,
-                    static_cast<__nv_bfloat16*>(out), batch, C, P, inverse,
-                    stream);
+  return launch_gdn(static_cast<const bf16*>(x), gamma_p, beta,
+                    static_cast<bf16*>(out), batch, C, P, inverse, stream);
 }
 
 int stem_quantize_and_index_f32(const float* y, const float* means,

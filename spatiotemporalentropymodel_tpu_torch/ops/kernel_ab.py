@@ -1,0 +1,152 @@
+"""Time the kernels of two builds in turns, without their Python wrappers.
+
+    python3 -m spatiotemporalentropymodel_tpu_torch.ops.kernel_ab \
+        --csrc DIR [--rounds N] [--out FILE]
+
+Needs one CUDA card and nvcc. It builds the kernel library of another
+tree's ``ops/csrc`` (e.g. a ``git archive`` of the parent commit) beside
+this tree's (``build.build``), and launches the C entries whose arguments
+both trees share, on the same inputs and in one process: quantize_and_index
+at the y plane of 4 × 1088 × 1920 frames, gdn_conv_fused at g_a's three
+stages and the wide g_s kernel at 272 × 480 and 136 × 240 (C = 192). For
+each, N rounds of this, other, other, this, each timed with CUDA events
+over 20 launches. The wrappers' host time (argument checks, packing) is
+left out, so the ratio is the kernels' alone.
+
+Prints one JSON line per kernel and shape: the median ms per launch of
+each build over its 2N timings, their spread and the ratio other / this.
+"""
+
+import argparse
+import ctypes
+import json
+from pathlib import Path
+
+import torch
+
+from . import kernels
+from .build import build
+
+ITERS = 20
+VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "stem_quantize_and_index_f32": [VP, VP, VP, VP, I32, ctypes.c_float, VP,
+                                    VP, I64, VP],
+    "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
+    "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
+}
+
+
+def _open(path):
+    lib = ctypes.CDLL(str(path))
+    for name, args in SIGNATURES.items():
+        getattr(lib, name).restype = I32
+        getattr(lib, name).argtypes = args
+    return lib
+
+
+def _cases(gen):
+    """(label, entry, arguments but the stream) per case, and the tensors
+    the arguments point into (keep them alive)."""
+    from ..entropy import get_scale_table
+
+    dev, c, b = "cuda", 192, 4
+    keep, cases = [], []
+    shape = (b, c, 68, 120)
+    means = 2.0 * torch.randn(shape, generator=gen, device=dev)
+    y = means + 3.0 * torch.randn(shape, generator=gen, device=dev)
+    scales = torch.exp(4.0 * torch.rand(shape, generator=gen, device=dev)
+                       - 3.0)
+    table = kernels.scale_table_tensor(get_scale_table(), dev)
+    sym = torch.empty(shape, dtype=torch.int32, device=dev)
+    idx = torch.empty(shape, dtype=torch.uint8, device=dev)
+    keep += [means, y, scales, table, sym, idx]
+    cases.append((f"quantize_and_index {list(shape)}",
+                  "stem_quantize_and_index_f32",
+                  (y.data_ptr(), means.data_ptr(), scales.data_ptr(),
+                   table.data_ptr(), table.numel() - 1, 0.11, sym.data_ptr(),
+                   idx.data_ptr(), y.numel())))
+    gamma = (0.02 * torch.rand((c, c), generator=gen, device=dev)
+             + 0.1 * torch.eye(c, device=dev))
+    gs = kernels.split_gamma(gamma.t().contiguous())
+    beta = 1.0 + torch.rand((c,), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    weight = (torch.randn((c, c, 5, 5), generator=gen, device=dev)
+              * (2.0 / (25 * c)) ** 0.5).to(torch.bfloat16)
+    wc, ww = kernels.pack_conv_weight(weight), kernels.pack_wide_weight(weight)
+    keep += [gs, beta, bias, wc, ww]
+    for entry, sizes, wp, out_hw in (
+            ("stem_gdn_conv_fused_bf16", ((544, 960), (272, 480), (136, 240)),
+             wc, lambda h, w: ((h + 1) // 2, (w + 1) // 2)),
+            ("stem_igdn_deconv_wide_bf16", ((272, 480), (136, 240)), ww,
+             lambda h, w: (2 * h, 2 * w))):
+        for h, w in sizes:
+            x = torch.randn((b, c, h, w), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            out = torch.empty((b, c, *out_hw(h, w)), dtype=torch.bfloat16,
+                              device=dev)
+            keep += [x, out]
+            cases.append((f"{entry} {[b, c, h, w]}", entry,
+                          (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
+                           wp.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
+                           c, c, h, w)))
+    return cases, keep
+
+
+def _ms(fn, args, stream):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ITERS):
+        rc = fn(*args, stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed with error {rc}")
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / ITERS
+
+
+def run(other: Path, rounds: int):
+    libs = {"this": _open(build()), "other": _open(build(other))}
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    cases, _keep = _cases(gen)
+    stream = torch.cuda.current_stream().cuda_stream
+    rows = []
+    for label, entry, args in cases:
+        fns = {k: getattr(lib, entry) for k, lib in libs.items()}
+        for fn in fns.values():  # warm-up
+            for _ in range(3):
+                fn(*args, stream)
+        times = {"this": [], "other": []}
+        for _ in range(rounds):
+            for who in ("this", "other", "other", "this"):
+                times[who].append(_ms(fns[who], args, stream))
+        med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+        row = dict(case=label, this_ms=med["this"], other_ms=med["other"],
+                   ratio=med["other"] / med["this"],
+                   this_range=[min(times["this"]), max(times["this"])],
+                   other_range=[min(times["other"]), max(times["other"])],
+                   launches_per_timing=ITERS, timings=2 * rounds)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--csrc", type=Path, required=True,
+                    help="the other tree's ops/csrc")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the rows to this JSON file")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab needs a CUDA card")
+    rows = run(args.csrc.resolve(), args.rounds)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rows, indent=1))
+
+
+if __name__ == "__main__":
+    main()

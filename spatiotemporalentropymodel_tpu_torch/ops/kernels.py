@@ -211,21 +211,34 @@ def _gdn_launch(x, gamma_t, beta, inverse: bool):
             f"{name}: x {tuple(x.shape)} needs gamma_t ({c}, {c}) and "
             f"beta ({c},), got {tuple(gamma_t.shape)}, {tuple(beta.shape)}"
         )
-    out = torch.empty_like(x)
+    if c > FUSED_CHANNELS[-1]:
+        raise ValueError(f"{name}: no kernel for {c} > "
+                         f"{FUSED_CHANNELS[-1]} channels")
     p = x.numel() // max(b * c, 1)
+    cp = next(k for k in FUSED_CHANNELS if k >= c)
+    xk = x.reshape(b, c, p)
+    if cp != c:  # zero channels: no x², no output, β = 1 keeps rsqrt finite
+        xk = F.pad(xk, (0, 0, 0, cp - c))
+        gamma_t = F.pad(gamma_t, (0, cp - c, 0, cp - c))
+        beta = F.pad(beta, (0, cp - c), value=1.0)
+    # γ in as many bf16 pieces as x² needs: 2 for a bf16 x, 3 for an f32 x
+    gamma = split_gamma_pieces(gamma_t, 2 if io == torch.bfloat16 else 3)
+    out = torch.empty_like(xk)
     rc = entry(
-        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), out.data_ptr(),
-        b, c, p, int(bool(inverse)), _stream(x.device),
+        xk.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        b, cp, p, int(bool(inverse)), _stream(x.device),
     )
     _raise_on(rc, name)
     LAUNCHES[name] += 1
-    return out
+    return out[:, :c].reshape(x.shape) if cp != c else out.view(x.shape)
 
 
 def gdn_fused(x, gamma_t, beta, inverse: bool = False):
     """Fused GDN over channel-second x (B, C, ...), f32 or bf16. gamma_t is
     (in, out) = γ transposed and beta is (C,), both f32 on the card. Output
-    has x's shape and dtype; the math is f32."""
+    has x's shape and dtype; the math is f32. The card's kernel takes C of
+    64, 128 or 192; other C up to 192 run zero-padded to the next of them,
+    and more raise."""
     inverse = bool(inverse)
     return _KernelFn.apply("gdn_fused", partial(_gdn_plain, inverse=inverse),
                            partial(_gdn_launch, inverse=inverse),
@@ -370,8 +383,8 @@ def _tap_index(device):
 
 
 def narrow_rows(f: int) -> int:
-    """GEMM rows of the narrow kernel for F outputs: 16 (one m-tile) for
-    F ≤ 4, else 4F rounded up to pairs of m-tiles, 32 rows each
+    """GEMM rows of the narrow kernel for F outputs, its wgmma width N: 16
+    for F ≤ 4, else 4F rounded up to a multiple of 32
     (igdn_deconv.cu::igdn_deconv_narrow_kernel)."""
     return 16 if f <= 4 else 32 * -(-f // 8)
 
@@ -409,6 +422,25 @@ def split_gamma(gamma_t):
     c = g.shape[0]
     return torch.cat([hi.reshape(c, c // 32, 32), lo.reshape(c, c // 32, 32)],
                      dim=2).permute(1, 0, 2).contiguous()
+
+
+def split_gamma_pieces(gamma_t, k: int):
+    """γᵀ (C, C) f32 → γ in k bf16 pieces for ``gdn_fused``
+    (kernels.cu::gdn_kernel), (C/64 · k, C, 64): stage kc·k + j, row o
+    holds piece j of γ[o][i] for the 64 input channels i = 64·kc ..
+    64·kc + 63. Piece j is the bf16 rounding of what pieces 0 .. j − 1
+    leave, so with k = 3 they sum to γ exactly (an f32 has 24 significant
+    bits, a bf16 8) and with k = 2 to γ within 2⁻¹⁶ relative."""
+    c = gamma_t.shape[0]
+    out = torch.empty((c // 64, k, c, 64), dtype=torch.bfloat16,
+                      device=gamma_t.device)
+    dst = out.permute(1, 0, 3, 2)  # [j][kc][i % 64][o]
+    rest = gamma_t.float().view(c // 64, 64, c)  # γᵀ[i][o] as [kc][i % 64][o]
+    for j in range(k):  # 2k − 1 kernels: each launch costs host time
+        dst[j].copy_(rest)
+        if j + 1 < k:
+            rest = rest - dst[j]
+    return out.view(k * (c // 64), c, 64)
 
 
 def _stage_major(taps):
@@ -488,6 +520,21 @@ def _wide_launch(name, x, gamma_t, beta, weight, bias):
     return out
 
 
+def _narrow_taps(weight):
+    """ConvTranspose2d weight (C, F, 5, 5) → the narrow kernel's GEMM
+    weights per tap, (9, rows, C): row o·4 + a·2 + b of tap (dy + 1)·3 +
+    (dx + 1), zero past 4F and where the tap is past the 5×5 kernel."""
+    ky_m, kx_m, rows_o, _ = _narrow_index(weight.device, weight.shape[1])
+    return _padded_taps(weight)[ky_m, kx_m, rows_o]
+
+
+def pack_narrow_weight(weight):
+    """ConvTranspose2d weight (C, F, 5, 5) → the narrow kernel's
+    (9, C/64, rows, 64): one ring stage (64 input channels of one tap, all
+    rows) after another (igdn_deconv.cu::igdn_deconv_narrow_kernel)."""
+    return _stage_major(_narrow_taps(weight))
+
+
 def _narrow_launch(name, supported, x, gamma_t, beta, weight, bias):
     """The narrow IGDN → k5 s2 deconv kernel (F ≤ 32 outputs), counted
     under ``name``; ``supported(c, f)`` is the wrapper's gate."""
@@ -496,12 +543,12 @@ def _narrow_launch(name, supported, x, gamma_t, beta, weight, bias):
     _check_fused(name, x, gamma_t, beta, weight, bias, (c, f, 5, 5),
                  supported(c, f))
     b, _, h, w = x.shape
-    ky_m, kx_m, rows_o, live = _narrow_index(x.device, f)
-    wp = _padded_taps(weight)[ky_m, kx_m, rows_o]  # (9 taps, rows, C)
+    _, _, rows_o, live = _narrow_index(x.device, f)
+    gs, wp = split_gamma(gamma_t), pack_narrow_weight(weight)
     bias_m = torch.where(live, bias[rows_o], 0.0)
     out = torch.empty((b, f, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     rc = _lib().stem_igdn_deconv_narrow_bf16(
-        x.data_ptr(), gamma_t.data_ptr(), beta.data_ptr(), wp.data_ptr(),
+        x.data_ptr(), gs.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias_m.data_ptr(), out.data_ptr(), b, c, f, narrow_rows(f), h, w,
         _stream(x.device))
     _raise_on(rc, name)

@@ -14,7 +14,8 @@ kernel is held to its plain version at max|out − plain| ≤ 2⁻⁶·max|plain
 and to the same arithmetic with the window rounded to bf16 (what the kernel
 computes) at ≤ 2⁻⁸·max|plain|: one bf16 step of the largest output. The
 bf16 ``gdn_fused`` differs from its plain version only in the f32 summation
-order, so by at most one bf16 step: rtol 2⁻⁷.
+order and in γ, kept to 2⁻¹⁶ in two bf16 pieces, so by at most one bf16
+step: rtol 2⁻⁷.
 """
 
 import numpy as np
@@ -158,6 +159,43 @@ def test_cuda_gdn_fused_bf16_matches_plain(cuda):
     assert kernels.LAUNCHES["gdn_fused"] == n0["gdn_fused"]
 
 
+def _wide_range_f32(rng, shape, device):
+    """f32 x whose pixels span 10⁻¹..10^1.5 in magnitude (see
+    _wide_range)."""
+    scale = 10.0 ** rng.uniform(-1.0, 1.5, (shape[0], 1) + tuple(shape[2:]))
+    a = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return torch.from_numpy(a).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 96, 128, 192])
+@pytest.mark.parametrize("hw", [(24, 40), (5, 12), (9, 13)])
+def test_cuda_gdn_fused_widths_and_dynamic_range(cuda, c, hw):
+    """Both entries, forward and inverse, at C = 64, 128 and 192 (96 runs
+    zero-padded to 128), on x over two and a half decades (x²·γ dominates
+    β, so the tensor-core norm must keep f32 accuracy), with P a multiple
+    of 8 (the 16-byte loads and stores), of 4 but not 8, and odd (partial
+    tiles and the 2- or 4-byte paths): f32 at rtol 1e-5, atol 1e-6, bf16
+    at rtol 2⁻⁷."""
+    rng = np.random.default_rng(c + hw[1])
+    x = _wide_range_f32(rng, (2, c) + hw, cuda)
+    gt, beta = _gdn_params(rng, c, cuda)
+    n0 = dict(kernels.LAUNCHES)
+    for inverse in (False, True):
+        out = kernels.gdn_fused(x, gt, beta, inverse)
+        ref = kernels._gdn_ref(x, gt, beta, inverse)
+        assert out.shape == x.shape and out.dtype == torch.float32
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+        xb = x.to(torch.bfloat16)
+        out = kernels.gdn_fused(xb, gt, beta, inverse)
+        ref = kernels._gdn_ref(xb.float(), gt, beta, inverse).to(xb.dtype)
+        assert out.shape == x.shape and out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7,
+                                   atol=1e-6)
+    assert kernels.LAUNCHES["gdn_fused"] == n0["gdn_fused"] + 2
+    assert kernels.LAUNCHES["gdn_fused_bf16"] == n0["gdn_fused_bf16"] + 2
+
+
 def _wide_range(rng, shape, device):
     """bf16 x whose pixels span 10⁻¹..10^1.5 in magnitude, so x²·γ dominates
     β at most pixels: the norm's dynamic range is what the kernels' split
@@ -286,14 +324,10 @@ def test_cuda_fused_wrappers_reject_bad_inputs(cuda):
     assert kernels.LAUNCHES == n0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("c", [64, 128, 192])
-@pytest.mark.parametrize("f", [3, 8, 32])
-def test_cuda_igdn_deconv_fused_matches_plain(cuda, c, f):
-    """The narrow kernel at 1, 2 and 4 passes of 32 GEMM rows (F = 3, 8,
-    32), at 17 × 30: partial tiles on the bottom and right edges."""
+def _check_narrow(cuda, c, f, h, w, wide_range=False):
     rng = np.random.default_rng(10 * c + f)
-    x = _bf16(rng, (2, c, 17, 30), cuda)
+    x = (_wide_range(rng, (2, c, h, w), cuda) if wide_range
+         else _bf16(rng, (2, c, h, w), cuda))
     gt, beta = _gdn_params(rng, c, cuda)
     weight = _bf16(rng, (c, f, 5, 5), cuda, 0.05)
     bias = torch.from_numpy(rng.standard_normal(f).astype(np.float32)).to(
@@ -304,13 +338,33 @@ def test_cuda_igdn_deconv_fused_matches_plain(cuda, c, f):
     win = _window_bf16_conv(x, gt, beta, True, lambda g: F.conv_transpose2d(
         g, weight.float(), bias, 2, 2, 1))
     torch.cuda.synchronize()
-    assert out.shape == (2, f, 34, 60)
+    assert out.shape == (2, f, 2 * h, 2 * w)
     _assert_scaled_close(out, ref, PLAIN_TOL)
     _assert_scaled_close(out, win, WINDOW_TOL)
     assert (kernels.LAUNCHES["igdn_deconv_fused"]
             == n0["igdn_deconv_fused"] + 1)
     assert (kernels.LAUNCHES["igdn_deconv_tail_packed"]
             == n0["igdn_deconv_tail_packed"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 128, 192])
+@pytest.mark.parametrize("f", [3, 8, 32])
+def test_cuda_igdn_deconv_fused_matches_plain(cuda, c, f):
+    """The narrow kernel at 16, 32 and 128 GEMM rows (F = 3, 8, 32), at
+    17 × 30: partial tiles on the bottom and right edges, W not a multiple
+    of 8 (the 2-byte window gather)."""
+    _check_narrow(cuda, c, f, 17, 30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f,h,w", [(192, 3, 16, 64), (128, 20, 9, 40),
+                                     (64, 12, 13, 33)])
+def test_cuda_igdn_deconv_fused_dynamic_range(cuda, c, f, h, w):
+    """x over two and a half decades, so x²·γ dominates β in the IGDN, at
+    16, 96 and 64 GEMM rows, with whole tiles and W a multiple of 8 (the
+    16-byte window load) and partial ones."""
+    _check_narrow(cuda, c, f, h, w, wide_range=True)
 
 
 def _check_wide(cuda, c, b, h, w, wide_range=False):

@@ -28,7 +28,12 @@ from spatiotemporalentropymodel_tpu_torch.convert import (
 from spatiotemporalentropymodel_tpu_torch.models import MeanScaleHyperprior
 from spatiotemporalentropymodel_tpu_torch.ops import kernels
 
-from torch_port_util import jax_tree_numpy, to_nchw, to_nhwc
+from torch_port_util import (
+    jax_tree_numpy,
+    pack_phase_major,
+    to_nchw,
+    to_nhwc,
+)
 
 F32_ATOL = 1e-4
 BF16_ATOL, BF16_RTOL = 6e-2, 3e-2
@@ -51,14 +56,6 @@ def _conv_case(seed, shape, o):
         np.float32)
     bias = (0.1 * rng.standard_normal(o)).astype(np.float32)
     return x, gt, beta, kernel, bias
-
-
-def _pack_phase_major(y):
-    """Logical NHWC (B, 2H, 2W, O) → the TPU's phase-major packed
-    (B, H, W, 4O) (pallas_kernels.py::_igdn_deconv_wide_packed_ref)."""
-    b, h2, w2, o = y.shape
-    v = y.reshape(b, h2 // 2, 2, w2 // 2, 2, o)
-    return v.transpose(0, 1, 3, 2, 4, 5).reshape(b, h2 // 2, w2 // 2, 4 * o)
 
 
 def _close(got, want, dtype):
@@ -101,13 +98,13 @@ def test_igdn_deconv_plain_matches_jax_packed_refs(dtype):
                                    _t(invert_deconv_weight(jax_kernel), td),
                                    _t(bias, td))
     assert got.shape == (2, 64, 12, 20)
-    _close(_pack_phase_major(to_nhwc(got.float())),
+    _close(pack_phase_major(to_nhwc(got.float())),
            np.asarray(wide, np.float32), dtype)
 
     _, gt3, beta3, k3, b3 = _conv_case(2, (1, 1, 1, 64), 3)
     mid = to_nhwc(got.float())
     tail = pk._igdn_deconv_tail_packed_ref(
-        jnp.asarray(_pack_phase_major(mid), jd), jnp.asarray(gt3),
+        jnp.asarray(pack_phase_major(mid), jd), jnp.asarray(gt3),
         jnp.asarray(beta3), jnp.asarray(k3, jd), jnp.asarray(b3, jd))
     got3 = kernels._igdn_deconv_ref(got, _t(gt3), _t(beta3),
                                     _t(invert_deconv_weight(k3), td),

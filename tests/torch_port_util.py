@@ -36,6 +36,14 @@ def to_nhwc(t):
     return np.moveaxis(t.detach().cpu().numpy(), 1, -1)
 
 
+def pack_phase_major(y):
+    """Logical NHWC (B, 2H, 2W, O) → the TPU's phase-major packed
+    (B, H, W, 4O) (pallas_kernels.py::_igdn_deconv_wide_packed_ref)."""
+    b, h2, w2, o = y.shape
+    v = y.reshape(b, h2 // 2, 2, w2 // 2, 2, o)
+    return v.transpose(0, 1, 3, 2, 4, 5).reshape(b, h2 // 2, w2 // 2, 4 * o)
+
+
 def export_jax_tree(module: torch.nn.Module) -> dict:
     """The port's weights as a JAX parameter tree (the inverse of
     convert.load_jax_params)."""
