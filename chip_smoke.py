@@ -19,8 +19,11 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 bf16 step), each with a bound that holds for any split of
                 its norm between the CUDA cores and the tensor cores
                 (gdn_bound);
-                quantize_and_index exact, with crafted ties,
-                saturation and table-edge scales; gdn_conv_fused at g_a's
+                quantize_and_index, f32 and bf16 entries, exact, with
+                crafted ties, saturation and table-edge scales, (σ, μ) the
+                halves of one tensor, and at an odd, misaligned shape
+                (timed through the wrapper and alone, with torch.bucketize
+                as the index half's yardstick); gdn_conv_fused at g_a's
                 three stages, igdn_deconv_wide_packed at 272×480,
                 igdn_deconv_tail_packed at 544×960, igdn_deconv_wide at
                 136×240 and igdn_deconv_fused at 544×960, each at
@@ -77,8 +80,9 @@ FUSED_TOL = 2**-6  # max|kernel − plain| ≤ FUSED_TOL · max|plain|
 WIDE_X_MEAN = 2e-3
 WIDE_GS_TOL = 2**-5
 KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
-           "gdn_conv_fused", "igdn_deconv_wide_packed",
-           "igdn_deconv_tail_packed", "igdn_deconv_fused", "igdn_deconv_wide")
+           "quantize_and_index_bf16", "gdn_conv_fused",
+           "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
+           "igdn_deconv_fused", "igdn_deconv_wide")
 PK = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
 CSRC = "spatiotemporalentropymodel_tpu_torch/ops/csrc"
 
@@ -227,58 +231,126 @@ def check_gdn(torch, kernels):
     return dict(max_abs_err=worst_abs, max_rel_err=worst_rel, **timing)
 
 
-def check_qidx(torch, kernels, table):
-    """quantize_and_index at the y plane's shape, exact, with crafted
-    ties, saturation and table-edge scales."""
-    gen = torch.Generator(device="cuda").manual_seed(12)
-    shape = (B, M, H // 16, W // 16)
-    n = B * M * (H // 16) * (W // 16)
+def _qidx_crafted(torch, table, shape, dtype, gen):
+    """(y, μ, σ) in ``dtype`` on the card: random, then y − μ on ±k.5 ties
+    and beyond ±2³⁰, and σ on every table entry and the bound 0.11, each
+    rounded to dtype and one step of dtype either side of it, and on 0,
+    −1 and 0.05."""
     means = 2.0 * torch.randn(shape, generator=gen, device="cuda")
     y = means + 3.0 * torch.randn(shape, generator=gen, device="cuda")
     scales = torch.exp(4.0 * torch.rand(shape, generator=gen, device="cuda")
                        - 3.0)
+    y, means, scales = (t.to(dtype) for t in (y, means, scales))
     yf, mf, sf = y.view(-1), means.view(-1), scales.view(-1)
-    k = torch.arange(-40, 41, device="cuda", dtype=torch.float32)
-    ties = k + 0.5  # y − μ exactly on ±k.5
-    mf[:ties.numel()] = 0.0
-    yf[:ties.numel()] = ties
-    big = torch.tensor([3e9, -3e9, 2.0**30 + 128, -(2.0**30) - 128, 1e38],
-                       device="cuda")
-    o = ties.numel()
-    mf[o:o + big.numel()] = 0.0
-    yf[o:o + big.numel()] = big
-    t = table.to(torch.float32)
-    edges = torch.cat([
-        t, torch.nextafter(t, torch.full_like(t, -1.0)),
-        torch.nextafter(t, torch.full_like(t, 1e9)),
-        torch.tensor([0.11, 0.0, -1.0, 0.05], device="cuda"),
-        torch.nextafter(torch.tensor([0.11], device="cuda"),
-                        torch.tensor([1.0], device="cuda")),
-    ])
+    special = torch.cat([
+        torch.arange(-40, 41, device="cuda") + 0.5,
+        torch.tensor([3e9, -3e9, 2.0**30 + 128, -(2.0**30) - 128, 1e38],
+                     device="cuda")]).to(dtype)
+    mf[:special.numel()], yf[:special.numel()] = 0.0, special
+    t = torch.cat([table, torch.tensor([0.11], device="cuda")]).to(dtype)
+    if dtype == torch.bfloat16:  # positive: ±1 in the bits is ±1 step
+        lo = (t.view(torch.int16) - 1).view(dtype)
+        hi = (t.view(torch.int16) + 1).view(dtype)
+    else:
+        lo = torch.nextafter(t, torch.full_like(t, -1.0))
+        hi = torch.nextafter(t, torch.full_like(t, 1e9))
+    edges = torch.cat([t, lo, hi, torch.tensor([0.0, -1.0, 0.05],
+                                               device="cuda").to(dtype)])
     sf[:edges.numel()] = edges
+    return y, means, scales
+
+
+def _qidx_exact(torch, kernels, table, y, means, scales, label):
+    """Both outputs against the plain version; the largest difference."""
     sym, idx = kernels.quantize_and_index(y, means, scales, table)
-    sym_ref, idx_ref = kernels._qidx_ref(y, means, scales, table, 0.11)
+    sym_ref, idx_ref = kernels._qidx_plain(y, means, scales, table, 0.11)
     torch.cuda.synchronize()
     bad_sym = int((sym != sym_ref).sum())
     bad_idx = int((idx != idx_ref).sum())
     # the largest difference over both outputs, in int64 (symbols span ±2³⁰)
-    max_abs_err = float(max(
-        (sym.long() - sym_ref.long()).abs().max(),
-        (idx.long() - idx_ref.long()).abs().max()))
-    log(f"  quantize_and_index {shape}: symbol mismatches {bad_sym}, "
-        f"index mismatches {bad_idx}, max abs err {max_abs_err} "
-        f"(must be 0)")
+    err = float(max((sym.long() - sym_ref.long()).abs().max(),
+                    (idx.long() - idx_ref.long()).abs().max()))
+    log(f"  {label}: symbol mismatches {bad_sym}, index mismatches "
+        f"{bad_idx}, max abs err {err} (must be 0)")
     if bad_sym or bad_idx:
-        raise AssertionError("quantize_and_index disagrees with its plain "
-                             "version")
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
+def _entry_ms(torch, kernels, entry, args, launches=20):
+    """ms per launch of a C entry called directly, without its wrapper: the
+    kernel alone."""
+    fn = getattr(kernels._lib(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(3):
+        fn(*args, stream)
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            rc = fn(*args, stream)
+            if rc != 0:
+                raise AssertionError(f"{entry}: launch failed with error "
+                                     f"{rc}")
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[2]
+
+
+def check_qidx(torch, kernels, table, dtype):
+    """One entry of quantize_and_index at the y plane's shape, exact, with
+    crafted ties, saturation and table-edge scales, (σ, μ) the two halves
+    of one (B, 2M, H/16, W/16) tensor as EPM and h_s hand them over; then
+    at an odd shape whose inputs start off 16-byte alignment. Times the
+    wrapper, the kernel alone, the plain version and torch.bucketize of the
+    clamped f32 σ (the index half only)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    name, entry = kernels._QIDX_ENTRIES[dtype]
+    b, h, w = B, H // 16, W // 16
+    shape = (b, M, h, w)
+    n = b * M * h * w
+    y, means, scales = _qidx_crafted(torch, table, shape, dtype, gen)
+    both = torch.cat([scales, means], dim=1)
+    scales, means = both.chunk(2, dim=1)
+    err = _qidx_exact(torch, kernels, table, y, means, scales,
+                      f"{name} {shape}, (σ, μ) halves of {tuple(both.shape)}")
+    # odd sizes, each input 1, 2, 3 elements past a 16-byte boundary
+    odd = (3, 37, 17, 29)
+    views = []
+    for k, t in zip((1, 2, 3),
+                    _qidx_crafted(torch, table, odd, dtype, gen)):
+        flat = torch.empty(t.numel() + k, dtype=dtype, device="cuda")
+        flat[k:] = t.reshape(-1)
+        views.append(flat[k:].view(odd))
+    err = max(err, _qidx_exact(torch, kernels, table, *views,
+                               f"{name} {odd}, misaligned by 1, 2, 3"))
+    del views
+
     ms = cuda_ms(lambda: kernels.quantize_and_index(y, means, scales, table))
+    sym = torch.empty(shape, dtype=torch.int32, device="cuda")
+    idx = torch.empty(shape, dtype=torch.uint8, device="cuda")
+    per = n // b
+    alone_ms = _entry_ms(torch, kernels, entry, (
+        y.data_ptr(), means.data_ptr(), scales.data_ptr(), b, per, per,
+        2 * per, 2 * per, table.data_ptr(), table.numel() - 1, 0.11,
+        sym.data_ptr(), idx.data_ptr()))
     plain_ms = cuda_ms(
-        lambda: kernels._qidx_ref(y, means, scales, table, 0.11))
-    levels = table.numel() - 1
-    b_ms, b_by = bound(n * (3 * 4 + 4 + 1) + table.numel() * 4,
-                       n * (levels + 5))
-    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                library_ms=None,
+        lambda: kernels._qidx_plain(y, means, scales, table, 0.11))
+    s32 = torch.clamp_min(scales.float(), 0.11).contiguous()
+    edges = table[:-1].contiguous()
+    lib_ms = cuda_ms(lambda: torch.bucketize(s32, edges))
+    steps = (table.numel() - 1).bit_length()  # the search's steps
+    in_bytes = 3 * y.element_size()  # 12 B in f32, 6 B in bf16
+    b_ms, b_by = bound(n * (in_bytes + 4 + 1) + table.numel() * 4,
+                       n * (2 * steps + 5))
+    log(f"  {name}: wrapper {ms:.4f} ms, alone {alone_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bucketize (index half only) {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {b_by} ({in_bytes + 5} B per element)")
+    return dict(max_abs_err=err, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, library="torch.bucketize, index half only",
                 bound_ms=b_ms, bound_by=b_by, shape=list(shape))
 
 
@@ -473,15 +545,16 @@ def expected_launches(bf16: bool):
     """Launches per kernel over P_FRAMES encoded and decoded frames: g_a
     runs 3 GDN stages per frame, g_s 3 IGDN stages, the STEM one quantizer;
     at bf16 g_a's stages fuse into their convs and g_s's last two into the
-    packed pair, leaving its first IGDN to gdn_fused's bf16 entry."""
+    packed pair, leaving its first IGDN to gdn_fused's bf16 entry, and the
+    quantizer reads the bf16 nets' outputs through its bf16 entry."""
     want = dict.fromkeys(KERNELS, 0)
-    want["quantize_and_index"] = P_FRAMES
     if bf16:
         want.update(gdn_conv_fused=3 * P_FRAMES, gdn_fused_bf16=P_FRAMES,
+                    quantize_and_index_bf16=P_FRAMES,
                     igdn_deconv_wide_packed=P_FRAMES,
                     igdn_deconv_tail_packed=P_FRAMES)
     else:
-        want["gdn_fused"] = 6 * P_FRAMES
+        want.update(gdn_fused=6 * P_FRAMES, quantize_and_index=P_FRAMES)
     return want
 
 
@@ -681,7 +754,7 @@ def run_iframe(torch, kernels, card, ctx, wide: bool):
               dict(gdn_fused_bf16=1, igdn_deconv_wide_packed=1,
                    igdn_deconv_tail_packed=1))
         launches = _check_launches(kernels, tag, _want(
-            gdn_conv_fused=3, quantize_and_index=1, **gs))
+            gdn_conv_fused=3, quantize_and_index_bf16=1, **gs))
         _, y_enc = imodel.fused_encode_expr(x)
         if imodel.compress(x)["strings"] != enc["strings"]:
             raise AssertionError(f"{tag}: streams differ between two "
@@ -748,7 +821,9 @@ def main() -> int:
     log("[3/5] kernels vs plain versions on the card")
     table = kernels.scale_table_tensor(get_scale_table(), "cuda")
     results = {"gdn_fused": check_gdn(torch, kernels)}
-    results["quantize_and_index"] = check_qidx(torch, kernels, table)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = kernels._QIDX_ENTRIES[dtype][0]
+        results[name] = check_qidx(torch, kernels, table, dtype)
     results["gdn_fused_bf16"] = check_gdn_bf16(torch, kernels)
     results["gdn_conv_fused"] = check_gdn_conv(torch, F, kernels)
     wide, tail = check_gs_pair(torch, F, kernels)
@@ -793,6 +868,7 @@ def main() -> int:
         "gdn_fused": (f"{PK}:150", "kernels.cu"),
         "gdn_fused_bf16": (f"{PK}:150", "kernels.cu"),
         "quantize_and_index": (f"{PK}:214", "kernels.cu"),
+        "quantize_and_index_bf16": (f"{PK}:214", "kernels.cu"),
         "gdn_conv_fused": (f"{PK}:945", "gdn_conv.cu"),
         "igdn_deconv_wide_packed": (f"{PK}:1389", "igdn_deconv.cu"),
         "igdn_deconv_tail_packed": (f"{PK}:1561", "igdn_deconv.cu"),
@@ -810,7 +886,9 @@ def main() -> int:
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-            "pair_ms": res.get("pair_ms"), "shape": res["shape"],
+            "pair_ms": res.get("pair_ms"), "alone_ms": res.get("alone_ms"),
+            **({"library": res["library"]} if "library" in res else {}),
+            "shape": res["shape"],
             **({"stages": res["stages"]} if "stages" in res else {}),
         })
     log(json.dumps({"kernels": rows}))

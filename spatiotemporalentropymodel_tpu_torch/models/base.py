@@ -43,6 +43,14 @@ def _nchw(t, dtype=torch.float32):
     return torch.empty(t.shape, dtype=dtype, device=t.device).copy_(t)
 
 
+def _common_dtype(*tensors):
+    """The tensors as they are where they share a dtype, else all in f32
+    (exact from bf16)."""
+    if all(t.dtype == tensors[0].dtype for t in tensors):
+        return tensors
+    return tuple(t.float() for t in tensors)
+
+
 def _to_nchw(plane_nhwc: np.ndarray, device):
     """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
     t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))

@@ -83,29 +83,35 @@ class MeanScaleHyperprior(CompressionModel):
 
     # ---- the I-frame codec (priors.py:354-487 of the JAX package) ---------
 
-    def _params_f32(self, z_sym):
-        """(σ, μ) in f32 from the f32 symbols of ẑ. ẑ = z_sym + medians goes
-        to h_s in the compute dtype with the canonical NCHW strides, on
+    def _params(self, z_sym):
+        """(σ, μ) in the compute dtype from the f32 symbols of ẑ: the two
+        channel-halves of h_s's output, as they are. ẑ = z_sym + medians
+        goes to h_s in the compute dtype with the canonical NCHW strides, on
         encoder and decoder alike, so both get the same (σ, μ) bit for bit
         (see ``models/base.py::_nchw``)."""
         z_hat = _nchw(z_sym + self._medians,
                       self.compute_dtype or torch.float32)
-        scales, means = self.module.h_s(z_hat).chunk(2, dim=1)
-        return scales.float().contiguous(), means.float().contiguous()
+        return self.module.h_s(z_hat).chunk(2, dim=1)
+
+    def _params_f32(self, z_sym):
+        """(σ, μ) in f32, μ contiguous: the decoder's."""
+        scales, means = self._params(z_sym)
+        return scales.float(), means.float().contiguous()
 
     @torch.no_grad()
     def fused_encode_expr(self, x):
         """x (B, 3, H, W) → (packed u8 buffer [y int16][z int16][idx u8] in
         NHWC order, the ŷ the decoder rebuilds, f32 NCHW), one device
         dispatch (priors.py:372-403): g_a and h_a, ẑ's symbols, h_s on ẑ,
-        then the f32 island ``quantize_and_index`` on (y, μ, σ)."""
+        then ``quantize_and_index`` on (y, μ, σ) as they are, in the compute
+        dtype, its math in f32."""
         lim = self._I16_LIM
         y = self.module.g_a(self._cast_in(x))
         z = self.module.h_a(y)
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim, lim)
-        scales, means = self._params_f32(z_sym)
-        y_sym, idx = kernels.quantize_and_index(
-            y.float().contiguous(), means, scales, self._scale_table)
+        scales, means = self._params(z_sym)
+        y_sym, idx = kernels.quantize_and_index(y, means, scales,
+                                                self._scale_table)
         y_sym = torch.clamp(y_sym, -int(lim), int(lim))
         b = x.shape[0]
         packed = torch.cat([
@@ -113,6 +119,7 @@ class MeanScaleHyperprior(CompressionModel):
             _as_bytes(_nhwc_flat(z_sym.to(torch.int16), b)),
             _nhwc_flat(idx, b).reshape(-1),
         ])
+        # f32 + μ in the compute dtype adds in f32: the decoder's ŷ exactly
         return packed, y_sym.float() + means
 
     @torch.no_grad()

@@ -15,10 +15,11 @@ Tensors are NCHW on the device. Wherever symbols leave the device they are
 in the JAX package's NHWC order, so the packed buffers and the bitstreams
 are the JAX package's byte for byte. At a bf16 compute dtype the nets run in
 bf16 and the codec math in f32, with the JAX package's casts
-(models/stem.py:254-258, 291-539 there): z, σ and μ go to f32 before
-quantizing, the target and the ŷ carry are f32, and ẑ and y_cond are cast
-for HE, HD, TPM and EPM. The SPM variants (wavefront AR codec) and
-``without_spm_tpm`` wait for later slices.
+(models/stem.py:254-258, 291-539 there): z goes to f32 before quantizing,
+the encoder's quantizer upcasts bf16 y, σ and μ in registers (exact, as
+the JAX package's casts to f32), the target and the ŷ carry are f32, and ẑ
+and y_cond are cast for HE, HD, TPM and EPM. The SPM variants (wavefront AR
+codec) and ``without_spm_tpm`` wait for later slices.
 """
 
 from typing import Any, Dict
@@ -32,7 +33,9 @@ from ..entropy import base as entropy_base
 from ..entropy.transport import sparse_capacity
 from ..layers import Conv, Deconv, Sequential
 from ..ops import kernels
-from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
+from .base import (
+    CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
+)
 
 
 class STEMModule(nn.Module):
@@ -95,11 +98,25 @@ class SpatioTemporalPriorModel(CompressionModel):
     def levels(self) -> int:
         return int(self._scale_table.numel())
 
+    def _entropy_params(self, z_sym, y_cond_c):
+        """(σ, μ) in the compute dtype from the f32 symbols of ẑ and the
+        cast y_cond: the two channel-halves of EPM's output, as they are."""
+        return self.module.entropy_params(self._cast(z_sym + self._medians),
+                                          y_cond_c)
+
     def _entropy_params_f32(self, z_sym, y_cond_c):
-        """(σ, μ) in f32 from the f32 symbols of ẑ and the cast y_cond."""
-        scales, means = self.module.entropy_params(
-            self._cast(z_sym + self._medians), y_cond_c)
+        """(σ, μ) in f32, μ contiguous: the decoder's."""
+        scales, means = self._entropy_params(z_sym, y_cond_c)
         return scales.float(), means.float().contiguous()
+
+    def _quantize(self, y_cur, z_sym, y_cond_c):
+        """(y symbols, CDF-row indexes, μ) of the encoder: y_cur, σ and μ
+        straight into the quantizer, in their own dtype (all in f32 where a
+        caller's y_cur is not in the compute dtype)."""
+        scales, means = self._entropy_params(z_sym, y_cond_c)
+        y_sym, idx = kernels.quantize_and_index(
+            *_common_dtype(y_cur, means, scales), self._scale_table)
+        return y_sym, idx, means
 
     # ---- dense transport ---------------------------------------------------
 
@@ -111,10 +128,7 @@ class SpatioTemporalPriorModel(CompressionModel):
         y_cond_c = self._cast(y_cond)
         z = self.module.hyper_encode(self._cast(y_cur), y_cond_c)
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim, lim)
-        scales, means = self._entropy_params_f32(z_sym, y_cond_c)
-        y_sym, idx = kernels.quantize_and_index(
-            y_cur.float(), means, scales.contiguous(), self._scale_table,
-        )
+        y_sym, idx, _ = self._quantize(y_cur, z_sym, y_cond_c)
         b = y_cur.shape[0]
         y_sym = torch.clamp(y_sym, -int(lim), int(lim)).to(torch.int16)
         return torch.cat([
@@ -168,10 +182,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim16,
                             lim16)
         z_over = (z_sym.abs() > lim8).any()
-        scales, means = self._entropy_params_f32(z_sym, y_cond_c)
-        y_sym, idx = kernels.quantize_and_index(
-            y_cur.float(), means, scales.contiguous(), self._scale_table
-        )
+        y_sym, idx, means = self._quantize(y_cur, z_sym, y_cond_c)
+        # f32 + μ in the compute dtype adds in f32: the decoder's ŷ exactly
         y_hat = torch.clamp(y_sym, -int(lim16), int(lim16)).float() + means
 
         y_flat = _nhwc_flat(y_sym, b)

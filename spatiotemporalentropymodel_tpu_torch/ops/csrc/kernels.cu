@@ -1,6 +1,7 @@
 // Hand-written CUDA kernels of the port's serving paths, for sm_90a:
-// gdn_fused (f32, and bf16 I/O with f32 math) and quantize_and_index here;
-// the fused GDN + conv kernels in gdn_conv.cu and igdn_deconv.cu.
+// gdn_fused (f32, and bf16 I/O with f32 math) and quantize_and_index (f32
+// or bf16 in) here; the fused GDN + conv kernels in gdn_conv.cu and
+// igdn_deconv.cu.
 //
 // Plain C ABI (extern "C"): each launcher takes raw device pointers, sizes
 // and a cudaStream_t, launches on that stream, does not synchronise, and
@@ -283,42 +284,234 @@ int launch_gdn(const T* x, const void* gamma_p, const float* beta, T* out,
 // quantize_and_index
 //
 // Replaces spatiotemporalentropymodel_tpu/ops/pallas_kernels.py::
-// quantize_and_index (_qidx_kernel). Elementwise over any layout:
+// quantize_and_index (_qidx_kernel). Elementwise, on (y, mu, sigma) all f32
+// or all bf16, upcast to f32 in registers as the JAX wrapper's astype(f32):
 //
 //   sym = int32(clip(rint(y - mu), -2^30, 2^30))      (round half to even)
 //   idx = uint8(#{t in table : t < max(sigma, bound)})
 //
 // where `table` is the f32-cast scale table without its last entry.
 //
-// Bound: bytes (12 read + 5 written per element; the 63 compares are cheap).
-// Design: one grid-stride pass, the table staged once per block in shared
-// memory, every thread reading the same entry (broadcast).
+// Bound on the H100: bytes. 17 B per element in f32 (4 + 4 + 4 read, 4 + 1
+// written), 11 B in bf16 (2 + 2 + 2 read, 4 + 1 written): 0.032 and
+// 0.0206 ms at (4, 192, 68, 120) and 3.35 TB/s.
+//
+// Design.
+// - The index is a search, not a count. The TPU kernel compares every
+//   element with all 63 entries, which its wide VPU does cheaply; as a loop
+//   over shared memory that is 63 loads, compares and adds per element,
+//   and the first port, which ran it so, reached 45 % of the byte bound
+//   (0.0712 ms, PERF.md §6). Here the
+//   table sits in shared memory padded with +inf to 2^k entries
+//   (2^k > n_table), and k branchless steps i += (t[i + h - 1] < s) ? h : 0,
+//   h = 2^(k-1) .. 1, return #{t < s} for any non-decreasing table
+//   (ops/kernels.py::scale_table_tensor checks that once): 6 loads for the
+//   63 entries, 8 for 255. Entry t lives in slot t + t/32, so that the
+//   entries one step can read fall in distinct banks.
+// - 16-byte vectors: a thread takes one vector of each input, 4 f32 or 8
+//   bf16 elements, by read-only streaming loads issued before it waits for
+//   the table, and stores its symbols as int4s and its indexes as one 4- or
+//   8-byte word. One vector per thread; at 48 B per thread, three resident
+//   blocks of 256 keep the ~25 KB per SM in flight that 3.35 TB/s needs at
+//   about 1 us of latency.
+// - Rows: blockIdx.y is a batch item. Each input has its own batch stride
+//   (a batch item is contiguous), so the two channel-halves of a
+//   (B, 2M, H, W) tensor go in as they are; the outputs are contiguous. A
+//   row whose five pointers sit at the same offset within a vector takes a
+//   scalar head up to the vector boundary, vectors, then a scalar tail; a
+//   row whose offsets differ takes the same element ranges by scalar loads
+//   and stores.
 // ---------------------------------------------------------------------------
 
 constexpr int kQidxThreads = 256;
-constexpr int kMaxTable = 255;
+constexpr int kMaxTable = 255;  // entries compared: a uint8 index
+constexpr int kQidxSlots = 256 + 256 / 32;  // 2^8 entries, a gap per 32
 constexpr float kSymbolMax = 1073741824.0f;  // 1 << 30, exact in f32
 
-__global__ void __launch_bounds__(kQidxThreads)
-qidx_kernel(const float* __restrict__ y, const float* __restrict__ means,
-            const float* __restrict__ scales, const float* __restrict__ table,
-            int n_table, float bound, int32_t* __restrict__ sym,
-            uint8_t* __restrict__ idx, long long n) {
-  __shared__ float s_t[kMaxTable];
-  for (int t = threadIdx.x; t < n_table; t += blockDim.x) s_t[t] = table[t];
-  __syncthreads();
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       e < n; e += stride) {
-    float q = rintf(y[e] - means[e]);
-    q = fminf(fmaxf(q, -kSymbolMax), kSymbolMax);
-    sym[e] = static_cast<int32_t>(q);
-    const float s = fmaxf(scales[e], bound);
-    int c = 0;
-    for (int t = 0; t < n_table; ++t) c += (s_t[t] < s) ? 1 : 0;
-    idx[e] = static_cast<uint8_t>(c);
+__device__ __forceinline__ int qidx_slot(int t) { return t + (t >> 5); }
+
+struct QidxF32 {
+  using T = float;
+  static constexpr int kVec = 4;
+  static __device__ __forceinline__ float load(const T* p) {
+    return __ldcs(p);
   }
+  static __device__ __forceinline__ void load_vec(const T* p, float* v) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  }
+};
+
+// bf16 as its bits: the f32 with the same upper 16 bits, exactly
+struct QidxBf16 {
+  using T = unsigned short;
+  static constexpr int kVec = 8;
+  static __device__ __forceinline__ float load(const T* p) {
+    return __uint_as_float(static_cast<uint32_t>(__ldcs(p)) << 16);
+  }
+  static __device__ __forceinline__ void load_vec(const T* p, float* v) {
+    const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[2 * j] = __uint_as_float(w[j] << 16);
+      v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+};
+
+__device__ __forceinline__ int32_t qidx_symbol(float y, float mu) {
+  const float q = rintf(y - mu);
+  return static_cast<int32_t>(fminf(fmaxf(q, -kSymbolMax), kSymbolMax));
+}
+
+// #{t < max(sigma, bound)} over the padded table; fmaxf(NaN, bound) = bound
+__device__ __forceinline__ uint32_t qidx_index(const float* s_t, int steps,
+                                               float sigma, float bound) {
+  const float s = fmaxf(sigma, bound);
+  int i = 0;
+  for (int h = (1 << steps) >> 1; h > 0; h >>= 1)
+    i += (s_t[qidx_slot(i + h - 1)] < s) ? h : 0;
+  return static_cast<uint32_t>(i);
+}
+
+template <class Io>
+__device__ __forceinline__ uint32_t qidx_phase(const void* p, size_t bytes) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p) / bytes) &
+         (Io::kVec - 1);
+}
+
+template <class Io>
+__global__ void __launch_bounds__(kQidxThreads)
+qidx_kernel(const typename Io::T* __restrict__ y,
+            const typename Io::T* __restrict__ means,
+            const typename Io::T* __restrict__ scales, long long y_stride,
+            long long means_stride, long long scales_stride, long long per,
+            const float* __restrict__ table, int n_table, int steps,
+            float bound, int32_t* __restrict__ sym,
+            uint8_t* __restrict__ idx) {
+  using T = typename Io::T;
+  constexpr int V = Io::kVec;
+  __shared__ float s_t[kQidxSlots];
+  const long long b = blockIdx.y;
+  const T* yr = y + b * y_stride;
+  const T* mr = means + b * means_stride;
+  const T* sr = scales + b * scales_stride;
+  int32_t* symr = sym + b * per;
+  uint8_t* idxr = idx + b * per;
+
+  const uint32_t phase = qidx_phase<Io>(yr, sizeof(T));
+  const bool vec = qidx_phase<Io>(mr, sizeof(T)) == phase &&
+                   qidx_phase<Io>(sr, sizeof(T)) == phase &&
+                   qidx_phase<Io>(symr, sizeof(int32_t)) == phase &&
+                   qidx_phase<Io>(idxr, 1) == phase;
+  long long head = vec ? (V - phase) & (V - 1) : 0;
+  if (head > per) head = per;
+  const long long n_vec = (per - head) / V;
+  const long long e0 =
+      head + (static_cast<long long>(blockIdx.x) * kQidxThreads +
+              threadIdx.x) * V;
+  const bool active = e0 < head + n_vec * V;
+
+  float fy[V], fm[V], fs[V];
+  if (active) {
+    if (vec) {
+      Io::load_vec(yr + e0, fy);
+      Io::load_vec(mr + e0, fm);
+      Io::load_vec(sr + e0, fs);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        fy[j] = Io::load(yr + e0 + j);
+        fm[j] = Io::load(mr + e0 + j);
+        fs[j] = Io::load(sr + e0 + j);
+      }
+    }
+  }
+  const float inf = __int_as_float(0x7f800000);
+  for (int t = threadIdx.x; t < (1 << steps) - 1; t += kQidxThreads)
+    s_t[qidx_slot(t)] = t < n_table ? table[t] : inf;
+  __syncthreads();
+
+  if (active) {
+    int32_t q[V];
+    uint32_t c[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      q[j] = qidx_symbol(fy[j], fm[j]);
+      c[j] = 0;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) fs[j] = fmaxf(fs[j], bound);
+    // qidx_index's steps, the V searches side by side so their loads overlap
+    for (int h = (1 << steps) >> 1; h > 0; h >>= 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        c[j] += (s_t[qidx_slot(static_cast<int>(c[j]) + h - 1)] < fs[j]) ? h
+                                                                        : 0;
+    }
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < V; j += 4)
+        *reinterpret_cast<int4*>(symr + e0 + j) =
+            make_int4(q[j], q[j + 1], q[j + 2], q[j + 3]);
+      uint32_t w[V / 4];
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k)
+        w[k] = c[4 * k] | (c[4 * k + 1] << 8) | (c[4 * k + 2] << 16) |
+               (c[4 * k + 3] << 24);
+      if constexpr (V == 4) {
+        *reinterpret_cast<uint32_t*>(idxr + e0) = w[0];
+      } else {
+        *reinterpret_cast<uint2*>(idxr + e0) = make_uint2(w[0], w[1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        symr[e0 + j] = q[j];
+        idxr[e0 + j] = static_cast<uint8_t>(c[j]);
+      }
+    }
+  }
+
+  // the scalar head and tail of the row, fewer than V elements each
+  if (blockIdx.x == 0) {
+    const long long tail = per - head - n_vec * V;
+    const long long t = threadIdx.x;
+    const long long e = t < head ? t : head + n_vec * V + (t - head);
+    if (t < head + tail) {
+      symr[e] = qidx_symbol(Io::load(yr + e), Io::load(mr + e));
+      idxr[e] = static_cast<uint8_t>(
+          qidx_index(s_t, steps, Io::load(sr + e), bound));
+    }
+  }
+}
+
+template <class Io>
+int launch_qidx(const void* y, const void* means, const void* scales,
+                long long rows, long long per, long long y_stride,
+                long long means_stride, long long scales_stride,
+                const float* table, int n_table, float bound, int32_t* sym,
+                uint8_t* idx, void* stream) {
+  if (rows <= 0 || per <= 0) return 0;
+  if (n_table < 0 || n_table > kMaxTable || rows > 65535)
+    return cudaErrorInvalidValue;
+  int steps = 0;  // 2^steps > n_table: the search ends on any of n_table + 1
+  while ((1 << steps) <= n_table) ++steps;
+  const long long vecs = (per + Io::kVec - 1) / Io::kVec;
+  const long long blocks = (vecs + kQidxThreads - 1) / kQidxThreads;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  using T = typename Io::T;
+  qidx_kernel<Io><<<dim3(static_cast<unsigned>(blocks),
+                         static_cast<unsigned>(rows)),
+                    kQidxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y), static_cast<const T*>(means),
+      static_cast<const T*>(scales), y_stride, means_stride, scales_stride,
+      per, table, n_table, steps, bound, sym, idx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -344,18 +537,38 @@ int stem_gdn_fused_bf16(const void* x, const void* gamma_p,
                     static_cast<bf16*>(out), batch, C, P, inverse, stream);
 }
 
+// Contiguous f32 y, means and scales of n elements; table holds n_table + 1
+// f32 entries, non-decreasing; sym int32 and idx uint8, n each.
 int stem_quantize_and_index_f32(const float* y, const float* means,
                                 const float* scales, const float* table,
                                 int n_table, float bound, int32_t* sym,
                                 uint8_t* idx, long long n, void* stream) {
-  if (n == 0) return 0;
-  if (n_table < 0 || n_table > kMaxTable) return cudaErrorInvalidValue;
-  long long blocks = (n + kQidxThreads - 1) / kQidxThreads;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond that
-  qidx_kernel<<<static_cast<unsigned>(blocks), kQidxThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(
-      y, means, scales, table, n_table, bound, sym, idx, n);
-  return static_cast<int>(cudaGetLastError());
+  return launch_qidx<QidxF32>(y, means, scales, 1, n, n, n, n, table,
+                              n_table, bound, sym, idx, stream);
+}
+
+// rows batch items of per elements each: item b of y at y + b·y_stride
+// elements (likewise means, scales), contiguous; sym and idx contiguous,
+// rows·per each. rows ≤ 65535.
+int stem_quantize_and_index_f32_strided(
+    const float* y, const float* means, const float* scales, long long rows,
+    long long per, long long y_stride, long long means_stride,
+    long long scales_stride, const float* table, int n_table, float bound,
+    int32_t* sym, uint8_t* idx, void* stream) {
+  return launch_qidx<QidxF32>(y, means, scales, rows, per, y_stride,
+                              means_stride, scales_stride, table, n_table,
+                              bound, sym, idx, stream);
+}
+
+// The same with bf16 y, means and scales.
+int stem_quantize_and_index_bf16(
+    const void* y, const void* means, const void* scales, long long rows,
+    long long per, long long y_stride, long long means_stride,
+    long long scales_stride, const float* table, int n_table, float bound,
+    int32_t* sym, uint8_t* idx, void* stream) {
+  return launch_qidx<QidxBf16>(y, means, scales, rows, per, y_stride,
+                               means_stride, scales_stride, table, n_table,
+                               bound, sym, idx, stream);
 }
 
 }  // extern "C"

@@ -7,14 +7,18 @@ Needs one CUDA card and nvcc. It builds the kernel library of another
 tree's ``ops/csrc`` (e.g. a ``git archive`` of the parent commit) beside
 this tree's (``build.build``), and launches the C entries whose arguments
 both trees share, on the same inputs and in one process: quantize_and_index
-at the y plane of 4 × 1088 × 1920 frames, gdn_conv_fused at g_a's three
-stages and the wide g_s kernel at 272 × 480 and 136 × 240 (C = 192). For
-each, N rounds of this, other, other, this, each timed with CUDA events
-over 20 launches. The wrappers' host time (argument checks, packing) is
-left out, so the ratio is the kernels' alone.
+at the y plane of 4 × 1088 × 1920 frames (its contiguous f32 entry),
+gdn_conv_fused at g_a's three stages and the wide g_s kernel at 272 × 480
+and 136 × 240 (C = 192). For each, N rounds of this, other, other, this,
+each timed with CUDA events over 20 launches. The wrappers' host time
+(argument checks, packing) is left out, so the ratio is the kernels' alone.
+An entry the other tree lacks (quantize_and_index's strided f32 and bf16
+entries, which read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is
+timed in this tree's build alone, 2N times.
 
 Prints one JSON line per kernel and shape: the median ms per launch of
-each build over its 2N timings, their spread and the ratio other / this.
+each build over its 2N timings, their spread and the ratio other / this
+(null where the other tree lacks the entry).
 """
 
 import argparse
@@ -32,6 +36,10 @@ VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "stem_quantize_and_index_f32": [VP, VP, VP, VP, I32, ctypes.c_float, VP,
                                     VP, I64, VP],
+    "stem_quantize_and_index_f32_strided": [VP] * 3 + [I64] * 5 + [
+        VP, I32, ctypes.c_float, VP, VP, VP],
+    "stem_quantize_and_index_bf16": [VP] * 3 + [I64] * 5 + [
+        VP, I32, ctypes.c_float, VP, VP, VP],
     "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
 }
@@ -40,6 +48,8 @@ SIGNATURES = {
 def _open(path):
     lib = ctypes.CDLL(str(path))
     for name, args in SIGNATURES.items():
+        if not hasattr(lib, name):  # an older tree's build
+            continue
         getattr(lib, name).restype = I32
         getattr(lib, name).argtypes = args
     return lib
@@ -66,6 +76,19 @@ def _cases(gen):
                   (y.data_ptr(), means.data_ptr(), scales.data_ptr(),
                    table.data_ptr(), table.numel() - 1, 0.11, sym.data_ptr(),
                    idx.data_ptr(), y.numel())))
+    # (σ, μ) as the halves of one (B, 2M, H, W) tensor, as on the paths
+    per = y.numel() // b
+    for dtype, entry in (
+            (torch.float32, "stem_quantize_and_index_f32_strided"),
+            (torch.bfloat16, "stem_quantize_and_index_bf16")):
+        yd = y.to(dtype)
+        both = torch.cat([scales, means], dim=1).to(dtype)
+        keep += [yd, both]
+        cases.append((f"{entry} {list(shape)}, (σ, μ) halves", entry,
+                      (yd.data_ptr(), both[:, c:].data_ptr(),
+                       both.data_ptr(), b, per, per, 2 * per, 2 * per,
+                       table.data_ptr(), table.numel() - 1, 0.11,
+                       sym.data_ptr(), idx.data_ptr())))
     gamma = (0.02 * torch.rand((c, c), generator=gen, device=dev)
              + 0.1 * torch.eye(c, device=dev))
     gs = kernels.split_gamma(gamma.t().contiguous())
@@ -113,19 +136,24 @@ def run(other: Path, rounds: int):
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for label, entry, args in cases:
-        fns = {k: getattr(lib, entry) for k, lib in libs.items()}
+        fns = {k: getattr(lib, entry) for k, lib in libs.items()
+               if hasattr(lib, entry)}
         for fn in fns.values():  # warm-up
             for _ in range(3):
                 fn(*args, stream)
-        times = {"this": [], "other": []}
+        order = (("this", "other", "other", "this") if "other" in fns
+                 else ("this", "this"))
+        times = {k: [] for k in fns}
         for _ in range(rounds):
-            for who in ("this", "other", "other", "this"):
+            for who in order:
                 times[who].append(_ms(fns[who], args, stream))
         med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-        row = dict(case=label, this_ms=med["this"], other_ms=med["other"],
-                   ratio=med["other"] / med["this"],
+        other = med.get("other")
+        row = dict(case=label, this_ms=med["this"], other_ms=other,
+                   ratio=None if other is None else other / med["this"],
                    this_range=[min(times["this"]), max(times["this"])],
-                   other_range=[min(times["other"]), max(times["other"])],
+                   other_range=([min(times["other"]), max(times["other"])]
+                                if other is not None else None),
                    launches_per_timing=ITERS, timings=2 * rounds)
         print(json.dumps(row), flush=True)
         rows.append(row)

@@ -6,8 +6,8 @@ wrapper per Pallas kernel:
   * ``gdn_fused``          — GDN/IGDN ``x · rsqrt(β + x²·γᵀ)`` (``sqrt`` for
     IGDN) over the channel axis, f32 math, f32 or bf16 I/O (``_gdn_ref`` is
     the plain form).
-  * ``quantize_and_index`` — (y, μ, σ) → int32 saturated symbols and uint8
-    CDF-row indexes (``_qidx_ref`` is the plain form).
+  * ``quantize_and_index`` — (y, μ, σ), f32 or bf16, → int32 saturated
+    symbols and uint8 CDF-row indexes (``_qidx_ref`` is the plain form).
   * ``gdn_conv_fused``     — ``conv_k5s2(GDN(x)) + b``, bf16 (the three g_a
     stages of the bf16 path; ``_gdn_conv_ref``).
   * ``igdn_deconv_wide_packed`` / ``igdn_deconv_tail_packed`` — IGDN fused
@@ -22,10 +22,12 @@ wrapper per Pallas kernel:
 Each wrapper launches its hand-written kernel (csrc/*.cu) for a CUDA
 tensor and runs the plain PyTorch version only for a tensor on the CPU, where
 the tests run. On a CUDA tensor it launches or raises; it never falls back.
-``LAUNCHES`` counts the launches per kernel (the bf16 entry of ``gdn_fused``
-as ``gdn_fused_bf16``), so a caller can show that a path went through the
-kernels. The kernels' layout is the port's: channel-second (NCHW) for the
-GDN and conv kernels, any layout for the elementwise quantizer.
+``LAUNCHES`` counts the launches per kernel (the bf16 entries of
+``gdn_fused`` and ``quantize_and_index`` as ``gdn_fused_bf16`` and
+``quantize_and_index_bf16``), so a caller can show that a path went through
+the kernels. The kernels' layout is the port's: channel-second (NCHW) for
+the GDN and conv kernels; the elementwise quantizer takes any shape whose
+batch items (dimension 0) are each contiguous.
 
 Every wrapper but ``quantize_and_index`` (integer outputs) is differentiable
 on both devices: its backward recomputes the plain version and differentiates
@@ -50,6 +52,7 @@ LAUNCHES = {
     "gdn_fused": 0,
     "gdn_fused_bf16": 0,
     "quantize_and_index": 0,
+    "quantize_and_index_bf16": 0,
     "gdn_conv_fused": 0,
     "igdn_deconv_wide_packed": 0,
     "igdn_deconv_tail_packed": 0,
@@ -110,10 +113,10 @@ def _lib():
     lib.stem_igdn_deconv_narrow_bf16.restype = i32
     lib.stem_igdn_deconv_narrow_bf16.argtypes = (
         [vp] * 6 + [i64, i32, i32, i32, i32, i32, vp])
-    lib.stem_quantize_and_index_f32.restype = i32
-    lib.stem_quantize_and_index_f32.argtypes = [
-        vp, vp, vp, vp, i32, ctypes.c_float, vp, vp, i64, vp,
-    ]
+    for _, name in _QIDX_ENTRIES.values():
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = (
+            [vp] * 3 + [i64] * 5 + [vp, i32, ctypes.c_float, vp, vp, vp])
     return lib
 
 
@@ -136,7 +139,11 @@ def _check_cuda(name, pairs):
 
 
 def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the current stream on ``device`` (a tensor's, so
+    it has an index), as PyTorch's generated kernels read it:
+    ``torch.cuda.current_stream()`` builds a Stream object per call, about
+    6 µs more host time per wrapper call on an H100 machine (PERF.md §6)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _raise_on(rc: int, name: str):
@@ -262,41 +269,133 @@ def _qidx_ref(y, means, scales, table, scale_bound):
     return sym, idx.to(torch.uint8)
 
 
+def _qidx_plain(y, means, scales, table, scale_bound):
+    """``quantize_and_index``'s plain version: ``_qidx_ref`` on f32 casts of
+    the inputs, as the JAX wrapper casts them (pallas_kernels.py:223-225)."""
+    return _qidx_ref(y.float(), means.float(), scales.float(), table.float(),
+                     scale_bound)
+
+
 def scale_table_tensor(table, device) -> torch.Tensor:
     """The scale table as the f32 tensor the quantizer compares against
-    (pallas_kernels.py:217 casts it to f32 the same way)."""
-    return torch.as_tensor(np.asarray(table, np.float32), device=device)
+    (pallas_kernels.py:217 casts it to f32 the same way). The kernel's
+    search counts #{t < σ} only over a non-decreasing table, so this
+    raises on any other."""
+    t = np.asarray(table, np.float32)
+    if t.ndim != 1 or not np.all(t[1:] >= t[:-1]):  # a NaN fails too
+        raise ValueError("quantize_and_index: the scale table must be a "
+                         "non-decreasing vector")
+    return torch.as_tensor(t, device=device)
+
+
+# the quantizer's LAUNCHES name and C entry per input dtype
+# (kernels.cu::launch_qidx)
+_QIDX_ENTRIES = {
+    torch.float32: ("quantize_and_index",
+                    "stem_quantize_and_index_f32_strided"),
+    torch.bfloat16: ("quantize_and_index_bf16",
+                     "stem_quantize_and_index_bf16"),
+}
+_QIDX_MAX_ROWS = 65535  # the kernel's grid.y
+
+
+@lru_cache(maxsize=64)
+def _contiguous_strides(shape):
+    """The strides PyTorch gives a contiguous tensor of ``shape``."""
+    strides, step = [], 1
+    for size in reversed(shape):
+        strides.append(step)
+        step *= max(size, 1)
+    return tuple(reversed(strides))
+
+
+def _qidx_rows(tensors, n, strides):
+    """(rows, per, [(tensor, batch stride)]): the kernel's rows of the n
+    elements of each tensor, where ``strides`` are the contiguous strides
+    of their shape. A tensor goes as it is where it is contiguous or where
+    each batch item (dimension 0) is; else as a contiguous copy. All go as
+    one row of n where each is contiguous."""
+    rows = tensors[0].shape[0] if strides else 1
+    per = n // rows
+    strided, one_row = [], True
+    for t in tensors:
+        st = t.stride()
+        if st == strides:
+            strided.append((t, per))
+            continue
+        if rows <= _QIDX_MAX_ROWS and st[1:] == strides[1:]:
+            stride = st[0]
+        else:  # (a tensor contiguous but for a size-1 dimension's stride
+            t, stride = t.contiguous(), per  # comes back as it is)
+        strided.append((t, stride))
+        one_row = one_row and stride == per
+    # one row where all are contiguous: the fewest scalar edges
+    return (1, n, strided) if one_row else (rows, per, strided)
 
 
 def quantize_and_index(y, means, scales, table, scale_bound: float = 0.11):
-    """(y, μ, σ) → (int32 symbols, uint8 CDF-row indexes), elementwise.
+    """(y, μ, σ) → (int32 symbols, uint8 CDF-row indexes), elementwise, in
+    y's shape.
 
-    ``table``: the f32 scale table (see ``scale_table_tensor``) on y's
-    device; passing it ready avoids an upload (and a stream sync) per call.
+    y, μ and σ share one dtype, f32 or bf16; the math is f32, as after the
+    JAX wrapper's casts (bf16 → f32 is exact). On the card each batch item
+    (dimension 0) of each input must be contiguous, or it is copied: the
+    two channel-halves of a (B, 2M, H, W) tensor from ``chunk`` go in as
+    they are. ``table``: the f32 scale table (see ``scale_table_tensor``)
+    on y's device; passing it ready avoids an upload (and a stream sync)
+    per call.
     """
+    if not y.dtype == means.dtype == scales.dtype in _QIDX_ENTRIES:
+        raise TypeError(f"quantize_and_index: y, means, scales must share "
+                        f"f32 or bf16, got {y.dtype}, {means.dtype}, "
+                        f"{scales.dtype}")
     if not isinstance(table, torch.Tensor):
         table = scale_table_tensor(table, y.device)
+    if y.is_cuda:
+        return _qidx_launch(y, means, scales, table, scale_bound)
     if y.device.type == "cpu":
-        return _qidx_ref(y.float(), means.float(), scales.float(),
-                         table.float(), scale_bound)
-    if y.device.type != "cuda":
-        raise ValueError(f"quantize_and_index: unsupported device {y.device}")
-    _check_cuda("quantize_and_index",
-                [(t, torch.float32) for t in (y, means, scales, table)])
-    if means.shape != y.shape or scales.shape != y.shape:
+        return _qidx_plain(y, means, scales, table, scale_bound)
+    raise ValueError(f"quantize_and_index: unsupported device {y.device}")
+
+
+def _qidx_launch(y, means, scales, table, scale_bound):
+    """The kernel on CUDA tensors. The host time before the launch is what
+    a lone call adds to the kernel's, so the checks are the few that keep
+    the kernel's memory accesses in bounds, and the outputs' views are cut
+    after the launch."""
+    name, entry = _QIDX_ENTRIES[y.dtype]
+    dev = y.get_device()
+    if not means.get_device() == scales.get_device() == table.get_device() \
+            == dev:
+        raise ValueError("quantize_and_index: tensors on different devices")
+    if table.dtype != torch.float32 or not table.is_contiguous():
+        raise TypeError("quantize_and_index: the table must be contiguous "
+                        "f32")
+    shape = y.shape
+    if means.shape != shape or scales.shape != shape:
         raise ValueError("quantize_and_index: y, means, scales must match")
-    if not 1 <= table.numel() <= 256:
+    levels = table.numel() - 1
+    if not 0 <= levels <= 255:
         raise ValueError("quantize_and_index: scale table of 1..256 entries")
-    sym = torch.empty(y.shape, dtype=torch.int32, device=y.device)
-    idx = torch.empty(y.shape, dtype=torch.uint8, device=y.device)
-    rc = _lib().stem_quantize_and_index_f32(
-        y.data_ptr(), means.data_ptr(), scales.data_ptr(), table.data_ptr(),
-        table.numel() - 1, float(scale_bound), sym.data_ptr(), idx.data_ptr(),
-        y.numel(), _stream(y.device),
-    )
-    _raise_on(rc, "quantize_and_index")
-    LAUNCHES["quantize_and_index"] += 1
-    return sym, idx
+    n = y.numel()
+    strides = _contiguous_strides(shape)
+    # one allocation: the symbols, then the indexes from a 16-byte boundary
+    # (the kernel stores 16-byte and 8-byte words)
+    off = -(-4 * n // 16) * 16
+    buf = torch.empty(off + -(-n // 16) * 16, dtype=torch.uint8,
+                      device=y.device)
+    if n:
+        rows, per, ((yk, ys), (mk, ms), (sk, ss)) = _qidx_rows(
+            (y, means, scales), n, strides)
+        ptr = buf.data_ptr()
+        rc = getattr(_lib(), entry)(
+            yk.data_ptr(), mk.data_ptr(), sk.data_ptr(), rows, per, ys, ms,
+            ss, table.data_ptr(), levels, float(scale_bound), ptr, ptr + off,
+            _stream(y.device))
+        _raise_on(rc, name)
+        LAUNCHES[name] += 1
+    return (buf.view(torch.int32).as_strided(shape, strides),
+            buf.as_strided(shape, strides, off))
 
 
 # ---------------------------------------------------------------------------

@@ -116,6 +116,130 @@ def test_cuda_wrappers_reject_bad_inputs(cuda):
     assert kernels.LAUNCHES == n0
 
 
+QIDX_ENTRY = {torch.float32: "quantize_and_index",
+              torch.bfloat16: "quantize_and_index_bf16"}
+
+
+def _qidx_table(size):
+    """A non-decreasing table of ``size`` entries: the scale table at 64,
+    else log-spaced random entries with one repeated."""
+    if size == 64:
+        return get_scale_table().astype(np.float32)
+    rng = np.random.default_rng(size)
+    t = np.sort(np.exp(rng.uniform(np.log(0.05), np.log(300.0), size)))
+    t = t.astype(np.float32)
+    if size > 4:
+        t[size // 2] = t[size // 2 - 1]
+    return t
+
+
+def _qidx_crafted(table, shape, dtype, seed=7):
+    """(y, μ, σ) NCHW on the CPU in ``dtype``: y − μ on ±k.5 ties and beyond
+    ±2³⁰, σ on every table entry (rounded to dtype), one step of dtype
+    either side of it, the bound, 0 and −1; then shuffled, so the crafted
+    values land in every row, head, vector and tail."""
+    rng = np.random.default_rng(seed)
+    means = (2 * rng.standard_normal(shape)).astype(np.float32)
+    y = (means + 3 * rng.standard_normal(shape)).astype(np.float32)
+    scales = np.exp(rng.uniform(np.log(0.05), np.log(2 * table.max()),
+                                shape)).astype(np.float32)
+    yt, mt, st = (torch.from_numpy(a).to(dtype) for a in (y, means, scales))
+    yf, mf, sf = (t.view(-1) for t in (yt, mt, st))
+    special = torch.cat([torch.arange(-20, 21) + 0.5, torch.tensor(
+        [3e9, -3e9, 2.0**30 + 128, -(2.0**30) - 128, 1e38])]).to(dtype)
+    mf[:special.numel()], yf[:special.numel()] = 0, special
+    t = torch.from_numpy(table).to(dtype)
+    if dtype == torch.bfloat16:  # positive: ±1 in the bits is ±1 step
+        lo = (t.view(torch.int16) - 1).view(dtype)
+        hi = (t.view(torch.int16) + 1).view(dtype)
+    else:
+        lo = torch.nextafter(t, torch.full_like(t, -np.inf))
+        hi = torch.nextafter(t, torch.full_like(t, np.inf))
+    edges = torch.cat([t, lo, hi, torch.tensor([0.11, 0.0, -1.0]).to(dtype)])
+    assert edges.numel() <= sf.numel()
+    sf[:edges.numel()] = edges
+    perm = torch.from_numpy(rng.permutation(yf.numel()))
+    return [v[perm].view(shape) for v in (yf, mf, sf)]
+
+
+def _qidx_layout(case, y, means, scales, device):
+    """The three inputs on the card in the case's layout."""
+    if case == "halves":  # chunk's halves of one (B, 2C, H, W) tensor
+        both = torch.cat([scales, means], dim=1).to(device)
+        s_half, m_half = both.chunk(2, dim=1)
+        return y.to(device), m_half, s_half
+    if case == "row_heads":  # [:, :C] of (B, C + 8, H, W): rows off phase
+        out = []
+        for t in (y, means, scales):
+            big = torch.full((t.shape[0], t.shape[1] + 8, *t.shape[2:]),
+                             float("nan"), dtype=t.dtype)
+            big[:, :t.shape[1]] = t
+            out.append(big.to(device)[:, :t.shape[1]])
+        return out
+    if case == "misaligned":  # 1, 2, 3 elements past a 16-byte boundary
+        out = []
+        for k, t in zip((1, 2, 3), (y, means, scales)):
+            flat = torch.empty(t.numel() + k, dtype=t.dtype, device=device)
+            flat[k:] = t.reshape(-1).to(device)
+            out.append(flat[k:].view(t.shape))
+        return out
+    return [t.to(device) for t in (y, means, scales)]
+
+
+QIDX_CASES = {
+    "contiguous": (2, 64, 8, 8),
+    "odd": (3, 5, 7, 9),  # 945 elements: vectors and a tail
+    "halves": (4, 16, 8, 12),
+    "odd_halves": (2, 13, 7, 9),  # rows whose inputs' phases differ
+    "row_heads": (3, 5, 7, 9),  # rows 1, 2 start mid-vector: scalar heads
+    "misaligned": (2, 8, 9, 7),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(QIDX_CASES))
+@pytest.mark.parametrize("table_size", [2, 64, 256])
+def test_cuda_quantize_and_index_exact(cuda, dtype, case, table_size):
+    """Each entry of quantize_and_index equals ``_qidx_ref`` bit for bit on
+    crafted inputs, in every layout the wrapper reads without a copy and
+    off 16-byte alignment, and launches once, under its own name."""
+    table = _qidx_table(table_size)
+    layout = "halves" if case == "odd_halves" else case
+    y, means, scales = _qidx_layout(
+        layout, *_qidx_crafted(table, QIDX_CASES[case], dtype), cuda)
+    t = kernels.scale_table_tensor(table, cuda)
+    n0 = dict(kernels.LAUNCHES)
+    sym, idx = kernels.quantize_and_index(y, means, scales, t)
+    rs, ri = kernels._qidx_plain(y, means, scales, t, 0.11)
+    assert torch.equal(sym, rs) and torch.equal(idx, ri)
+    want = dict(n0)
+    want[QIDX_ENTRY[dtype]] += 1
+    assert kernels.LAUNCHES == want
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_and_index_rejects_bad_inputs(cuda):
+    """Mixed or other dtypes, mismatched shapes, a table off the card or of
+    more than 256 entries: each raises, and nothing launches."""
+    x = torch.randn((2, 8, 4, 4), device=cuda)
+    t = kernels.scale_table_tensor(get_scale_table(), cuda)
+    n0 = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError):
+        kernels.quantize_and_index(x, x.to(torch.bfloat16), x, t)
+    with pytest.raises(TypeError):
+        kernels.quantize_and_index(x.half(), x.half(), x.half(), t)
+    with pytest.raises(ValueError):
+        kernels.quantize_and_index(x, x[:1], x, t)
+    with pytest.raises(ValueError):
+        kernels.quantize_and_index(x, x, x, t.cpu())
+    with pytest.raises(ValueError):
+        kernels.quantize_and_index(x, x, x, torch.arange(
+            257, dtype=torch.float32, device=cuda))
+    assert kernels.LAUNCHES == n0
+
+
 PLAIN_TOL, WINDOW_TOL = 2**-6, 2**-8
 
 
@@ -509,7 +633,7 @@ def _plain_wrappers(monkeypatch):
                         kernels._gdn_plain(x, g, b, inverse))
     monkeypatch.setattr(kernels, "quantize_and_index",
                         lambda y, m, s, t, scale_bound=0.11:
-                        kernels._qidx_ref(y, m, s, t, scale_bound))
+                        kernels._qidx_plain(y, m, s, t, scale_bound))
 
 
 @pytest.mark.cuda
