@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's serving paths: the P-frame path
-in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, and
-the I-frame codec.
+in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
+I-frame codec, and the flagship STEM res through WavefrontVideoPipeline.
 
     python3 chip_smoke.py
 
@@ -49,8 +49,26 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 outputs within 2⁻⁵·max|default|; iframe_bf16 and
                 iframe_bf16_wide compress and decompress frame 0 with the
                 I-frame codec, with encoder ŷ == decoder ŷ and streams that
-                repeat. On every path each kernel must have launched exactly
-                as often as the path calls it.
+                repeat. Then res_wavefront_bf16, the JAX bench's wavefront
+                server (bench.py:648-689) at S = 4 streams as in its
+                res_pipelined_4stream_measured section (bench.py:853,
+                1803-1805): STEM res (EB 256, bf16) with wavefront tile
+                (1, 4) and MeanScaleHyperprior(192, 192) serve 3 P-frames
+                of 4×3×1088×1920 with serve_latent, y_cur = y_cond + 0.2·ε
+                with g_a run on the pixel frame
+                (eval/workload.py::wavefront_y_cur). The I-model runs in
+                bf16 here, where the JAX bench keeps it f32: bf16 is the
+                package's serving dtype, and only the bf16 g_a and g_s
+                reach the ported kernels. Per frame the encoder's
+                reconstruction + y_cond must equal the decoder's ŷ bit for
+                bit, the stream must decode (with the encoder's indexes) to
+                the encoder's symbols, a second encode must repeat the
+                streams, x̂ must be finite bf16 of the frames' shape and bpp
+                in (0.15, 0.30). With it the serial AR codec runs on a small
+                f32 res model (M = 32) at a 4×8 latent: its symbols decode
+                and its ŷ is the untiled wavefront's within 1e-4. On every
+                path each kernel must have launched exactly as often as the
+                path calls it.
   5. report   — one JSON line of kernels, then the card, then the result line.
 
 Exits non-zero, printing no result line, on any failure.
@@ -79,6 +97,10 @@ FUSED_TOL = 2**-6  # max|kernel − plain| ≤ FUSED_TOL · max|plain|
 # carried through two more)
 WIDE_X_MEAN = 2e-3
 WIDE_GS_TOL = 2**-5
+RES_TILE = (1, 4)  # the JAX bench's wavefront tile (bench.py:692)
+RES_BPP = (0.15, 0.30)  # the JAX package codes this workload at ≈ 0.223
+SERIAL_M, SERIAL_HW = 32, (4, 8)
+SERIAL_ATOL = 1e-4  # serial vs wavefront ŷ (JAX tests/test_stem.py:123-125)
 KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
            "quantize_and_index_bf16", "gdn_conv_fused",
            "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
@@ -572,7 +594,9 @@ def run_slice(torch, kernels, card, bf16: bool):
     tag = "bf16" if bf16 else "f32"
     t0 = time.perf_counter()
     imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
-    stem = SpatioTemporalPriorModel(EBC, M, device="cuda", seed=1)
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=EBC,
+                                    in_channels=M, device="cuda", seed=1)
     realistic_stem(stem)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = [torch.rand((B, 3, H, W), generator=gen, device="cuda")
@@ -777,6 +801,202 @@ def run_iframe(torch, kernels, card, ctx, wide: bool):
     return launches
 
 
+def _encoder_pass(torch, stem, enc, y_cur, y_cond):
+    """The model's encoder over the priors of the decoder's ẑ, as JAX
+    tests/test_stem.py:141-166 runs it: (its reconstruction + y_cond NCHW,
+    its symbols and CDF-row indexes per stream in wire order)."""
+    from spatiotemporalentropymodel_tpu_torch.models import ar_wavefront as wf
+    from spatiotemporalentropymodel_tpu_torch.models.base import _nchw
+
+    b, m, h, w = y_cur.shape
+    th, tw, nt, serial = stem._ar_dims(h, w)
+    with torch.no_grad():
+        z_hat = stem._upload(stem._eb_decompress(enc["strings"][1],
+                                                 enc["shape"]))
+        priors = stem._tiled_priors(z_hat, y_cond, th, tw, nt)
+        target = (y_cur - y_cond).permute(0, 2, 3, 1)
+        if nt > 1:
+            target = wf.tile_plane(target, th, tw)
+        coords, valid, rounds, encoder, *_ = stem._wavefront_setup(
+            th, tw, serial)
+        syms, idxs, recon = encoder(target, priors, rounds)
+        flat = [wf.flatten_wavefront_grouped(p, coords, valid, b).cpu()
+                .numpy() for p in (syms, idxs)]
+        if nt > 1:
+            recon = wf.untile_plane(recon, b, h, w)
+        return _nchw(recon.permute(0, 3, 1, 2)) + y_cond, flat[0], flat[1]
+
+
+def _check_ar_frame(torch, stem, tag, enc, y_cur, y_cond, y_dec):
+    """Encoder reconstruction == decoder ŷ bit for bit, and every stream
+    decodes, with the encoder's indexes, to the encoder's symbols."""
+    y_enc, sym, idx = _encoder_pass(torch, stem, enc, y_cur, y_cond)
+    if not torch.equal(y_enc, y_dec):
+        diff = int((y_enc != y_dec).sum())
+        raise AssertionError(f"{tag}: encoder ŷ != decoder ŷ at {diff} "
+                             f"elements")
+    t = stem.tables["gaussian_conditional"]
+    for i, s in enumerate(enc["strings"][0]):
+        got = stem.coder.make_stream_decoder(s).decode(
+            idx[i], t.cdf, t.cdf_length, t.offset)
+        if not (got == sym[i]).all():
+            raise AssertionError(f"{tag} stream {i}: decoded symbols differ "
+                                 f"from the encoder's at "
+                                 f"{int((got != sym[i]).sum())} of {got.size}")
+
+
+def run_res_wavefront(torch, kernels, card):
+    """res_wavefront_bf16: the flagship through WavefrontVideoPipeline, then
+    the serial AR codec at a small size. Returns the launches."""
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        WavefrontVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        realistic_stem, wavefront_y_cur,
+    )
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior, SpatioTemporalPriorModel,
+    )
+
+    tag = "res_wavefront_bf16"
+    t0 = time.perf_counter()
+    imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
+    stem = SpatioTemporalPriorModel(variant="res",
+                                    entropy_bottleneck_channels=EBC,
+                                    in_channels=M, wavefront_tile=RES_TILE,
+                                    device="cuda", seed=1)
+    realistic_stem(stem)
+    imodel.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    pipe = WavefrontVideoPipeline(imodel, stem)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    y_cond0 = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
+                                device="cuda")
+    x_pix = torch.rand((B, 3, H, W), generator=gen, device="cuda")
+    log(f"  {tag}: models + tables + surgery: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # warm-up frame (cuDNN set-up), outside the counted run
+    y_cur = wavefront_y_cur(imodel, x_pix, y_cond0, gen)
+    pipe.serve_latent(y_cur, y_cond0)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted ----
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    y_cond, frames = y_cond0, []
+    t0 = time.perf_counter()
+    for k in range(P_FRAMES):
+        y_cur = wavefront_y_cur(imodel, x_pix, y_cond, gen)
+        enc, y_hat, x_hat = pipe.serve_latent(y_cur, y_cond, frame=k)
+        frames.append((y_cur, y_cond, enc, y_hat, x_hat))
+        y_cond = y_hat
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    fps = P_FRAMES * B / wall
+    log(f"  {tag} main path: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
+        f"{fps:.3f} frames/s (wall, pipelined), launches {launches}")
+
+    # ---- checks ----
+    want = _want(gdn_conv_fused=3 * P_FRAMES, gdn_fused_bf16=P_FRAMES,
+                 igdn_deconv_wide_packed=P_FRAMES,
+                 igdn_deconv_tail_packed=P_FRAMES)
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    bpps = []
+    for k, (y_cur, y_cond, enc, y_hat, x_hat) in enumerate(frames):
+        _check_ar_frame(torch, stem, f"{tag} frame {k}", enc, y_cur, y_cond,
+                        y_hat)
+        if pipe.encode_frame(y_cur, y_cond)["strings"] != enc["strings"]:
+            raise AssertionError(f"{tag} frame {k}: a second encode gave "
+                                 f"other streams")
+        if (tuple(x_hat.shape) != (B, 3, H, W) or x_hat.dtype != torch.bfloat16
+                or not bool(torch.isfinite(x_hat).all())):
+            raise AssertionError(f"{tag} frame {k}: x̂ {tuple(x_hat.shape)} "
+                                 f"{x_hat.dtype}, or not finite")
+        n_bytes = sum(len(s) for g in enc["strings"] for s in g)
+        bpps.append(n_bytes * 8 / (B * H * W))
+    if not all(RES_BPP[0] < b < RES_BPP[1] for b in bpps):
+        raise AssertionError(f"{tag}: bpp {bpps} outside {RES_BPP}")
+    bpp = sum(bpps) / len(bpps)
+    log(f"  {tag} checks: launches exact, encoder ŷ == decoder ŷ and "
+        f"decoded symbols == encoded on {P_FRAMES} frames, streams repeat, "
+        f"x̂ finite bf16, bpp per frame {bpps}")
+
+    # ---- stage breakdown: one frame with the codec's stage clock on (it
+    # synchronises at each boundary), median of 3 ----
+    y_cur, y_cond = frames[0][0], frames[0][1]
+    runs = []
+    for _ in range(3):
+        ms_ga, _ = timed_ms(torch, lambda: pipe.analysis(x_pix))
+        stem._codec_stats = {}
+        _, (_, y_hat, _) = timed_ms(torch, lambda: pipe.serve_latent(
+            y_cur, y_cond))
+        st, stem._codec_stats = stem._codec_stats, None
+        ms_gs, _ = timed_ms(torch, lambda: pipe.synthesis_async(y_hat))
+        runs.append(dict(
+            g_a=ms_ga, hyper_z_coding=1e3 * st["hyper_s"],
+            priors=1e3 * st["priors_s"],
+            encode_rounds=1e3 * st["enc_device_s"],
+            host_rans_enc=1e3 * st["enc_host_s"],
+            decode_rounds=1e3 * st["device_s"],
+            host_rans_dec=1e3 * st["host_rans_s"], g_s=ms_gs,
+            rounds=st["rounds"]))
+    med = {k: sorted(r[k] for r in runs)[1] for k in runs[0]}
+    rounds = 3 * (RES_TILE[0] - 1) + RES_TILE[1]
+    if med["rounds"] != rounds:
+        raise AssertionError(f"{tag}: {med['rounds']} decode rounds, "
+                             f"expected {rounds}")
+    log(f"  {tag}: bpp {bpp:.5f}, {fps:.3f} frames/s ({P_FRAMES}×{B} frames "
+        f"of {H}×{W}, pipelined serve_latent), {rounds} rounds per frame, "
+        f"stage ms " + ", ".join(f"{k} {v:.2f}" for k, v in med.items()
+                                  if k != "rounds")
+        + f" | card: {card}")
+    del frames, pipe, stem, imodel
+    torch.cuda.empty_cache()
+    run_serial(torch, card)
+    return launches
+
+
+def run_serial(torch, card):
+    """The serial AR codec on a small f32 res model, one stream: its
+    symbols decode, and its ŷ is the untiled wavefront's within
+    SERIAL_ATOL (the two batch different numbers of crops, so their bits
+    may differ)."""
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        SpatioTemporalPriorModel,
+    )
+
+    tag = "res_serial_f32"
+    stem = SpatioTemporalPriorModel(variant="res",
+                                    entropy_bottleneck_channels=SERIAL_M,
+                                    in_channels=SERIAL_M, ar_mode="serial",
+                                    device="cuda", seed=3)
+    stem.update()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    shape = (1, SERIAL_M, *SERIAL_HW)
+    y_cur = torch.randn(shape, generator=gen, device="cuda")
+    y_cond = y_cur + 0.3 * torch.randn(shape, generator=gen, device="cuda")
+    y_hat = {}
+    for mode in ("serial", "wavefront"):
+        stem.ar_mode = mode
+        ms, enc = timed_ms(torch, lambda: stem.compress(y_cur, y_cond))
+        ms_d, dec = timed_ms(torch, lambda: stem.decompress(
+            enc["strings"], enc["shape"], y_cond))
+        _check_ar_frame(torch, stem, f"{tag} {mode}", enc, y_cur, y_cond,
+                        dec["y_hat"])
+        y_hat[mode] = dec["y_hat"]
+        log(f"  {tag} {mode}: compress {ms:.1f} ms, decompress {ms_d:.1f} ms"
+            f" at {SERIAL_HW[0]}×{SERIAL_HW[1]}, {len(enc['strings'][0][0])}"
+            f" bytes, encoder ŷ == decoder ŷ, symbols decode")
+    err = float((y_hat["serial"] - y_hat["wavefront"]).abs().max())
+    if not err <= SERIAL_ATOL:
+        raise AssertionError(f"{tag}: serial and wavefront ŷ differ by {err}")
+    log(f"  {tag}: max|ŷ_serial − ŷ_wavefront| {err:.3e} (limit "
+        f"{SERIAL_ATOL:.0e}) | card: {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -862,6 +1082,10 @@ def main() -> int:
         raise AssertionError("the default knobs were not restored")
     del ctx
     torch.cuda.empty_cache()
+    log(f"[4/5] slice: res_wavefront_bf16, STEM res tile {RES_TILE} through "
+        f"WavefrontVideoPipeline, {P_FRAMES} P-frames of {B}×3×{H}×{W}; "
+        f"then the serial AR codec at {SERIAL_HW[0]}×{SERIAL_HW[1]}")
+    by_path["res_wavefront_bf16"] = run_res_wavefront(torch, kernels, card)
 
     # ---- 5. report ----
     replaces = {

@@ -6,12 +6,14 @@ names mirror the JAX package's:
 - ``ops``     : lower_bound, non-negative parametrization, quantizers, and
                 the hand-written CUDA kernels (``ops/kernels.py``,
                 ``ops/csrc/kernels.cu``) with their plain PyTorch versions
-- ``layers``  : GDN/IGDN, Conv/Deconv, Sequential (NCHW)
+- ``layers``  : GDN/IGDN, Conv/Deconv, Sequential, MaskedConv2d (NCHW)
 - ``entropy`` : EntropyBottleneck / GaussianConditional, CDF tables, host
                 compress/decompress, the sparse-grouped transport
 - ``coders``  : the native C++ rANS coder (ctypes)
-- ``models``  : MeanScaleHyperprior, the parallel STEM P-frame model
-- ``eval``    : the P-frame serving pipeline and the benchmark workload
+- ``models``  : MeanScaleHyperprior, the five STEM P-frame variants and
+                the wavefront AR codec of the SPM ones
+- ``eval``    : the P-frame serving pipelines (parallel and wavefront) and
+                the benchmark workload
 - ``convert`` : loads the JAX package's parameter trees (NumPy) into the port
 
 It imports torch and NumPy, never jax. Kernels and the coder build at first

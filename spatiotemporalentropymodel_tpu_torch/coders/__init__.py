@@ -3,10 +3,12 @@
 ``get_coder()`` returns the one coder the f32 P-frame path uses (the JAX
 package's default ``"rans"``): the ``rans`` module itself, built and loaded
 on first use. Building it raises on failure; unlike the JAX package there is
-no silent drop to a NumPy coder.
+no silent drop to a NumPy coder. ``make_stream_decoder`` opens a stream for
+the autoregressive codecs' per-round decode.
 """
 
 from . import rans
+from .rans import make_stream_decoder
 
 
 def get_coder(name=None):

@@ -1,9 +1,10 @@
 """ctypes bindings for the native rANS coder.
 
 The port's own copy of spatiotemporalentropymodel_tpu/coders/rans.py, cut to
-the functions the serving path and the golden-bitstream tests use: the
+the functions the serving paths and the golden-bitstream tests use: the
 single-stream indexed coder, the run-based grouped container of the sparse
-transport, and the acceleration tables.
+transport, the acceleration tables, and the stateful stream decoder with the
+segmented run encoder of the autoregressive (wavefront and serial) codecs.
 """
 
 import ctypes
@@ -75,6 +76,33 @@ def _lib():
     lib.stem_build_lut.argtypes = [
         _i32p, ctypes.c_int32, ctypes.c_int32, _i32p,
         np.ctypeslib.ndpointer(dtype=np.int16, flags="C_CONTIGUOUS"),
+    ]
+
+    lib.stem_encode_runs_segmented.restype = ctypes.c_int64
+    lib.stem_encode_runs_segmented.argtypes = [
+        _i32p, ctypes.c_int64, _i32p, ctypes.c_int32, ctypes.c_int32, _i32p,
+        ctypes.c_int32, _i32p, _i32p, ctypes.c_void_p, _u8p, ctypes.c_int64,
+    ]
+
+    lib.stem_dec_create.restype = ctypes.c_void_p
+    lib.stem_dec_create.argtypes = [_u8p, ctypes.c_int64]
+    lib.stem_dec_destroy.restype = None
+    lib.stem_dec_destroy.argtypes = [ctypes.c_void_p]
+    lib.stem_dec_decode.restype = ctypes.c_int
+    lib.stem_dec_decode.argtypes = [
+        ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p, ctypes.c_int32,
+        ctypes.c_int32, _i32p, _i32p, _i32p,
+    ]
+    lib.stem_dec_decode_lut.restype = ctypes.c_int
+    lib.stem_dec_decode_lut.argtypes = [
+        ctypes.c_void_p, _i32p, ctypes.c_int64, _i32p, ctypes.c_int32,
+        ctypes.c_int32, _i32p, _i32p, ctypes.c_void_p, ctypes.c_void_p,
+        _i32p,
+    ]
+    lib.stem_dec_decode_runs.restype = ctypes.c_int
+    lib.stem_dec_decode_runs.argtypes = [
+        ctypes.c_void_p, _i32p, ctypes.c_int32, ctypes.c_int64, _i32p,
+        ctypes.c_int32, _i32p, _i32p, ctypes.c_void_p, ctypes.c_void_p, _i32p,
     ]
 
     lib.stem_build_dom.restype = None
@@ -197,6 +225,44 @@ def decode_with_indexes(data: bytes, indexes, cdfs, cdf_lengths, offsets,
     return out
 
 
+def encode_stream(symbols, indexes, cdfs, cdf_lengths, offsets,
+                  esym=None) -> bytes:
+    """Plain single-stream encode: the format a ``StreamDecoder`` reads, one
+    round or pixel after another (coders/__init__.py::encode_stream of the
+    JAX package)."""
+    return encode_with_indexes(symbols, indexes, cdfs, cdf_lengths, offsets,
+                               esym)
+
+
+def encode_runs_segmented(symbols, seg_counts, cdfs, cdf_lengths, offsets,
+                          esym=None) -> bytes:
+    """Encode per-segment grouped-by-row symbols as ONE plain stream (the
+    wavefront v2 format): ``seg_counts`` is (n_segs, levels); segment s holds
+    the next sum(seg_counts[s]) symbols, grouped by CDF row. The stream is
+    consumed incrementally by StreamDecoder.decode_runs, one call per
+    segment."""
+    symbols = _as_i32(symbols).reshape(-1)
+    seg_counts = _as_i32(seg_counts)
+    if seg_counts.ndim != 2:
+        raise ValueError("seg_counts must be (n_segs, levels)")
+    cdfs = _as_i32(cdfs)
+    lengths, offs = _as_i32(cdf_lengths), _as_i32(offsets)
+    n = symbols.shape[0]
+    cap = 4 * n + 1024
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        rc = _lib().stem_encode_runs_segmented(
+            symbols, n, seg_counts, seg_counts.shape[0], seg_counts.shape[1],
+            cdfs, cdfs.shape[1], lengths, offs, _esym_ptr(esym), out, cap,
+        )
+        if rc >= 0:
+            return out[:rc].tobytes()
+        if rc == -3:
+            raise ValueError("encode_runs_segmented: seg_counts must cover "
+                             "every symbol")
+        cap = -rc
+
+
 def encode_runs(symbols, counts, cdfs, cdf_lengths, offsets,
                 esym=None) -> bytes:
     """Encode grouped-by-CDF-row symbols; rows derive from the run-length
@@ -272,3 +338,67 @@ def expand_sparse(maskbits, values, n: int) -> np.ndarray:
     out = np.empty(n, dtype=np.int32)
     _lib().stem_expand_sparse(maskbits, values.ctypes.data, n, out)
     return out
+
+
+class StreamDecoder:
+    """Stateful decoder of one plain stream for autoregressive decode: each
+    call decodes the next symbols (set_stream/decode_stream parity,
+    rans_interface.cpp:277-350)."""
+
+    def __init__(self, data: bytes):
+        self._h = None
+        self._buf = np.frombuffer(data, dtype=np.uint8).copy()
+        self._h = _lib().stem_dec_create(self._buf, self._buf.shape[0])
+
+    def decode(self, indexes, cdfs, cdf_lengths, offsets, lut=None):
+        """The next len(indexes) symbols, each coded with its CDF row."""
+        indexes = _as_i32(indexes).reshape(-1)
+        cdfs = _as_i32(cdfs)
+        lengths, offs = _as_i32(cdf_lengths), _as_i32(offsets)
+        out = np.empty(indexes.shape[0], dtype=np.int32)
+        lut_ptr, dom_ptr = _lut_ptrs(lut)
+        if lut_ptr is not None:
+            rc = _lib().stem_dec_decode_lut(
+                self._h, indexes, indexes.shape[0], cdfs, cdfs.shape[0],
+                cdfs.shape[1], lengths, offs, lut_ptr, dom_ptr, out,
+            )
+        else:
+            rc = _lib().stem_dec_decode(
+                self._h, indexes, indexes.shape[0], cdfs, cdfs.shape[0],
+                cdfs.shape[1], lengths, offs, out,
+            )
+        if rc != 0:
+            raise ValueError(f"stream decode failed (rc={rc})")
+        return out
+
+    def decode_runs(self, counts, cdfs, cdf_lengths, offsets, lut=None):
+        """Decode the next segment of a runs-segmented stream: `counts`
+        (levels,) gives the per-CDF-row symbol counts in grouped order.
+        Returns int32 symbols (sum(counts),)."""
+        counts = _as_i32(counts).reshape(-1)
+        cdfs = _as_i32(cdfs)
+        lengths, offs = _as_i32(cdf_lengths), _as_i32(offsets)
+        n = int(counts.sum())
+        out = np.empty(n, dtype=np.int32)
+        lut_ptr, dom_ptr = _lut_ptrs(lut)
+        rc = _lib().stem_dec_decode_runs(
+            self._h, counts, counts.shape[0], n, cdfs, cdfs.shape[1],
+            lengths, offs, lut_ptr, dom_ptr, out,
+        )
+        if rc != 0:
+            raise ValueError(f"stream run decode failed (rc={rc})")
+        return out
+
+    def close(self):
+        if self._h is not None:
+            _lib().stem_dec_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+
+def make_stream_decoder(data: bytes) -> StreamDecoder:
+    """A StreamDecoder over a plain stream (``encode_stream`` or
+    ``encode_runs_segmented``)."""
+    return StreamDecoder(data)

@@ -4,7 +4,8 @@ A JAX tree is a nested dict of NumPy arrays as flax stores it (for example
 ``params["g_a"]["layers_0"]["kernel"]``); only tests import jax to produce
 one. Layout changes:
 
-  * Conv kernel HWIO → weight OIHW.
+  * Conv and MaskedConv2d kernel HWIO → weight OIHW (the masked conv's raw
+    kernel, as both packages keep it).
   * Deconv kernel: the JAX package stores the spatially flipped
     ConvTranspose2d weight as (kh, kw, in, out); unflip → (in, out, kh, kw).
   * GDN β/γ (sqrt space), entropy-bottleneck matrix/bias/factor/quantiles and
@@ -14,7 +15,7 @@ one. Layout changes:
 import numpy as np
 import torch
 
-from .layers import Conv, Deconv
+from .layers import Conv, Deconv, MaskedConv2d
 
 
 def invert_conv_weight(k: np.ndarray) -> np.ndarray:
@@ -52,7 +53,7 @@ def state_dict_from_jax(module: torch.nn.Module, tree) -> dict:
             sub = module.get_submodule(owner)
             if isinstance(sub, Deconv):
                 val = invert_deconv_weight(val)
-            elif isinstance(sub, Conv):
+            elif isinstance(sub, (Conv, MaskedConv2d)):
                 val = invert_conv_weight(val)
             else:
                 raise ValueError(f"kernel of a {type(sub).__name__} at {owner}")

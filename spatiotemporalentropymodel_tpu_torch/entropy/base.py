@@ -150,3 +150,29 @@ def bottleneck_indexes(shape, channels: int) -> np.ndarray:
     return np.broadcast_to(
         np.arange(c, dtype=np.int32)[None, None, None, :], (b, h, w, c)
     )
+
+
+def bottleneck_compress(z, tables: CodecTables, coder=None) -> List[bytes]:
+    """EB compress: symbols = round(z − median[c]) (entropy_models.py:461-464).
+    z is a host NHWC plane."""
+    z = np.asarray(z)
+    medians = tables.medians[None, None, None, :]
+    symbols = safe_symbols(z, medians)
+    idx = bottleneck_indexes(z.shape, z.shape[-1])
+    return compress(symbols, idx, tables, coder)
+
+
+def bottleneck_decompress(
+    strings: Sequence[bytes],
+    spatial_shape,
+    tables: CodecTables,
+    coder=None,
+    dtype=np.float32,
+) -> np.ndarray:
+    """EB decompress → ẑ = symbols + median[c] (entropy_models.py:466-470),
+    a host NHWC plane."""
+    h, w = spatial_shape
+    c = tables.rows
+    idx = bottleneck_indexes((len(strings), h, w, c), c)
+    symbols = decompress(strings, idx, tables, coder)
+    return (symbols + tables.medians[None, None, None, :]).astype(dtype)

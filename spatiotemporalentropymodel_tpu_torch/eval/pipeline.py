@@ -1,7 +1,9 @@
-"""P-frame serving pipeline: I-model transforms + STEM codec + host rANS.
+"""P-frame serving pipelines: I-model transforms + STEM codec + host rANS.
 
-Counterpart of spatiotemporalentropymodel_tpu/eval/pipeline.py::
-StemVideoPipeline, eager PyTorch on one device:
+Counterparts of spatiotemporalentropymodel_tpu/eval/pipeline.py::
+StemVideoPipeline (the parallel STEM variants) and WavefrontVideoPipeline
+(the SPM variants' AR codec, the flagship ``res``), eager PyTorch on one
+device. StemVideoPipeline:
 
   encode: g_a → HE → EB-quantize → entropy params → quantize_and_index →
           packed transport buffer (one D2H copy) → host rANS
@@ -31,6 +33,15 @@ def _shape4(y):
     """NCHW latent → the (b, h, w, m) shape the host side uses."""
     b, m, h, w = y.shape
     return (b, h, w, m)
+
+
+def _require_deterministic(stem):
+    cudnn = torch.backends.cudnn
+    if stem.device.type == "cuda" and not cudnn.deterministic:
+        # encoder and decoder must compute bit-identical (σ, μ) from ẑ;
+        # a nondeterministic cuDNN algorithm breaks the decode
+        raise RuntimeError("set torch.backends.cudnn.deterministic = True "
+                           "before serving on CUDA")
 
 
 class _Download:
@@ -68,14 +79,14 @@ class StemVideoPipeline:
     """
 
     def __init__(self, i_model, stem, transport_mode: str = "sparse"):
+        if stem.use_spm:
+            raise ValueError(
+                "StemVideoPipeline drives the parallel (non-SPM) codec path; "
+                "use WavefrontVideoPipeline for SPM variants"
+            )
         if transport_mode not in ("sparse", "dense"):
             raise ValueError(f"unknown transport {transport_mode!r}")
-        cudnn = torch.backends.cudnn
-        if stem.device.type == "cuda" and not cudnn.deterministic:
-            # encoder and decoder must compute bit-identical (σ, μ) from ẑ;
-            # a nondeterministic cuDNN algorithm breaks the decode
-            raise RuntimeError("set torch.backends.cudnn.deterministic = True "
-                               "before serving on CUDA")
+        _require_deterministic(stem)
         stem._require_tables()
         self.i_model = i_model
         self.stem = stem
@@ -310,3 +321,92 @@ class StemVideoPipeline:
         y_hat, x_hat = self._finish(_to_nchw(y_sym, self.stem.device), means,
                                     y_cond)
         return x_hat, y_hat
+
+
+class WavefrontVideoPipeline:
+    """Pipelined GOP server for the SPM variants' AR codec, the flagship
+    tiled ``res`` (eval/pipeline.py:463-563 of the JAX package).
+
+    Per P-frame: the model's wavefront encode (device rounds, then host
+    rANS), its decode (one device round and one host rANS call per stream a
+    round), then g_s of the decoded ŷ queued on the device, where the host
+    does not wait for it. ŷ is the recurrence carry (evalSTEM.py:144-153),
+    so x̂ never serializes the GOP on the host. g_s stays on the current
+    stream: on a side stream it served no more frames/s on the H100
+    (eval/gs_stream_ab.py).
+
+    Multi-stream serving: the batch axis is S independent GOP streams; the
+    rounds stack every stream's tiles along the tile-batch axis and host rANS
+    codes the streams one after another. Bitstreams are the model API's
+    ``compress`` (the pipeline calls it).
+
+    ``trace`` (optional): callable(event: str, frame: int) fired at
+    ``encode``/``decode_rounds``/``gs_dispatch`` boundaries.
+
+    On CUDA, encoder and decoder must compute bit-identical (σ, μ): set
+    ``torch.backends.cudnn.deterministic`` first.
+    """
+
+    def __init__(self, i_model, stem, trace=None):
+        if not stem.use_spm or stem.ar_mode != "wavefront":
+            raise ValueError(
+                "WavefrontVideoPipeline drives the wavefront-AR codec path; "
+                "use StemVideoPipeline for parallel (non-SPM) variants"
+            )
+        _require_deterministic(stem)
+        stem._require_tables()
+        self.i_model = i_model
+        self.stem = stem
+        self.trace = trace
+
+    def _trace(self, event: str, frame: int) -> None:
+        if self.trace is not None:
+            self.trace(event, frame)
+
+    # -- single-frame pieces ----------------------------------------------
+
+    def analysis(self, x):
+        """g_a only (I-frame conditioning bootstrap / encode side)."""
+        return self.i_model.analysis(x)
+
+    def synthesis_async(self, y_hat):
+        """g_s of ŷ, queued on the current stream; on the card it returns
+        before x̂ is computed, and whatever reads x̂ there waits for it."""
+        return self.i_model.get_x(y_hat)
+
+    def encode_frame(self, y_cur, y_cond) -> dict:
+        """The model API's wavefront encode. y_cur, y_cond: (S, M, h, w)
+        latents, S = streams."""
+        return self.stem.compress(y_cur, y_cond)
+
+    def decode_frame(self, enc: dict, y_cond):
+        """Wavefront decode; returns ŷ, the next frame's conditioning carry,
+        on the device."""
+        return self.stem.decompress(enc["strings"], tuple(enc["shape"]),
+                                    y_cond)["y_hat"]
+
+    # -- the pipelined GOP loop --------------------------------------------
+
+    def serve_latent(self, y_cur, y_cond, frame: int = 0):
+        """Codec round trip of one P-frame latent with the async-g_s
+        schedule. Returns (enc, ŷ, x̂), x̂ possibly still in flight."""
+        self._trace("encode", frame)
+        enc = self.encode_frame(y_cur, y_cond)
+        self._trace("decode_rounds", frame)
+        y_hat = self.decode_frame(enc, y_cond)
+        self._trace("gs_dispatch", frame)
+        return enc, y_hat, self.synthesis_async(y_hat)
+
+    def serve_gop(self, frames, y_cond, latents: bool = False):
+        """Serve a GOP of P-frames (pixels, or latents with latents=True)
+        through the pipelined loop. Returns (encs, x̂ per frame, final ŷ);
+        waits only for the last frame's x̂, the last work queued."""
+        encs, x_hats = [], []
+        for k, x in enumerate(frames):
+            y_cur = x if latents else self.analysis(x)
+            enc, y_cond, x_hat = self.serve_latent(y_cur, y_cond, frame=k)
+            encs.append(enc)
+            x_hats.append(x_hat)
+        if x_hats and y_cond.device.type == "cuda":
+            torch.cuda.current_stream(y_cond.device).synchronize()
+        return encs, x_hats, y_cond

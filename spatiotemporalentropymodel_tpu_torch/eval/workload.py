@@ -15,6 +15,10 @@ g_a weights would instead give a latent spread of a few units, where a
 converged model codes mostly zeros. The port's pipeline codes the real g_a,
 so its last conv is rescaled channel by channel until the latent on the
 given frame has the per-channel mean and standard deviation of that sampler.
+
+``wavefront_y_cur`` is the wavefront bench's latent (bench.py:669-672): the
+conditioning latent plus 0.2·ε, with g_a run on the pixel frame for its cost
+and kept live, so the rate point is controlled.
 """
 
 import numpy as np
@@ -26,9 +30,10 @@ from ..entropy.gaussian import SCALES_MAX, SCALES_MIN
 
 @torch.no_grad()
 def realistic_stem(stem, rng_seed: int = 7):
-    """Apply bench.py::realistic_stem's surgery to ``stem`` (a parallel
-    SpatioTemporalPriorModel), then rebuild its tables. Draws come from a
-    NumPy generator seeded like bench.py's, so both packages get the same
+    """Apply bench.py::realistic_stem's surgery to ``stem`` (a
+    SpatioTemporalPriorModel of any variant: every one has EPM.layers[4] and
+    HE.layers[4]), then rebuild its tables. Draws come from a NumPy
+    generator seeded like bench.py's, so both packages get the same
     weights."""
     rng = np.random.default_rng(rng_seed)
     epm_last = stem.module.EPM.layers[4]
@@ -81,3 +86,15 @@ def match_latent_to_prior(i_model, stem, x, y_cond) -> torch.Tensor:
     last.weight.mul_(factor.view(-1, 1, 1, 1).to(last.weight.dtype))
     last.bias.copy_(new_bias.to(last.bias.dtype))
     return factor
+
+
+@torch.no_grad()
+def wavefront_y_cur(i_model, x, y_cond, generator):
+    """bench.py::_build_wavefront_server's y_cur: y_cond + 0.2·ε, ε ~ N(0, 1)
+    drawn from ``generator`` on y_cond's device, plus 1e-30·mean(g_a(x)),
+    which keeps the analysis transform on the encode path at its real cost
+    without moving the latent."""
+    y_ga = i_model.analysis(x)
+    noise = torch.randn(y_cond.shape, generator=generator,
+                        device=y_cond.device, dtype=y_cond.dtype)
+    return y_cond + 0.2 * noise + 1e-30 * y_ga.float().mean()

@@ -25,6 +25,14 @@ def _kaiming_normal(shape, fan_in: int, generator=None):
     return torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)
 
 
+def _add_bias(out, bias):
+    """The bias added to the rounded conv output, in its dtype, as the JAX
+    package's Conv and Deconv add it (layers/conv.py there). At bf16 a bias
+    folded into the convolution's f32 sum (torch's CPU convs, cuBLAS's
+    epilogue) rounds once instead of twice, and gives other bits."""
+    return out + bias.to(out.dtype).view(-1, *(1,) * (out.dim() - 2))
+
+
 class Conv(nn.Module):
     """2-D convolution with symmetric torch-style padding (padding=k//2)."""
 
@@ -40,7 +48,8 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, self.stride, self.padding)
+        out = F.conv2d(x, self.weight, None, self.stride, self.padding)
+        return _add_bias(out, self.bias)
 
 
 class Deconv(nn.Module):
@@ -61,8 +70,29 @@ class Deconv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight, self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        out = F.conv_transpose2d(x, self.weight, None, self.stride,
+                                 self.padding, self.output_padding)
+        return _add_bias(out, self.bias)
+
+
+class LeakyReLU(nn.Module):
+    """leaky_relu with the slope rounded to the input's dtype: at bf16 the
+    JAX package multiplies by bf16(0.01), the weakly typed constant of
+    ``jax.nn.leaky_relu`` (layers/blocks.py there), where torch's own
+    LeakyReLU multiplies by the f32 slope. The product of two bf16 values
+    is exact in f32, so both round once, to the same bf16."""
+
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self._slopes = {}
+
+    def forward(self, x):
+        slope = self._slopes.get(x.dtype)
+        if slope is None:
+            slope = float(torch.tensor(self.negative_slope, dtype=x.dtype))
+            self._slopes[x.dtype] = slope
+        return F.leaky_relu(x, slope)
 
 
 def _k5s2(layer, cls) -> bool:

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..coders import get_coder
+from ..entropy import base as entropy_base
 from ..entropy import (
     get_scale_table,
     update_bottleneck_tables,
@@ -141,3 +142,22 @@ class CompressionModel:
     def _require_tables(self):
         if not self.tables:
             raise RuntimeError("Uninitialized CDFs. Run update() first")
+
+    # ---- EB coding helpers (host NumPy, NHWC planes) -------------------------
+
+    def _eb_compress(self, z, name="entropy_bottleneck"):
+        return entropy_base.bottleneck_compress(np.asarray(z),
+                                                self.tables[name], self.coder)
+
+    def _eb_decompress(self, strings, spatial_shape,
+                       name="entropy_bottleneck"):
+        return entropy_base.bottleneck_decompress(
+            strings, spatial_shape, self.tables[name], self.coder)
+
+    def _eb_quantize(self, z, name="entropy_bottleneck"):
+        """Encoder-side ẑ: decode(encode(z)) by construction, through the
+        coder's own saturated symbols, so the encoder's priors are the
+        decoder's."""
+        med = self.tables[name].medians[None, None, None, :]
+        symbols = entropy_base.safe_symbols(np.asarray(z), med)
+        return (symbols + med).astype(np.float32)

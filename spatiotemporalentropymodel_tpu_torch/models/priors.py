@@ -21,7 +21,7 @@ from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
-from ..layers import GDN, Conv, Deconv, Sequential
+from ..layers import GDN, Conv, Deconv, LeakyReLU, Sequential
 from ..ops import kernels
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
@@ -43,12 +43,12 @@ class MeanScaleHyperpriorModule(nn.Module):
             Deconv(n, 3, 5, 2, g),
         ])
         self.h_a = Sequential([
-            Conv(m, n, 3, 1, g), nn.LeakyReLU(0.01), Conv(n, n, 5, 2, g),
-            nn.LeakyReLU(0.01), Conv(n, n, 5, 2, g),
+            Conv(m, n, 3, 1, g), LeakyReLU(0.01), Conv(n, n, 5, 2, g),
+            LeakyReLU(0.01), Conv(n, n, 5, 2, g),
         ])
         self.h_s = Sequential([
-            Deconv(n, m, 5, 2, g), nn.LeakyReLU(0.01),
-            Deconv(m, m * 3 // 2, 5, 2, g), nn.LeakyReLU(0.01),
+            Deconv(n, m, 5, 2, g), LeakyReLU(0.01),
+            Deconv(m, m * 3 // 2, 5, 2, g), LeakyReLU(0.01),
             Conv(m * 3 // 2, m * 2, 3, 1, g),
         ])
         self.entropy_bottleneck = EntropyBottleneck(n, generator=g)

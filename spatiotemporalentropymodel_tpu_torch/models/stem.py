@@ -1,51 +1,75 @@
-"""STEM P-frame entropy model, ``without_spm`` variant, and its codec
-expressions.
+"""STEM — the Spatio-Temporal Entropy Model P-frame family, all five
+variants, and their codecs.
 
 Counterpart of spatiotemporalentropymodel_tpu/models/stem.py
-(compressai/models/spatiotemporalpriors.py) for the serving path's variant:
-no spatial prior, so every symbol is coded in parallel, and the EPM fuses the
-temporal and hyper priors (4M input channels).
+(compressai/models/spatiotemporalpriors.py): one parameterized module for
+
+  variant                    priors fused in EPM        EPM input  codec path
+  ---------------------------------------------------------------------------
+  without_spm_tpm            hyper                      2M         parallel
+  without_spm                TPM + hyper                4M         parallel
+  without_tpm                SPM + hyper                4M         AR
+  full                       TPM + hyper + SPM          6M         AR
+  res (flagship)             TPM + hyper + SPM on the   6M         AR
+                             residual y_cur − y_cond
 
   HE : k3s1(→256) + 2 × k5s2(→256/EB-ch) hyper-encoder over cat(y_cur, y_cond)
   HD : mirror transposed stack → 2M channels
   TPM: 3 × k5s1 (256→320→2M) temporal prior on y_cond
-  EPM: 1×1 stack (in→768→576→2M) fusing the priors → (σ, μ)
+  SPM: MaskedConv2d(M→2M, k5) spatial context
+  EPM: 1×1 stack (in→768→576→2M) fusing [TPM, HD, ctx] → (σ, μ)
 
 Tensors are NCHW on the device. Wherever symbols leave the device they are
-in the JAX package's NHWC order, so the packed buffers and the bitstreams
-are the JAX package's byte for byte. At a bf16 compute dtype the nets run in
-bf16 and the codec math in f32, with the JAX package's casts
-(models/stem.py:254-258, 291-539 there): z goes to f32 before quantizing,
-the encoder's quantizer upcasts bf16 y, σ and μ in registers (exact, as
-the JAX package's casts to f32), the target and the ŷ carry are f32, and ẑ
-and y_cond are cast for HE, HD, TPM and EPM. The SPM variants (wavefront AR
-codec) and ``without_spm_tpm`` wait for later slices.
+in the JAX package's order, so the bitstreams are the JAX package's byte for
+byte. The parallel variants code every symbol at once (the fused codec
+expressions below); the SPM variants code autoregressively, by wavefront
+rounds (``ar_mode="wavefront"``, optionally tiled) or pixel by pixel in
+raster order (``"serial"``, the reference's order), with ẑ coded on the host
+and host rANS per round (models/ar_wavefront.py).
+
+At a bf16 compute dtype the nets run in bf16 and the codec math in f32, with
+the JAX package's casts (models/stem.py:254-258, 291-778 there): the
+parallel encoder quantizes bf16 (y, σ, μ) upcast exactly; on the AR path the
+priors, the context taps and EPM are bf16, the masked conv's centre is
+rounded to bf16 before its bias is added, σ meets the scale table cast to
+bf16, and the symbols, the context plane and the ŷ carry are f32.
 """
 
+import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..entropy import EntropyBottleneck, build_indexes
 from ..entropy import base as entropy_base
 from ..entropy.transport import sparse_capacity
-from ..layers import Conv, Deconv, Sequential
+from ..layers import Conv, Deconv, LeakyReLU, MaskedConv2d, Sequential
 from ..ops import kernels
+from . import ar_wavefront as wf
 from .base import (
     CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
 )
 
+STEM_VARIANTS = ("without_spm_tpm", "without_spm", "without_tpm", "full",
+                 "res")
+
 
 class STEMModule(nn.Module):
-    """The without_spm variant's layers (spatiotemporalpriors.py:43-65)."""
+    """One parameterized module covering the five reference variants
+    (spatiotemporalpriors.py:43-65, 142-171, 523-556)."""
 
-    def __init__(self, entropy_bottleneck_channels: int = 256,
+    def __init__(self, variant: str = "res",
+                 entropy_bottleneck_channels: int = 256,
                  in_channels: int = 192, generator=None):
         super().__init__()
+        if variant not in STEM_VARIANTS:
+            raise ValueError(f"unknown STEM variant: {variant!r}")
+        self.variant = variant
         m, ebc, g = in_channels, entropy_bottleneck_channels, generator
-        lrelu = nn.LeakyReLU(0.01)  # torch default slope, as the reference
+        lrelu = LeakyReLU(0.01)  # torch default slope, as the reference
         self.HE = Sequential([
             Conv(2 * m, 256, 3, 1, g), lrelu, Conv(256, 256, 5, 2, g), lrelu,
             Conv(256, ebc, 5, 2, g),
@@ -54,45 +78,130 @@ class STEMModule(nn.Module):
             Deconv(ebc, 256, 5, 2, g), lrelu, Deconv(256, 256, 5, 2, g),
             lrelu, Conv(256, 2 * m, 3, 1, g),
         ])
-        self.TPM = Sequential([
-            Conv(m, 256, 5, 1, g), lrelu, Conv(256, 320, 5, 1, g), lrelu,
-            Conv(320, 2 * m, 5, 1, g),
-        ])
+        if self.use_tpm:
+            self.TPM = Sequential([
+                Conv(m, 256, 5, 1, g), lrelu, Conv(256, 320, 5, 1, g), lrelu,
+                Conv(320, 2 * m, 5, 1, g),
+            ])
+        if self.use_spm:
+            self.context_prediction = MaskedConv2d(m, 2 * m, 5, "A", g)
+        n_priors = 1 + int(self.use_tpm) + int(self.use_spm)
         self.EPM = Sequential([
-            Conv(4 * m, 768, 1, 1, g), lrelu,
+            Conv(2 * m * n_priors, 768, 1, 1, g), lrelu,
             Conv(768, 576, 1, 1, g), lrelu, Conv(576, 2 * m, 1, 1, g),
         ])
         self.entropy_bottleneck = EntropyBottleneck(ebc, generator=g)
 
+    @property
+    def use_tpm(self) -> bool:
+        return self.variant in ("without_spm", "full", "res")
+
+    @property
+    def use_spm(self) -> bool:
+        return self.variant in ("without_tpm", "full", "res")
+
+    @property
+    def residual(self) -> bool:
+        return self.variant == "res"
+
     def hyper_encode(self, y_cur, y_conditioned):
         return self.HE(torch.cat([y_cur, y_conditioned], dim=1))
 
+    def prior_feats(self, z_hat, y_conditioned):
+        """The hyper (+ temporal) priors, cat([TPM(y_cond), HD(ẑ)]):
+        (B, 2M·k, H, W)."""
+        feats = [self.HD(z_hat)]
+        if self.use_tpm:
+            feats.insert(0, self.TPM(y_conditioned))
+        return torch.cat(feats, dim=1)
+
     def entropy_params(self, z_hat, y_conditioned):
-        """(σ, μ) from the temporal and hyper priors."""
-        feats = torch.cat([self.TPM(y_conditioned), self.HD(z_hat)], dim=1)
-        scales, means = self.EPM(feats).chunk(2, dim=1)
+        """Parallel-variant (σ, μ) from the priors."""
+        scales, means = self.EPM(self.prior_feats(z_hat, y_conditioned)).chunk(
+            2, dim=1)
         return scales, means
+
+    def ar_step(self, taps, prior_vec):
+        """One AR pixel per row: the masked 5×5 context at the crop centre
+        from its causal taps (N, 12·M) (``MaskedConv2d.causal_taps``), then
+        the 1×1 EPM on cat([prior row (N, P), ctx]) → (σ, μ), each (N, M).
+        The same function as the JAX package's ar_step on the whole crop."""
+        ctx = self.context_prediction.center(taps)
+        gp = self._epm_rows(torch.cat([prior_vec, ctx], dim=1))
+        scales, means = gp.chunk(2, dim=1)
+        return scales, means
+
+    def _epm_rows(self, x):
+        """EPM's 1×1 convs as products over (N, C) rows, each rounded to
+        the rows' dtype before its bias is added, as ``Conv`` does."""
+        for layer in self.EPM.layers:
+            if isinstance(layer, Conv):
+                x = F.linear(x, layer.weight.flatten(1)) + layer.bias
+            else:
+                x = layer(x)
+        return x
 
 
 class SpatioTemporalPriorModel(CompressionModel):
-    """Host wrapper with the reference's compress/decompress API plus the
-    fused codec expressions the serving pipeline composes:
+    """Host wrapper with the reference's compress/decompress API:
 
       compress(y_cur, y_conditioned) -> {"strings": [y, z], "shape"}
       decompress(strings, shape, y_conditioned) -> {"y_hat": ...}
+
+    plus, for the parallel variants, the fused codec expressions the serving
+    pipeline composes.
+
+    ar_mode (SPM variants only): "wavefront" — anti-diagonal rounds, one
+    host rANS call per round and stream (the fast format); "serial" — the
+    reference's raster order, one pixel per round.
+
+    wavefront_tile: optional (th, tw). Tiles the latent into th×tw blocks
+    whose SPM context resets at tile borders; every tile advances in the
+    same round, so decode needs 3(th−1)+tw rounds instead of 3(H−1)+W.
+    Hyper/temporal priors stay global. Latent dims must be divisible by the
+    tile.
     """
 
     has_gaussian = True
     _I16_LIM = 32767.0
     _I8_LIM = 127
 
-    def __init__(self, entropy_bottleneck_channels: int = 256,
-                 in_channels: int = 192, device="cuda", seed: int = 0):
+    def __init__(self, variant: str = "res",
+                 entropy_bottleneck_channels: int = 256,
+                 in_channels: int = 192, ar_mode: str = "wavefront",
+                 wavefront_tile=None, device="cuda", seed: int = 0):
+        if ar_mode not in ("wavefront", "serial"):
+            raise ValueError(f"unknown ar_mode {ar_mode!r}")
         gen = torch.Generator().manual_seed(seed)
         super().__init__(
-            STEMModule(entropy_bottleneck_channels, in_channels, gen), device
+            STEMModule(variant, entropy_bottleneck_channels, in_channels,
+                       gen), device
         )
+        self.variant = variant
         self.in_channels = in_channels
+        self.ar_mode = ar_mode
+        self.wavefront_tile = (
+            tuple(int(v) for v in wavefront_tile) if wavefront_tile else None
+        )
+        self._rounds_cache = {}
+        # wavefront stream symbol order: "lane" (v1, per-symbol indexed
+        # coding) or "grouped" (v2, per-round grouped-by-CDF-row run coding);
+        # not bitstream compatible with each other
+        self.wavefront_format = "auto"
+        # observability hook: set to a dict and the AR codec paths add the
+        # seconds of each stage (synchronising the device at each boundary)
+        # and the decode rounds under "hyper_s", "priors_s", "enc_device_s",
+        # "enc_fetch_bytes", "enc_host_s", "device_s", "host_rans_s",
+        # "rounds"
+        self._codec_stats = None
+
+    @property
+    def use_spm(self) -> bool:
+        return self.module.use_spm
+
+    @property
+    def residual(self) -> bool:
+        return self.module.residual
 
     @property
     def levels(self) -> int:
@@ -147,10 +256,9 @@ class SpatioTemporalPriorModel(CompressionModel):
         idx = build_indexes(scales, self._scale_table)
         return means, idx.to(torch.uint8)
 
-    @staticmethod
-    def fused_reconstruct_expr(y_sym, means, y_cond):
-        del y_cond  # the residual variant (flagship slice) adds it back
-        return y_sym.float() + means
+    def fused_reconstruct_expr(self, y_sym, means, y_cond):
+        target_hat = y_sym.float() + means
+        return target_hat + y_cond if self.residual else target_hat
 
     # ---- sparse-grouped transport ------------------------------------------
     #
@@ -228,15 +336,13 @@ class SpatioTemporalPriorModel(CompressionModel):
         idx_flat = _nhwc_flat(idx, idx.shape[0]).long()
         return torch.argsort(idx_flat, dim=1, stable=True), means
 
-    @staticmethod
     @torch.no_grad()
-    def fused_reconstruct_sparse_expr(maskbits, values, order, means,
+    def fused_reconstruct_sparse_expr(self, maskbits, values, order, means,
                                       y_cond):
         """(bitmask u8, compacted values i8, order, means NCHW) → ŷ NCHW.
 
         Unpack bits → gather the compacted values through the mask's prefix
         sum → scatter back to spatial (NHWC-flat) order through ``order``."""
-        del y_cond  # the residual variant (flagship slice) adds it back
         b, m, h, w = means.shape
         n = m * h * w
         cap = values.shape[1]
@@ -249,7 +355,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         y_flat.scatter_(1, order, y_sorted.to(torch.int32))
         # canonical NCHW, like the encoder's ŷ, which is the next frame's TPM
         # input and g_s's (see _nchw)
-        return _nchw(y_flat.view(b, h, w, m).permute(0, 3, 1, 2)) + means
+        target_hat = _nchw(y_flat.view(b, h, w, m).permute(0, 3, 1, 2)) + means
+        return target_hat + y_cond if self.residual else target_hat
 
     # ---- model API (dense order, the reference's CHW streams) --------------
 
@@ -258,6 +365,10 @@ class SpatioTemporalPriorModel(CompressionModel):
 
     def compress(self, y_cur, y_conditioned) -> Dict[str, Any]:
         self._require_tables()
+        if self.use_spm:
+            z_strings, z_hat = self._code_z(y_cur, y_conditioned)
+            return self._compress_wavefront(y_cur, y_conditioned, z_hat,
+                                            z_strings)
         b, m, hgt, wid = y_cur.shape
         zh, zw = self._zshape(hgt, wid)
         zt = self.tables["entropy_bottleneck"]
@@ -279,6 +390,11 @@ class SpatioTemporalPriorModel(CompressionModel):
         if not (isinstance(strings, list) and len(strings) == 2):
             raise ValueError("strings must be [y_strings, z_strings]")
         self._require_tables()
+        if self.use_spm:
+            t0 = time.perf_counter()
+            z_hat = self._upload(self._eb_decompress(strings[1], shape))
+            self._lap("hyper_s", t0)
+            return self._decompress_wavefront(strings, z_hat, y_conditioned)
         zt = self.tables["entropy_bottleneck"]
         z_idx = entropy_base.bottleneck_indexes(
             (len(strings[1]), *shape, zt.rows), zt.rows)
@@ -293,3 +409,225 @@ class SpatioTemporalPriorModel(CompressionModel):
         y_hat = self.fused_reconstruct_expr(
             _to_nchw(y_sym, self.device), means, y_conditioned)
         return {"y_hat": y_hat}
+
+    # ---- AR codec paths (SPM variants) -------------------------------------
+    #
+    # ẑ is coded on the host (entropy-bottleneck NumPy helpers) and uploaded
+    # with the canonical NCHW strides on both sides, so TPM and HD run the
+    # same cuDNN algorithms and the priors agree bit for bit. The AR planes
+    # are NHWC tile batches (models/ar_wavefront.py). The serial mode (the
+    # reference's raster order, spatiotemporalpriors.py:633-768) runs the
+    # same round steps on a schedule of one pixel per round, untiled and in
+    # the lane format; the JAX package's serial path differs only in not
+    # saturating symbols at int16.
+
+    def _lap(self, key: str, t0: float) -> float:
+        """With ``_codec_stats`` set: synchronise the device, add the
+        seconds since t0 under ``key`` and return the clock; else 0."""
+        st = self._codec_stats
+        if st is None:
+            return 0.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        st[key] = st.get(key, 0.0) + (t - t0)
+        return t
+
+    def _upload(self, plane_nhwc: np.ndarray):
+        """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
+        t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.float32))
+        return _nchw(t.to(self.device).permute(0, 3, 1, 2))
+
+    @torch.no_grad()
+    def _code_z(self, y_cur, y_conditioned):
+        """HE, then ẑ's strings and the encoder's ẑ (the decoder's, by
+        construction) on the device."""
+        t0 = time.perf_counter()
+        z = self.module.hyper_encode(self._cast(y_cur),
+                                     self._cast(y_conditioned))
+        z_np = z.float().permute(0, 2, 3, 1).cpu().numpy()
+        z_strings = self._eb_compress(z_np)
+        z_hat = self._upload(self._eb_quantize(z_np))
+        self._lap("hyper_s", t0)
+        return z_strings, z_hat
+
+    def _wf_format(self) -> str:
+        return wf.wire_format(self.wavefront_format)
+
+    def _tile_dims(self, hgt: int, wid: int):
+        """(th, tw, nt) for the configured wavefront tiling (nt=1 untiled)."""
+        if not self.wavefront_tile:
+            return hgt, wid, 1
+        th, tw = self.wavefront_tile
+        # every round must be non-empty: round t covers coords with
+        # 3r + c == t, c < tw. For th > 1 that needs tw >= 3 (else e.g.
+        # (2, 2) leaves t = 2 empty); single-row tiles have t = c, so every
+        # tw >= 1 works
+        if th < 1 or tw < 1 or (th > 1 and tw < 3):
+            raise ValueError(
+                f"wavefront_tile needs th >= 1 and (tw >= 3 or th == 1), "
+                f"got ({th}, {tw})"
+            )
+        if hgt % th or wid % tw:
+            raise ValueError(
+                f"latent {hgt}x{wid} not divisible by wavefront_tile "
+                f"({th}, {tw})"
+            )
+        return th, tw, (hgt // th) * (wid // tw)
+
+    def _ar_step(self, taps, prior_vec):
+        return self.module.ar_step(self._cast_in(taps),
+                                   self._cast_in(prior_vec))
+
+    def _wavefront_setup(self, h: int, w: int, serial: bool = False):
+        """(coords, valid, rounds, encoder, params_step, write_step) of an
+        h×w plane (a tile): wavefront order, or raster
+        order when ``serial``. The device rounds are cached; the steps read
+        the model's current weights and tables."""
+        key = (h, w, serial)
+        if key not in self._rounds_cache:
+            coords, valid = (wf.raster_tables(h, w) if serial
+                             else wf.wavefront_tables(h, w))
+            rounds = wf.device_rounds(coords, valid,
+                                      self.module.context_prediction.taps,
+                                      self.device)
+            self._rounds_cache[key] = (coords, valid, rounds)
+        table = self._scale_table
+        encoder = wf.make_wavefront_encoder(self._ar_step, table)
+        steps = wf.make_wavefront_decode_step(self._ar_step, table)
+        return (*self._rounds_cache[key], encoder, *steps)
+
+    def _ar_dims(self, hgt: int, wid: int):
+        """(th, tw, nt, serial) of the configured AR mode."""
+        if self.ar_mode == "serial":
+            return hgt, wid, 1, True
+        return (*self._tile_dims(hgt, wid), False)
+
+    def _tiled_priors(self, z_hat, y_conditioned, th, tw, nt):
+        """prior_feats as the NHWC tile batch (B·nt, th, tw, P)."""
+        t0 = time.perf_counter()
+        priors = self.module.prior_feats(
+            self._cast(z_hat), self._cast(y_conditioned)).permute(0, 2, 3, 1)
+        if nt > 1:
+            priors = wf.tile_plane(priors, th, tw)
+        self._lap("priors_s", t0)
+        return priors
+
+    @torch.no_grad()
+    def _compress_wavefront(self, y_cur, y_conditioned, z_hat, z_strings):
+        b, m, hgt, wid = y_cur.shape
+        th, tw, nt, serial = self._ar_dims(hgt, wid)
+        priors = self._tiled_priors(z_hat, y_conditioned, th, tw, nt)
+        # the residual target by type promotion: f32 against an f32 carry
+        target = y_cur - y_conditioned if self.residual else y_cur
+        target = target.permute(0, 2, 3, 1)
+        if nt > 1:
+            target = wf.tile_plane(target, th, tw)
+        coords, valid, rounds, encoder, *_ = self._wavefront_setup(
+            th, tw, serial)
+        t0 = time.perf_counter()
+        syms, idxs, _ = encoder(target, priors, rounds)
+        if nt > 1:
+            flat = [wf.flatten_wavefront_grouped(p, coords, valid, b)
+                    for p in (syms, idxs)]
+        else:  # the same order in one gather instead of one per round
+            flat = [wf.flatten_wavefront(p, coords, valid)
+                    for p in (syms, idxs)]
+        sym_flat, idx_flat = (p.cpu().numpy() for p in flat)
+        t1 = self._lap("enc_device_s", t0)
+        st = self._codec_stats
+        if st is not None:
+            st["enc_fetch_bytes"] = (st.get("enc_fetch_bytes", 0)
+                                     + sym_flat.nbytes + idx_flat.nbytes)
+        t = self.tables["gaussian_conditional"]
+        esym = entropy_base.get_enc_table(t, self.coder)
+        if not serial and self._wf_format() == "grouped":
+            sizes = wf.round_sizes(valid, nt, m)
+            levels = t.cdf.shape[0]
+            y_strings = []
+            for i in range(b):
+                sym_g, seg_counts = wf.group_round_symbols(
+                    sym_flat[i], idx_flat[i], sizes, levels)
+                y_strings.append(self.coder.encode_runs_segmented(
+                    sym_g, seg_counts, t.cdf, t.cdf_length, t.offset,
+                    esym=esym))
+        else:
+            y_strings = [
+                self.coder.encode_stream(sym_flat[i], idx_flat[i], t.cdf,
+                                         t.cdf_length, t.offset, esym=esym)
+                for i in range(b)
+            ]
+        self._lap("enc_host_s", t1)
+        return {"strings": [y_strings, z_strings],
+                "shape": tuple(z_hat.shape[2:4])}
+
+    @torch.no_grad()
+    def _decompress_wavefront(self, strings, z_hat, y_conditioned):
+        b = z_hat.shape[0]
+        hgt, wid = z_hat.shape[2] * 4, z_hat.shape[3] * 4
+        m = self.in_channels
+        t = self.tables["gaussian_conditional"]
+        th, tw, nt, serial = self._ar_dims(hgt, wid)
+        priors = self._tiled_priors(z_hat, y_conditioned, th, tw, nt)
+        _, _, rounds, _, params_step, write_step = self._wavefront_setup(
+            th, tw, serial)
+        grouped = not serial and self._wf_format() == "grouped"
+        decoders = [self.coder.make_stream_decoder(s) for s in strings[0]]
+        lut = entropy_base.get_lut(t, self.coder)
+        plane = torch.zeros((b * nt, th + 4, tw + 4, m), dtype=torch.float32,
+                            device=self.device)
+        # round t's write and round t+1's parameters back to back: one
+        # blocking u8 index fetch per round
+        st = self._codec_stats
+        t0 = time.perf_counter()
+        means, idx = params_step(plane, priors, rounds[0])
+        for k, rnd in enumerate(rounds):
+            idx_np = idx.view(b, -1).cpu().numpy()
+            t1 = self._lap("device_s", t0)
+            sym = np.empty(idx_np.shape, np.int32)
+            for i in range(b):
+                if grouped:
+                    sym[i] = wf.decode_round_grouped(decoders[i], idx_np[i],
+                                                     t, lut=lut)
+                else:
+                    sym[i] = decoders[i].decode(idx_np[i], t.cdf,
+                                                t.cdf_length, t.offset,
+                                                lut=lut)
+            t0 = self._lap("host_rans_s", t1)
+            if st is not None:
+                st["rounds"] = st.get("rounds", 0) + 1
+            sym_dev = torch.from_numpy(sym).to(self.device).view(-1, m)
+            plane = write_step(plane, rnd, sym_dev, means)
+            if k + 1 < len(rounds):
+                means, idx = params_step(plane, priors, rounds[k + 1])
+        target_hat = plane[:, 2:-2, 2:-2, :]
+        if nt > 1:
+            target_hat = wf.untile_plane(target_hat, b, hgt, wid)
+        y_hat = _nchw(target_hat.permute(0, 3, 1, 2))
+        if self.residual:
+            y_hat = _nchw(y_hat + y_conditioned)
+        self._lap("device_s", t0)
+        return {"y_hat": y_hat}
+
+
+# ---- reference-named constructors (README/zoo parity) ----------------------
+
+
+def SpatioTemporalPriorModelWithoutSPMTPM(**kw):
+    return SpatioTemporalPriorModel(variant="without_spm_tpm", **kw)
+
+
+def SpatioTemporalPriorModelWithoutSPM(**kw):
+    return SpatioTemporalPriorModel(variant="without_spm", **kw)
+
+
+def SpatioTemporalPriorModelWithoutTPM(**kw):
+    return SpatioTemporalPriorModel(variant="without_tpm", **kw)
+
+
+def SpatioTemporalPriorModelFull(**kw):
+    return SpatioTemporalPriorModel(variant="full", **kw)
+
+
+def SpatioTemporalPriorModel_Res(**kw):
+    return SpatioTemporalPriorModel(variant="res", **kw)

@@ -26,15 +26,19 @@ import torch.nn.functional as F
 from spatiotemporalentropymodel_tpu_torch.entropy import get_scale_table
 from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
     StemVideoPipeline,
+    WavefrontVideoPipeline,
 )
 from spatiotemporalentropymodel_tpu_torch.eval.workload import (
     match_latent_to_prior,
     realistic_stem,
+    wavefront_y_cur,
 )
 from spatiotemporalentropymodel_tpu_torch.models import (
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
 )
+from spatiotemporalentropymodel_tpu_torch.models import ar_wavefront as wf
+from spatiotemporalentropymodel_tpu_torch.models.base import _nchw
 from spatiotemporalentropymodel_tpu_torch.ops import kernels
 
 
@@ -604,7 +608,9 @@ def _cuda_slice(device, seed=0):
     y_cond = torch.from_numpy((0.5 * rng.standard_normal((2, 64, 4, 4)))
                               .astype(np.float32)).to(device)
     imodel = MeanScaleHyperprior(64, 64, device=device, seed=0)
-    stem = SpatioTemporalPriorModel(32, 64, device=device, seed=1)
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=32,
+                                    in_channels=64, device=device, seed=1)
     realistic_stem(stem)
     match_latent_to_prior(imodel, stem, frames[0], y_cond)
     imodel.update()
@@ -663,3 +669,81 @@ def test_cuda_bf16_slice_matches_plain_versions(cuda, knob_set, monkeypatch):
         assert float((dy > 1e-4).float().mean()) <= 1e-3
         assert float(dy.max()) <= 1 + 1e-4
     np.testing.assert_allclose(bpp, ref_bpp, rtol=2e-2)
+
+
+def _res_slice(device, seed=0):
+    """The small bf16 flagship: STEM res (EB 32, M = 64) with wavefront tile
+    (1, 4) and MeanScaleHyperprior(64, 64), 2 × 64 × 64 frames."""
+    rng = np.random.default_rng(seed)
+    frames = [torch.from_numpy(rng.random((2, 3, 64, 64), dtype=np.float32))
+              .to(device) for _ in range(3)]
+    y_cond = torch.from_numpy((0.5 * rng.standard_normal((2, 64, 4, 4)))
+                              .astype(np.float32)).to(device)
+    imodel = MeanScaleHyperprior(64, 64, device=device, seed=0)
+    stem = SpatioTemporalPriorModel(variant="res",
+                                    entropy_bottleneck_channels=32,
+                                    in_channels=64, wavefront_tile=(1, 4),
+                                    device=device, seed=1)
+    realistic_stem(stem)
+    imodel.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    return WavefrontVideoPipeline(imodel, stem), frames, y_cond
+
+
+@torch.no_grad()
+def _encoder_recon(stem, enc, y_cur, y_cond):
+    """The wavefront encoder's reconstruction + y_cond over the priors of
+    the decoder's ẑ (JAX tests/test_stem.py:141-166)."""
+    b, _, h, w = y_cur.shape
+    th, tw, nt = stem._tile_dims(h, w)
+    z_hat = stem._upload(stem._eb_decompress(enc["strings"][1],
+                                             enc["shape"]))
+    priors = stem._tiled_priors(z_hat, y_cond, th, tw, nt)
+    target = wf.tile_plane((y_cur - y_cond).permute(0, 2, 3, 1), th, tw)
+    _, _, rounds, encoder, *_ = stem._wavefront_setup(th, tw)
+    recon = wf.untile_plane(encoder(target, priors, rounds)[2], b, h, w)
+    return _nchw(recon.permute(0, 3, 1, 2)) + y_cond
+
+
+def _run_res(pipe, frames, y_cond):
+    """serve_latent over the frames (y_cur from each frame's g_a, as the
+    bench draws it); the encoder's reconstruction must be the decoder's ŷ
+    bit for bit on every frame. Returns [(x̂, ŷ)], bytes per frame."""
+    gen = torch.Generator(device=y_cond.device).manual_seed(13)
+    dec, nbytes = [], []
+    for k, x in enumerate(frames):
+        y_cur = wavefront_y_cur(pipe.i_model, x, y_cond, gen)
+        enc, y_hat, x_hat = pipe.serve_latent(y_cur, y_cond, frame=k)
+        assert torch.equal(_encoder_recon(pipe.stem, enc, y_cur, y_cond),
+                           y_hat)
+        dec.append((x_hat, y_hat))
+        nbytes.append(sum(len(s) for g in enc["strings"] for s in g))
+        y_cond = y_hat
+    return dec, nbytes
+
+
+@pytest.mark.cuda
+def test_cuda_res_wavefront_matches_plain_versions(cuda, monkeypatch):
+    """The small bf16 res wavefront pipeline through the kernels (g_a's
+    gdn_conv_fused, g_s's gdn_fused and packed pair)
+    against the same pipeline through their plain versions, to
+    test_cuda_bf16_slice_matches_plain_versions's criteria, with encoder ŷ
+    == decoder ŷ exactly in both."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    pipe, frames, y_cond = _res_slice(cuda)
+    n0 = sum(kernels.LAUNCHES.values())
+    dec, nbytes = _run_res(pipe, frames, y_cond)
+    assert sum(kernels.LAUNCHES.values()) > n0
+    _plain_wrappers(monkeypatch)
+    n1 = sum(kernels.LAUNCHES.values())
+    ref, ref_bytes = _run_res(pipe, frames, y_cond)
+    assert sum(kernels.LAUNCHES.values()) == n1
+    for (x_hat, y_hat), (x_ref, y_ref) in zip(dec, ref):
+        assert x_hat.dtype == torch.bfloat16
+        dx = (x_hat.float() - x_ref.float()).abs()
+        assert float(dx.max()) <= 6e-2 and float(dx.mean()) <= 2e-3
+        dy = (y_hat - y_ref).abs()
+        assert float((dy > 1e-4).float().mean()) <= 1e-3
+        assert float(dy.max()) <= 1 + 1e-4
+    np.testing.assert_allclose(nbytes, ref_bytes, rtol=2e-2)

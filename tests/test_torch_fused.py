@@ -287,7 +287,9 @@ def test_set_compute_dtype_casts_floating_parameters_only():
     )
 
     m = MeanScaleHyperprior(8, 12, device="cpu")
-    stem = SpatioTemporalPriorModel(16, 12, device="cpu")
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=16,
+                                    in_channels=12, device="cpu")
     stem.update()
     tables = {k: np.array(v.cdf) for k, v in stem.tables.items()}
     for model in (m, stem):

@@ -217,7 +217,9 @@ def test_encoders_hand_net_outputs_to_the_quantizer(dtype, monkeypatch):
     torch.manual_seed(0)
     want = dtype or torch.float32
     imodel = MeanScaleHyperprior(32, 32, device="cpu", seed=0)
-    stem = SpatioTemporalPriorModel(32, 32, device="cpu", seed=1)
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=32,
+                                    in_channels=32, device="cpu", seed=1)
     imodel.update()
     stem.update()
     imodel.set_compute_dtype(dtype)

@@ -15,7 +15,9 @@ from spatiotemporalentropymodel_tpu_torch.eval.workload import (
     match_latent_to_prior,
     realistic_stem,
 )
-from spatiotemporalentropymodel_tpu_torch.layers import Conv, Deconv
+from spatiotemporalentropymodel_tpu_torch.layers import (
+    Conv, Deconv, MaskedConv2d,
+)
 from spatiotemporalentropymodel_tpu_torch.models import (
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
@@ -56,7 +58,7 @@ def export_jax_tree(module: torch.nn.Module) -> dict:
             sub = module.get_submodule(".".join(owner))
             if isinstance(sub, Deconv):  # (I, O, kh, kw) → flipped HWIO
                 val = np.transpose(val, (2, 3, 0, 1))[::-1, ::-1]
-            elif isinstance(sub, Conv):
+            elif isinstance(sub, (Conv, MaskedConv2d)):
                 val = np.transpose(val, (2, 3, 1, 0))
             leaf = "kernel"
         keys, i = [], 0
@@ -104,7 +106,9 @@ def build_slice(seed: int = 0, surgery: bool = True):
     jax_stem.init(d, d)
 
     port_i = MeanScaleHyperprior(N, M, device="cpu")
-    port_stem = SpatioTemporalPriorModel(EBC, M, device="cpu")
+    port_stem = SpatioTemporalPriorModel(
+        variant="without_spm", entropy_bottleneck_channels=EBC, in_channels=M,
+        device="cpu")
     load_jax_params(port_i.module, jax_tree_numpy(jax_i.params))
     load_jax_params(port_stem.module, jax_tree_numpy(jax_stem.params))
     port_stem.update()
