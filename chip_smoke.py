@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's serving paths: the P-frame path
 in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
-I-frame codec, and the flagship STEM res through WavefrontVideoPipeline.
+I-frame codec, the flagship STEM res through WavefrontVideoPipeline, and
+the trained hero models (artifacts/trained/hero) read with jax blocked.
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
+Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
 
   1. device   — fail without CUDA; print the card's name and power limit; pin
                 f32 numerics (no TF32) and deterministic cuDNN, so encoder
@@ -34,6 +35,11 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 cores and the tensor cores (fused_bound); gdn_conv_fused
                 and the g_s rows also time the unfused pair of library
                 calls (pair_ms: the norm's torch.addmm, then the bf16 conv).
+                Then the hero I-model's widths (N = 128, M = 192, B = 1),
+                rows of their own: gdn_conv_fused 128→128 at 544×960 and
+                272×480 and 128→192 at 136×240, gdn_fused_bf16 at 128,
+                igdn_deconv_wide_packed at 128 and igdn_deconv_tail_packed
+                at 128→3.
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
                 then StemVideoPipeline(sparse) encodes 3 P-frames of
@@ -66,10 +72,34 @@ Needs one CUDA card, nvcc and g++; imports no JAX. Phases:
                 streams, x̂ must be finite bf16 of the frames' shape and bpp
                 in (0.15, 0.30). With it the serial AR codec runs on a small
                 f32 res model (M = 32) at a 4×8 latent: its symbols decode
-                and its ŷ is the untiled wavefront's within 1e-4. On every
-                path each kernel must have launched exactly as often as the
-                path calls it.
-  5. report   — one JSON line of kernels, then the card, then the result line.
+                and its ŷ is the untiled wavefront's within 1e-4.
+                batch_invariance: each of the 4 streams of frame 1, coded
+                alone, gives the batched streams byte for byte and the
+                batched ŷ bit for bit.
+                The hero models (eval/workload.py::load_hero: I, res and
+                without_spm from their checkpoints, no jax):
+                hero_eval runs eval_dataset on the hero GOP eval set
+                (2 × 24 frames of 256², GOP 12) in f32 with the model API,
+                as tools/bakeoff.py::_eval_cfg did, each variant's bpp
+                within 5 % and PSNR within 0.3 dB of hero.json, then prints
+                MS-SSIM of one decoded I-frame; hero_serving_1080p codes
+                the serving probe's 4 frames of 1088×1920 (an I-frame, 3
+                P-frames) through StemVideoPipeline(sparse) with
+                without_spm, B = 1, in f32 (held to hero.json's
+                serving_1080p with the same band) and bf16 (held to the
+                port's f32 with it), encoder ŷ == decoder ŷ on every frame;
+                gop_forward runs the same P-frames through
+                StemVideoPipeline.gop_forward in f32 and bf16, each frame's
+                bpp_est equal to estimate_bpp of stem.forward on the same
+                latents (rtol 1e-5); then the hero res serves them through
+                WavefrontVideoPipeline, tile (1, 4), bf16, held by
+                exactness only. On every path each kernel must have
+                launched exactly as often as the path calls it, and on the
+                hero paths at the widths it runs at.
+  5. report   — one JSON line of kernels (a row per kernel, its launches on
+                every path; then a row per kernel at the hero widths,
+                name@widths, its launches at them), then the card, then
+                the result line.
 
 Exits non-zero, printing no result line, on any failure.
 """
@@ -101,6 +131,12 @@ RES_TILE = (1, 4)  # the JAX bench's wavefront tile (bench.py:692)
 RES_BPP = (0.15, 0.30)  # the JAX package codes this workload at ≈ 0.223
 SERIAL_M, SERIAL_HW = 32, (4, 8)
 SERIAL_ATOL = 1e-4  # serial vs wavefront ŷ (JAX tests/test_stem.py:123-125)
+HERO_N = 128  # the hero I-model's N (artifacts/trained/hero/hero.json)
+# hero_eval and hero_serving_1080p against hero.json: bpp within 5 %, PSNR
+# within 0.3 dB (the JAX figures came from another device's arithmetic; the
+# CPU tests hold the port to the JAX package tightly)
+HERO_BPP_REL, HERO_PSNR_DB = 0.05, 0.3
+GOP_RTOL = 1e-5  # gop_forward's bpp_est vs estimate_bpp of stem.forward
 KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
            "quantize_and_index_bf16", "gdn_conv_fused",
            "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
@@ -405,12 +441,11 @@ def _scaled_err(torch, out, ref, name):
     return err
 
 
-def check_gdn_bf16(torch, kernels):
-    """gdn_fused's bf16 entry at g_s's first IGDN: (4, 192, 136, 240)."""
+def check_gdn_bf16(torch, kernels, b=B, c=N):
+    """gdn_fused's bf16 entry at g_s's first IGDN: (b, c, 136, 240)."""
     gen = torch.Generator(device="cuda").manual_seed(13)
-    c = N
     gamma_t, beta = _gdn_params(torch, gen, c)
-    x = torch.randn((B, c, H // 8, W // 8), generator=gen,
+    x = torch.randn((b, c, H // 8, W // 8), generator=gen,
                     device="cuda").to(torch.bfloat16)
     worst = 0.0
     for inverse in (False, True):
@@ -439,17 +474,19 @@ def check_gdn_bf16(torch, kernels):
                 shape=[rows, c])
 
 
-def check_gdn_conv(torch, F, kernels):
-    """gdn_conv_fused at g_a's three GDN→conv stages; the row reports the
-    first (544×960 → 272×480), the log every stage."""
+def check_gdn_conv(torch, F, kernels, b=B, c=N, o=N,
+                   sizes=((H // 2, W // 2), (H // 4, W // 4),
+                          (H // 8, W // 8))):
+    """gdn_conv_fused C → O at g_a's GDN→conv stages of the given input
+    sizes (by default all three of the 192-wide model); the row reports
+    the first, the log every stage."""
     gen = torch.Generator(device="cuda").manual_seed(14)
-    c = o = N
     gamma_t, beta = _gdn_params(torch, gen, c)
     weight = _kaiming(torch, gen, (o, c, 5, 5), 25 * c)
     bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
     stages, worst = [], 0.0
-    for hh, ww in ((H // 2, W // 2), (H // 4, W // 4), (H // 8, W // 8)):
-        x = torch.randn((B, c, hh, ww), generator=gen,
+    for hh, ww in sizes:
+        x = torch.randn((b, c, hh, ww), generator=gen,
                         device="cuda").to(torch.bfloat16)
         out = kernels.gdn_conv_fused(x, gamma_t, beta, weight, bias)
         ref = kernels._gdn_conv_ref(x, gamma_t, beta, weight, bias)
@@ -460,13 +497,13 @@ def check_gdn_conv(torch, F, kernels):
                              False).to(torch.bfloat16)
         bias16 = bias.to(torch.bfloat16)
         xsq = _norm_rows(torch, x)
-        pix_in, pix_out = B * hh * ww, B * (hh // 2) * (ww // 2)
+        pix_in, pix_out = b * hh * ww, b * (hh // 2) * (ww // 2)
         b_ms, b_by = fused_bound(
             pix_in * c * 2 + pix_out * o * 2 + o * c * 25 * 2 + c * c * 4
             + (c + o) * 4,
             pix_in, c, 2 * pix_out * o * c * 25)
         stages.append(dict(
-            shape=[B, c, hh, ww],
+            shape=[b, c, hh, ww],
             ms=cuda_ms(lambda: kernels.gdn_conv_fused(x, gamma_t, beta,
                                                       weight, bias)),
             plain_ms=cuda_ms(lambda: kernels._gdn_conv_ref(
@@ -476,7 +513,7 @@ def check_gdn_conv(torch, F, kernels):
             pair_ms=cuda_ms(lambda: (torch.addmm(beta, xsq, gamma_t),
                                      F.conv2d(g, weight, bias16, 2, 2))),
             bound_ms=b_ms, bound_by=b_by))
-        log(f"    stage {hh}×{ww}: " + ", ".join(
+        log(f"    stage {c}→{o} {hh}×{ww}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages[-1].items()
             if k.endswith("ms")))
         del x, g, xsq
@@ -526,15 +563,15 @@ def _igdn_deconv_row(torch, F, kernels, name, fn, x, f, gen):
     return row, out
 
 
-def check_gs_pair(torch, F, kernels):
-    """igdn_deconv_wide_packed at 272×480 → 544×960 (N→N), then
-    igdn_deconv_tail_packed on its output, 544×960 → 1088×1920 (N→3)."""
+def check_gs_pair(torch, F, kernels, b=B, c=N):
+    """igdn_deconv_wide_packed at 272×480 → 544×960 (C→C), then
+    igdn_deconv_tail_packed on its output, 544×960 → 1088×1920 (C→3)."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    x = torch.randn((B, N, H // 4, W // 4), generator=gen,
+    x = torch.randn((b, c, H // 4, W // 4), generator=gen,
                     device="cuda").to(torch.bfloat16)
     wide, mid = _igdn_deconv_row(torch, F, kernels,
                                  "igdn_deconv_wide_packed",
-                                 kernels.igdn_deconv_wide_packed, x, N, gen)
+                                 kernels.igdn_deconv_wide_packed, x, c, gen)
     del x
     # the tail reads the wide kernel's output, as on the path
     tail, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_tail_packed",
@@ -582,7 +619,7 @@ def expected_launches(bf16: bool):
 
 def run_slice(torch, kernels, card, bf16: bool):
     from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
-        StemVideoPipeline, _Download, _shape4,
+        StemVideoPipeline,
     )
     from spatiotemporalentropymodel_tpu_torch.eval.workload import (
         match_latent_to_prior, realistic_stem,
@@ -667,11 +704,28 @@ def run_slice(torch, kernels, card, bf16: bool):
     log(f"  {tag} checks: all sparse, launches exact, encoder ŷ == decoder ŷ "
         f"exactly on {P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
 
-    # ---- stage breakdown (synchronised, median of 3) ----
+    med = parallel_stages(torch, pipe, frames[0], y_cond)
+    fps = P_FRAMES * B / wall
+    log(f"  {tag} slice: bpp {bpp:.5f}, end-to-end {fps:.3f} frames/s "
+        f"({P_FRAMES}×{B} frames of {H}×{W}, encode+decode), stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f" | card: {card}")
+    return launches, dict(imodel=imodel, pipe=pipe, frames=frames,
+                          y_cond=y_cond, encs=encs, decoded=decoded,
+                          dec_dispatch_ms=med["dec_dispatch"])
+
+
+def parallel_stages(torch, pipe, x, y_cond):
+    """StemVideoPipeline's stages on frame x, each between two
+    synchronisations, ms, median of 3."""
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        _Download, _shape4,
+    )
+
     timed = partial(timed_ms, torch)
+    stem = pipe.stem
     stages = {k: [] for k in ("g_a", "enc_dispatch", "host_rans_enc",
                               "host_rans_dec", "dec_dispatch")}
-    x = frames[0]
     for _ in range(3):
         ms, y_cur = timed(lambda: pipe.analysis(x))
         stages["g_a"].append(ms)
@@ -685,15 +739,7 @@ def run_slice(torch, kernels, card, bf16: bool):
         stages["host_rans_dec"].append(ms)
         ms, _ = timed(lambda: pipe._device_decode_sparse(*host, y_cond))
         stages["dec_dispatch"].append(ms)
-    med = {k: sorted(v)[1] for k, v in stages.items()}
-    fps = P_FRAMES * B / wall
-    log(f"  {tag} slice: bpp {bpp:.5f}, end-to-end {fps:.3f} frames/s "
-        f"({P_FRAMES}×{B} frames of {H}×{W}, encode+decode), stage ms "
-        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
-        + f" | card: {card}")
-    return launches, dict(imodel=imodel, pipe=pipe, frames=frames,
-                          y_cond=y_cond, encs=encs, decoded=decoded,
-                          dec_dispatch_ms=med["dec_dispatch"])
+    return {k: sorted(v)[1] for k, v in stages.items()}
 
 
 def _want(**counts):
@@ -819,7 +865,7 @@ def _encoder_pass(torch, stem, enc, y_cur, y_cond):
             target = wf.tile_plane(target, th, tw)
         coords, valid, rounds, encoder, *_ = stem._wavefront_setup(
             th, tw, serial)
-        syms, idxs, recon = encoder(target, priors, rounds)
+        syms, idxs, recon = encoder(target, priors, rounds, b)
         flat = [wf.flatten_wavefront_grouped(p, coords, valid, b).cpu()
                 .numpy() for p in (syms, idxs)]
         if nt > 1:
@@ -923,6 +969,7 @@ def run_res_wavefront(torch, kernels, card):
     log(f"  {tag} checks: launches exact, encoder ŷ == decoder ŷ and "
         f"decoded symbols == encoded on {P_FRAMES} frames, streams repeat, "
         f"x̂ finite bf16, bpp per frame {bpps}")
+    check_batch_invariance(torch, pipe, frames[1])
 
     # ---- stage breakdown: one frame with the codec's stage clock on (it
     # synchronises at each boundary), median of 3 ----
@@ -997,7 +1044,343 @@ def run_serial(torch, card):
         f"{SERIAL_ATOL:.0e}) | card: {card}")
 
 
+def check_batch_invariance(torch, pipe, frame):
+    """batch_invariance: each stream of a batched frame coded alone gives
+    the batched streams byte for byte and the batched ŷ bit for bit."""
+    y_cur, y_cond, enc, y_hat = frame[:4]
+    s = y_cur.shape[0]
+    for i in range(s):
+        solo = pipe.encode_frame(y_cur[i:i + 1], y_cond[i:i + 1])
+        if (solo["strings"][0][0] != enc["strings"][0][i]
+                or solo["strings"][1][0] != enc["strings"][1][i]):
+            raise AssertionError(f"batch_invariance stream {i}: its solo "
+                                 f"streams differ from the batched ones")
+        y_solo = pipe.decode_frame(solo, y_cond[i:i + 1])
+        if not torch.equal(y_solo, y_hat[i:i + 1]):
+            diff = int((y_solo != y_hat[i:i + 1]).sum())
+            raise AssertionError(f"batch_invariance stream {i}: solo ŷ != "
+                                 f"batched ŷ at {diff} elements")
+    log(f"  batch_invariance: {s} streams of frame 1 coded alone: streams "
+        f"equal byte for byte, ŷ bit for bit")
+
+
+def _within_band(tag, got, ref, psnr_db=HERO_PSNR_DB):
+    """bpp within HERO_BPP_REL of ref's, PSNR within psnr_db dB."""
+    d_bpp = abs(got["bpp"] - ref["bpp"]) / ref["bpp"]
+    d_psnr = abs(got["psnr"] - ref["psnr"])
+    ok = d_bpp <= HERO_BPP_REL and d_psnr <= psnr_db
+    log(f"    {tag}: bpp {got['bpp']:.5f} vs {ref['bpp']:.5f} "
+        f"({100 * d_bpp:.2f} %, limit {100 * HERO_BPP_REL:.0f} %), PSNR "
+        f"{got['psnr']:.3f} vs {ref['psnr']:.3f} dB ({d_psnr:.3f} dB, limit "
+        f"{psnr_db} dB) ok={ok}")
+    if not ok:
+        raise AssertionError(f"{tag}: outside the band of {ref}")
+
+
+def _snap(kernels):
+    return dict(kernels.LAUNCHES), dict(kernels.LAUNCHES_BY_WIDTH)
+
+
+def _check_widths(kernels, tag, want):
+    got = dict(kernels.LAUNCHES_BY_WIDTH)
+    if got != want:
+        raise AssertionError(f"{tag}: launches by width {got}, expected "
+                             f"{want}")
+
+
+def run_hero_eval(torch, kernels, card, models):
+    """hero_eval: the hero GOP eval (2 × 24 frames of 256², GOP 12) through
+    eval_dataset with the model API in f32, as tools/bakeoff.py::_eval_cfg
+    ran it, held to hero.json; then MS-SSIM of one decoded I-frame."""
+    from spatiotemporalentropymodel_tpu_torch.eval.eval_stem import (
+        eval_dataset,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import ms_ssim
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_config, hero_gop_set,
+    )
+
+    ref = hero_config()["eval"]
+    seqs = hero_gop_set()
+    frames = sum(len(q) for q in seqs)
+    n_i = sum(1 for q in seqs for f in q if f.is_intra)
+    n_p = frames - n_i
+    snaps = {}
+    for variant in ("res", "without_spm"):
+        tag = f"hero_eval_{variant}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = eval_dataset(models["i"], models[variant], seqs,
+                           compute_msssim=False, report_estimated_bpp=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # I-frame: forward (g_a, g_s), compress (g_a), decompress (g_s);
+        # P-frame: get_y (g_a), get_x (g_s); each GDN stage one gdn_fused
+        qidx = n_i + (n_p if variant == "without_spm" else 0)
+        gdn = 3 * (4 * n_i + 2 * n_p)
+        _check_launches(kernels, tag, _want(gdn_fused=gdn,
+                                            quantize_and_index=qidx))
+        _check_widths(kernels, tag, {("gdn_fused", HERO_N): gdn,
+                                     ("quantize_and_index",): qidx})
+        snaps[tag] = _snap(kernels)
+        avg = res["average"]
+        log(f"  {tag}: {frames} frames in {wall:.1f} s, bpp "
+            f"{avg['bpp']:.5f} (hero.json {ref[variant]['bpp']:.5f}), PSNR "
+            f"{avg['psnr']:.3f} dB ({ref[variant]['psnr']:.3f}), bpp_est "
+            f"{avg['bpp_est']:.5f} ({ref[variant]['bpp_est']:.5f})")
+        _within_band(tag, avg, ref[variant])
+    frame = next(iter(seqs[0]))
+    x = torch.from_numpy(frame.image).permute(2, 0, 1)[None].contiguous()
+    x = x.cuda()
+    enc = models["i"].compress(x)
+    x_hat = models["i"].decompress(enc["strings"], enc["shape"])["x_hat"]
+    score = float(ms_ssim(x, x_hat))
+    if not 0.0 < score <= 1.0:
+        raise AssertionError(f"hero_eval: MS-SSIM {score}")
+    log(f"  hero_eval: MS-SSIM of seq0's I-frame (256²) {score:.5f} | "
+        f"card: {card}")
+    return snaps
+
+
+def _hero_frames(torch):
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames,
+    )
+
+    return [torch.from_numpy(f).permute(2, 0, 1)[None].contiguous().cuda()
+            .float() / 255.0 for f in hero_1080p_frames()]
+
+
+def _hero_iframe(torch, i_model, x, tag):
+    """The I-frame codec on x: its ŷ (the decoder's, equal to the
+    encoder's) and its stream bytes."""
+    enc = i_model.compress(x)
+    dec = i_model.decompress(enc["strings"], enc["shape"])
+    _, y_enc = i_model.fused_encode_expr(x)
+    if not torch.equal(y_enc, dec["y_hat"]):
+        raise AssertionError(f"{tag}: I-frame encoder ŷ != decoder ŷ")
+    return dec["y_hat"]
+
+
+def run_hero_serving(torch, kernels, card, i_model, stem, frames, tag,
+                     bf16):
+    """hero_serving_1080p: frame 0 through the I-frame codec, then 3
+    P-frames through StemVideoPipeline(sparse) at B = 1, bpp charged as
+    tools/bakeoff.py::_serving_1080p charges it (streams plus the row
+    counts' raw bytes). Returns ({bpp, psnr, fps}, launch snapshot)."""
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import psnr
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+
+    pipe = StemVideoPipeline(i_model, stem, transport_mode="sparse")
+    yc = _hero_iframe(torch, i_model, frames[0], tag)
+    enc, _ = pipe.encode_frame(frames[1], yc)  # warm-up (cuDNN set-up)
+    pipe.decode_frame(enc, y_cond=yc)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    total, psnrs, p_frames, y_hats = 0, [], len(frames) - 1, []
+    for t in range(1, len(frames)):
+        y_hats.append(yc)
+        enc, y_carry = pipe.encode_frame(frames[t], yc)
+        x_hat, yc_next = pipe.decode_frame(enc, y_cond=yc)
+        if enc["transport"] != "sparse":
+            raise AssertionError(f"{tag} frame {t}: dense transport")
+        if not torch.equal(y_carry, yc_next):
+            raise AssertionError(f"{tag} frame {t}: encoder ŷ != decoder ŷ")
+        total += sum(len(s) for grp in enc["strings"] for s in grp)
+        total += enc["counts"].nbytes
+        psnrs.append(float(psnr(frames[t], x_hat)))
+        yc = yc_next
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    y_hats.append(yc)
+    if bf16:
+        want = _want(gdn_conv_fused=3 * p_frames, gdn_fused_bf16=p_frames,
+                     igdn_deconv_wide_packed=p_frames,
+                     igdn_deconv_tail_packed=p_frames,
+                     quantize_and_index_bf16=p_frames)
+        widths = {("gdn_conv_fused", HERO_N, HERO_N): 2 * p_frames,
+                  ("gdn_conv_fused", HERO_N, M): p_frames,
+                  ("gdn_fused_bf16", HERO_N): p_frames,
+                  ("igdn_deconv_wide_packed", HERO_N, HERO_N): p_frames,
+                  ("igdn_deconv_tail_packed", HERO_N, 3): p_frames,
+                  ("quantize_and_index_bf16",): p_frames}
+    else:
+        want = _want(gdn_fused=6 * p_frames, quantize_and_index=p_frames)
+        widths = {("gdn_fused", HERO_N): 6 * p_frames,
+                  ("quantize_and_index",): p_frames}
+    _check_launches(kernels, tag, want)
+    _check_widths(kernels, tag, widths)
+    snap = _snap(kernels)
+    got = dict(bpp=total * 8.0 / (p_frames * H * W),
+               psnr=sum(psnrs) / len(psnrs), fps=p_frames / wall)
+    med = parallel_stages(torch, pipe, frames[1], yc)
+    if bf16:  # x̂ of the same ŷ with g_s's IGDN→deconv pairs unfused
+        with kernels.knobs(FUSE_GS_PACKED=False, FUSE_IGDN_DECONV=False):
+            plain = [float(psnr(frames[t], i_model.get_x(y_hats[t])))
+                     for t in range(1, len(frames))]
+        log(f"    {tag}: PSNR {sum(plain) / len(plain):.3f} dB with g_s's "
+            f"IGDN→deconv pairs unfused (bf16 layers), for the same ŷ")
+    log(f"  {tag}: {p_frames} P-frames of 1×3×{H}×{W} in {wall:.3f} s, "
+        f"{got['fps']:.3f} frames/s (host-coded, encode+decode), bpp "
+        f"{got['bpp']:.5f}, PSNR {got['psnr']:.3f} dB, encoder ŷ == decoder "
+        f"ŷ on every frame, launches exact {widths}; stage ms "
+        + ", ".join(f"{k} {v:.2f}" for k, v in med.items())
+        + f" | card: {card}")
+    return got, snap
+
+
+def run_gop_forward(torch, kernels, card, i_model, stem, frames, tag,
+                    bf16):
+    """gop_forward: the P-frames through StemVideoPipeline.gop_forward
+    from the I-frame's ŷ; each frame's bpp_est equals estimate_bpp of
+    stem.forward on the same latents (rtol GOP_RTOL). Returns (frames/s,
+    launch snapshot)."""
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import (
+        estimate_bpp,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+
+    pipe = StemVideoPipeline(i_model, stem)
+    y0 = _hero_iframe(torch, i_model, frames[0], tag)
+    gop = torch.stack(frames[1:])  # (T, 1, 3, H, W)
+    pipe.gop_forward(gop[:1], y0)  # warm-up
+    kernels.reset_launch_counts()
+    ms, (x_hats, bpps) = timed_ms(torch, lambda: pipe.gop_forward(gop, y0))
+    p_frames = gop.shape[0]
+    if bf16:
+        want = _want(gdn_conv_fused=3 * p_frames, gdn_fused_bf16=p_frames,
+                     igdn_deconv_wide_packed=p_frames,
+                     igdn_deconv_tail_packed=p_frames)
+    else:
+        want = _want(gdn_fused=6 * p_frames)
+    _check_launches(kernels, tag, want)
+    snap = _snap(kernels)
+    if (tuple(x_hats.shape) != (p_frames, 1, 3, H, W)
+            or not bool(torch.isfinite(x_hats).all())):
+        raise AssertionError(f"{tag}: x̂ {tuple(x_hats.shape)} or not "
+                             f"finite")
+    y_cond, worst = y0, 0.0
+    with torch.no_grad():
+        for t in range(p_frames):
+            out = stem.forward(i_model.analysis(gop[t]), y_cond)
+            want_bpp = estimate_bpp(out["likelihoods"], H * W)
+            rel = abs(float(bpps[t, 0]) - want_bpp) / want_bpp
+            worst = max(worst, rel)
+            if not rel <= GOP_RTOL:
+                raise AssertionError(f"{tag} frame {t}: bpp_est "
+                                     f"{float(bpps[t, 0])} vs estimate_bpp "
+                                     f"{want_bpp}")
+            y_cond = out["y_hat"]
+    fps = p_frames / (ms / 1e3)
+    log(f"  {tag}: {p_frames} frames in {ms:.1f} ms, {fps:.3f} frames/s "
+        f"(device only, no coding), bpp_est {[float(b) for b in bpps[:, 0]]}"
+        f", max rel diff to estimate_bpp {worst:.2e} (limit {GOP_RTOL:.0e}),"
+        f" launches exact | card: {card}")
+    return fps, snap
+
+
+def run_hero_res(torch, kernels, card, frames):
+    """The hero res through WavefrontVideoPipeline at 1080p, tile (1, 4),
+    bf16, B = 1: exactness only (hero.json has no such figure)."""
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import psnr
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        WavefrontVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import load_hero
+
+    tag = "hero_res_wavefront_bf16"
+    models = load_hero(device="cuda", variants=("res",),
+                       wavefront_tile=RES_TILE)
+    i_model, stem = models["i"], models["res"]
+    i_model.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    pipe = WavefrontVideoPipeline(i_model, stem)
+    yc = _hero_iframe(torch, i_model, frames[0], tag)
+    pipe.serve_latent(pipe.analysis(frames[1]), yc)  # warm-up
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    served = []
+    for t in range(1, len(frames)):
+        y_cur = pipe.analysis(frames[t])
+        enc, y_hat, x_hat = pipe.serve_latent(y_cur, yc, frame=t)
+        served.append((y_cur, yc, enc, y_hat, x_hat))
+        yc = y_hat
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    p_frames = len(served)
+    _check_launches(kernels, tag, _want(
+        gdn_conv_fused=3 * p_frames, gdn_fused_bf16=p_frames,
+        igdn_deconv_wide_packed=p_frames, igdn_deconv_tail_packed=p_frames))
+    snap = _snap(kernels)
+    total, psnrs = 0, []
+    for t, (y_cur, y_cond, enc, y_hat, x_hat) in enumerate(served, 1):
+        _check_ar_frame(torch, stem, f"{tag} frame {t}", enc, y_cur, y_cond,
+                        y_hat)
+        total += sum(len(s) for g in enc["strings"] for s in g)
+        psnrs.append(float(psnr(frames[t], x_hat)))
+    stem._codec_stats = {}
+    y_cur, y_cond = served[0][0], served[0][1]
+    ms, _ = timed_ms(torch, lambda: pipe.serve_latent(y_cur, y_cond))
+    st, stem._codec_stats = stem._codec_stats, None
+    log(f"  {tag}: {p_frames} P-frames of 1×3×{H}×{W} in {wall:.3f} s, "
+        f"{p_frames / wall:.3f} frames/s, bpp "
+        f"{total * 8.0 / (p_frames * H * W):.5f}, PSNR "
+        f"{sum(psnrs) / len(psnrs):.3f} dB, encoder ŷ == decoder ŷ and "
+        f"symbols decode on every frame; one frame {ms:.1f} ms: "
+        + ", ".join(f"{k} {1e3 * v:.2f}" for k, v in st.items()
+                    if k.endswith("_s")) + f" | card: {card}")
+    return snap
+
+
+def run_hero(torch, kernels, card):
+    """The trained hero models, read with jax blocked: hero_eval, then
+    hero_serving_1080p and gop_forward in f32 and bf16 on the
+    without_spm pair, then the hero res through the wavefront pipeline.
+    Returns the launch snapshots by path."""
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_config, load_hero,
+    )
+
+    t0 = time.perf_counter()
+    models = load_hero(device="cuda")
+    log(f"  hero models (I, res, without_spm) loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+    snaps = run_hero_eval(torch, kernels, card, models)
+    frames = _hero_frames(torch)
+    i_model, stem = models["i"], models["without_spm"]
+    served = {}
+    for bf16 in (False, True):
+        dt = "bf16" if bf16 else "f32"
+        if bf16:
+            i_model.set_compute_dtype(torch.bfloat16)
+            stem.set_compute_dtype(torch.bfloat16)
+        tag = f"hero_serving_1080p_{dt}"
+        served[dt], snaps[tag] = run_hero_serving(
+            torch, kernels, card, i_model, stem, frames, tag, bf16)
+        fps, snaps[f"gop_forward_{dt}"] = run_gop_forward(
+            torch, kernels, card, i_model, stem, frames,
+            f"gop_forward_{dt}", bf16)
+        log(f"  {dt}: gop_forward {fps:.3f} frames/s beside the host-coded "
+            f"path's {served[dt]['fps']:.3f}")
+    _within_band("hero_serving_1080p_f32 vs hero.json", served["f32"],
+                 hero_config()["serving_1080p"])
+    _within_band("hero_serving_1080p_bf16 vs the port's f32", served["bf16"],
+                 served["f32"])
+    del models, i_model, stem
+    torch.cuda.empty_cache()
+    snaps["hero_res_wavefront_bf16"] = run_hero_res(torch, kernels, card,
+                                                    frames)
+    return snaps
+
+
 def main() -> int:
+    # the port and this script never import jax: block it, so an import of
+    # it anywhere below fails (the hero checkpoints are read without it)
+    sys.modules["jax"] = None
     try:
         import torch
     except ImportError as e:
@@ -1052,6 +1435,21 @@ def main() -> int:
     fused, wide = check_gs_lone(torch, F, kernels)
     results["igdn_deconv_fused"] = fused
     results["igdn_deconv_wide"] = wide
+    # the hero I-model's widths (N = 128, M = 192, one picture), rows of
+    # their own: name@widths
+    log(f"  the hero widths, N = {HERO_N}, M = {M}, B = 1")
+    hero_rows = {
+        ("gdn_conv_fused", HERO_N, HERO_N): check_gdn_conv(
+            torch, F, kernels, 1, HERO_N, HERO_N,
+            ((H // 2, W // 2), (H // 4, W // 4))),
+        ("gdn_conv_fused", HERO_N, M): check_gdn_conv(
+            torch, F, kernels, 1, HERO_N, M, ((H // 8, W // 8),)),
+        ("gdn_fused_bf16", HERO_N): check_gdn_bf16(torch, kernels, 1,
+                                                   HERO_N),
+    }
+    wide, tail = check_gs_pair(torch, F, kernels, 1, HERO_N)
+    hero_rows[("igdn_deconv_wide_packed", HERO_N, HERO_N)] = wide
+    hero_rows[("igdn_deconv_tail_packed", HERO_N, 3)] = tail
     for name, res in results.items():
         lib = res["library_ms"]
         log(f"  {name}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, "
@@ -1083,9 +1481,17 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     log(f"[4/5] slice: res_wavefront_bf16, STEM res tile {RES_TILE} through "
-        f"WavefrontVideoPipeline, {P_FRAMES} P-frames of {B}×3×{H}×{W}; "
-        f"then the serial AR codec at {SERIAL_HW[0]}×{SERIAL_HW[1]}")
+        f"WavefrontVideoPipeline, {P_FRAMES} P-frames of {B}×3×{H}×{W}, "
+        f"with batch_invariance; then the serial AR codec at "
+        f"{SERIAL_HW[0]}×{SERIAL_HW[1]}")
     by_path["res_wavefront_bf16"] = run_res_wavefront(torch, kernels, card)
+    log("[4/5] the trained hero models (N 128, M 192, EB 128) with jax "
+        "blocked: hero_eval, hero_serving_1080p, gop_forward")
+    hero = run_hero(torch, kernels, card)
+    by_width = {}
+    for tag, (counts, widths) in hero.items():
+        by_path[tag] = counts
+        by_width[tag] = widths
 
     # ---- 5. report ----
     replaces = {
@@ -1099,11 +1505,9 @@ def main() -> int:
         "igdn_deconv_fused": (f"{PK}:387", "igdn_deconv.cu"),
         "igdn_deconv_wide": (f"{PK}:1267", "igdn_deconv.cu"),
     }
-    rows = []
-    for name, res in results.items():
-        line, src = replaces[name]
-        per_path = {tag: counts[name] for tag, counts in by_path.items()}
-        rows.append({
+    def row(name, kernel, res, per_path):
+        line, src = replaces[kernel]
+        return {
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": line, "launches": sum(per_path.values()),
             "launches_by_path": per_path,
@@ -1114,7 +1518,20 @@ def main() -> int:
             **({"library": res["library"]} if "library" in res else {}),
             "shape": res["shape"],
             **({"stages": res["stages"]} if "stages" in res else {}),
-        })
+        }
+
+    # a row per kernel, its launches on every path; then a row per kernel
+    # at the hero widths, its launches at those widths on the hero paths
+    rows = [row(name, name, res,
+                {tag: counts[name] for tag, counts in by_path.items()})
+            for name, res in results.items()]
+    for key, res in hero_rows.items():
+        per_path = {tag: widths.get(key, 0)
+                    for tag, widths in by_width.items()}
+        if not sum(per_path.values()):
+            raise AssertionError(f"{key}: never launched on the hero paths")
+        rows.append(row(f"{key[0]}@{'x'.join(map(str, key[1:]))}", key[0],
+                        res, per_path))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ one. Layout changes:
     ConvTranspose2d weight as (kh, kw, in, out); unflip → (in, out, kh, kw).
   * GDN β/γ (sqrt space), entropy-bottleneck matrix/bias/factor/quantiles and
     biases copy through.
+
+A checkpoint read without jax (training/checkpoints.py) gives the leaves of
+such a tree without their paths: ``load_jax_leaves`` rebuilds the paths from
+the port's module in jax's order and loads them.
 """
 
 import numpy as np
@@ -56,11 +60,76 @@ def state_dict_from_jax(module: torch.nn.Module, tree) -> dict:
             elif isinstance(sub, (Conv, MaskedConv2d)):
                 val = invert_conv_weight(val)
             else:
-                raise ValueError(f"kernel of a {type(sub).__name__} at {owner}")
+                raise ValueError(
+                    f"kernel of a {type(sub).__name__} at {owner}")
             leaf = "weight"
         name = f"{owner}.{leaf}" if owner else leaf
         state[name] = torch.from_numpy(np.array(val, np.float32))
     return state
+
+
+def _jax_keys(owner):
+    """Module path parts → the JAX tree's keys: ``layers.<i>`` → flax's
+    ``layers_<i>``."""
+    keys, i = [], 0
+    while i < len(owner):
+        if owner[i] == "layers" and i + 1 < len(owner):
+            keys.append(f"layers_{owner[i + 1]}")
+            i += 2
+        else:
+            keys.append(owner[i])
+            i += 1
+    return keys
+
+
+def jax_param_paths(module: torch.nn.Module):
+    """[(JAX path, JAX shape)] of ``module``'s parameters in jax's flatten
+    order: dict keys sorted as strings at every level (``layers_10`` before
+    ``layers_2``), which for paths of keys is the tuples' lexicographic
+    order. Kernels take their JAX shapes, (kh, kw, in, out)."""
+    paths = []
+    for name, p in module.named_parameters():
+        *owner, leaf = name.split(".")
+        shape = tuple(p.shape)
+        if leaf == "weight":
+            sub = module.get_submodule(".".join(owner))
+            if isinstance(sub, Deconv):  # (I, O, kh, kw)
+                shape = (shape[2], shape[3], shape[0], shape[1])
+            elif isinstance(sub, (Conv, MaskedConv2d)):  # (O, I, kh, kw)
+                shape = (shape[2], shape[3], shape[1], shape[0])
+            else:
+                raise ValueError(f"weight of a {type(sub).__name__} at "
+                                 f"{'.'.join(owner)}")
+            leaf = "kernel"
+        paths.append((tuple(_jax_keys(owner)) + (leaf,), shape))
+    return sorted(paths)
+
+
+def tree_from_leaves(module: torch.nn.Module, leaves) -> dict:
+    """The JAX tree of ``module``'s parameters from the first of ``leaves``
+    (jax's flatten order, ``jax_param_paths``), one per parameter, each
+    checked against its JAX shape."""
+    paths = jax_param_paths(module)
+    if len(leaves) < len(paths):
+        raise ValueError(f"{len(leaves)} leaves for {len(paths)} parameters")
+    tree = {}
+    for (path, shape), leaf in zip(paths, leaves):
+        if tuple(np.shape(leaf)) != shape:
+            raise ValueError(f"leaf for {'/'.join(path)} has shape "
+                             f"{tuple(np.shape(leaf))}, expected {shape}")
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(leaf)
+    return tree
+
+
+def load_jax_leaves(module: torch.nn.Module, leaves) -> list:
+    """Load ``module``'s parameters from the first of ``leaves`` (see
+    ``tree_from_leaves``); returns the leaves after them."""
+    n = len(jax_param_paths(module))
+    load_jax_params(module, tree_from_leaves(module, leaves))
+    return list(leaves[n:])
 
 
 def load_jax_params(module: torch.nn.Module, tree) -> None:

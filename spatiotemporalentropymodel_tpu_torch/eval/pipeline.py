@@ -322,6 +322,29 @@ class StemVideoPipeline:
                                     y_cond)
         return x_hat, y_hat
 
+    # -- device-only GOP evaluation -------------------------------------------
+
+    @torch.no_grad()
+    def gop_forward(self, frames, y_cond):
+        """The GOP's rate-estimation forward, with no host coding
+        (eval/pipeline.py:413-443 of the JAX package): per frame g_a, the
+        STEM forward (rounding), g_s of its ŷ, and bpp from the
+        likelihoods, the ŷ carry on the device. frames (T, B, 3, H, W);
+        returns (x̂ (T, B, 3, H, W), bpp_est (T, B) f64). The JAX package
+        runs the loop as one scan; here it is a loop over T."""
+        n_pix = frames.shape[-2] * frames.shape[-1]
+        scale = -1.0 / (np.log(2.0) * n_pix)
+        x_hats, bpps = [], []
+        for x in frames:
+            y_cur = self.i_model.analysis(x)
+            out = self.stem.forward(y_cur, y_cond)
+            y_cond = out["y_hat"]
+            x_hats.append(self.i_model.get_x(y_cond))
+            bpps.append(sum(
+                torch.log(lk.float()).sum(dim=(1, 2, 3), dtype=torch.float64)
+                for lk in out["likelihoods"].values()) * scale)
+        return torch.stack(x_hats), torch.stack(bpps)
+
 
 class WavefrontVideoPipeline:
     """Pipelined GOP server for the SPM variants' AR codec, the flagship

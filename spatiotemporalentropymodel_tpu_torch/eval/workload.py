@@ -19,7 +19,17 @@ given frame has the per-channel mean and standard deviation of that sampler.
 ``wavefront_y_cur`` is the wavefront bench's latent (bench.py:669-672): the
 conditioning latent plus 0.2·ε, with g_a run on the pixel frame for its cost
 and kept live, so the rate point is controlled.
+
+The trained hero models (``load_hero``): the checkpoints the JAX package
+trained and evaluated (tools/bakeoff.py::cmd_hero), read with no jax, and
+the frames of their recorded evaluation (``hero_gop_set``,
+``hero_1080p_frames``), made again with NumPy alone from the seeds of
+tools/bakeoff.py; its frames went through PNG, which is lossless, so these
+are the frames the JAX evaluation read.
 """
+
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -98,3 +108,109 @@ def wavefront_y_cur(i_model, x, y_cond, generator):
     noise = torch.randn(y_cond.shape, generator=generator,
                         device=y_cond.device, dtype=y_cond.dtype)
     return y_cond + 0.2 * noise + 1e-30 * y_ga.float().mean()
+
+
+# ---- the trained hero models ------------------------------------------------
+
+HERO_DIR = Path(__file__).resolve().parents[2] / "artifacts" / "trained" / \
+    "hero"
+HERO_EVAL_HW = 256  # tools/bakeoff.py:37, EVAL_HW
+HERO_GOP = 12  # tools/bakeoff.py::_eval_cfg
+HERO_1080P = (1088, 1920)  # tools/bakeoff.py::_serving_1080p
+
+
+def structured_frames(rng, n_frames: int, hw):
+    """Compressible moving content: a gradient background and 2-4 moving
+    blocks, as (H, W, 3) uint8 frames; the port's copy of
+    tools/bakeoff.py::_structured_frames (:46-74), draw for draw, without
+    its sensor noise (off in every call there)."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([yy / h, xx / w, (xx + yy) / (h + w)], -1)
+    base = 0.3 + 0.4 * base
+    n_obj = rng.integers(2, 5)
+    objs = []
+    for _ in range(n_obj):
+        objs.append({
+            "pos": rng.uniform(8, min(h, w) - 24, 2),
+            "vel": rng.uniform(-3, 3, 2),
+            "size": rng.integers(10, 36, 2),
+            "color": rng.uniform(0, 1, 3),
+        })
+    frames = []
+    for t in range(n_frames):
+        img = base.copy()
+        for o in objs:
+            y0 = int(np.clip(o["pos"][0] + t * o["vel"][0], 0, h - 1))
+            x0 = int(np.clip(o["pos"][1] + t * o["vel"][1], 0, w - 1))
+            img[y0:y0 + o["size"][0], x0:x0 + o["size"][1]] = o["color"]
+        frames.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return frames
+
+
+def hero_gop_set(n_seqs: int = 2, n_frames: int = 24):
+    """The hero models' GOP eval set (tools/bakeoff.py::make_data,
+    :109-116): ``n_seqs`` sequences of ``n_frames`` 256² frames from
+    default_rng(99), as ``data.ArraySequence``s named seq0, seq1, … with
+    GOP 12."""
+    from ..data import ArraySequence
+
+    rng = np.random.default_rng(99)
+    return [ArraySequence(structured_frames(
+        rng, n_frames, (HERO_EVAL_HW, HERO_EVAL_HW)), HERO_GOP, f"seq{i}")
+        for i in range(n_seqs)]
+
+
+def hero_1080p_frames():
+    """The hero serving probe's frames (tools/bakeoff.py::_serving_1080p,
+    :459-489): 4 frames of 1088×1920, uint8, from default_rng(1)."""
+    return structured_frames(np.random.default_rng(1), 4, HERO_1080P)
+
+
+def hero_config(hero_dir=HERO_DIR) -> dict:
+    """hero.json: the configuration and the JAX package's figures."""
+    with open(Path(hero_dir) / "hero.json") as f:
+        return json.load(f)
+
+
+def load_hero(hero_dir=HERO_DIR, device="cuda",
+              variants=("res", "without_spm"), wavefront_tile=None):
+    """The trained hero models, with no jax: {"i": MeanScaleHyperprior(N,
+    M), variant: SpatioTemporalPriorModel(variant, EBC, M), …} from
+    hero.json's config (N 128, M 192, EBC 128) and the checkpoints
+    ckpt_{i,p_<variant>}_<λ>.pkl.gz beside it, each with its tables
+    rebuilt by ``update(force=True)``, as tools/bakeoff.py::_load_i and
+    _load_p do. The I checkpoint's leaves hold the params, then the codec
+    tables: exactly as many leaves as the model has parameters are read as
+    parameters, and the rest must be the tables' (eight, integer or f64)."""
+    from ..convert import load_jax_leaves
+    from ..models import MeanScaleHyperprior, SpatioTemporalPriorModel
+    from ..training.checkpoints import load_checkpoint
+
+    hero_dir = Path(hero_dir)
+    cfg = hero_config(hero_dir)["config"]
+    n, m, ebc, lmbda = cfg["N"], cfg["M"], cfg["EBC"], cfg["lmbda"]
+    i_model = MeanScaleHyperprior(n, m, device=device)
+    rest = load_jax_leaves(
+        i_model.module,
+        load_checkpoint(hero_dir / f"ckpt_i_{lmbda}.pkl.gz")["model"])
+    kinds = [r.dtype.kind for r in rest]
+    if len(rest) != 8 or any(k not in "if" for k in kinds) or \
+            sum(r.dtype == np.float32 for r in rest):
+        raise ValueError(f"the I checkpoint's leaves after the params are "
+                         f"not its codec tables: {len(rest)} of dtypes "
+                         f"{[str(r.dtype) for r in rest]}")
+    models = {"i": i_model}
+    for variant in variants:
+        stem = SpatioTemporalPriorModel(
+            variant=variant, entropy_bottleneck_channels=ebc, in_channels=m,
+            wavefront_tile=wavefront_tile, device=device)
+        rest = load_jax_leaves(stem.module, load_checkpoint(
+            hero_dir / f"ckpt_p_{variant}_{lmbda}.pkl.gz")["params"])
+        if rest:
+            raise ValueError(f"{len(rest)} leaves left over in the "
+                             f"{variant} checkpoint")
+        models[variant] = stem
+    for model in models.values():
+        model.update(force=True)
+    return models

@@ -24,6 +24,18 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def per_stream(fn, streams: int, *batches):
+    """fn of the batches, applied to each of ``streams`` equal parts of
+    them (dimension 0) and concatenated: each stream's result then has the
+    bits it has when the stream is alone, whatever else is batched with it
+    (a conv or a GEMM may choose another algorithm or sum order for another
+    batch or row count)."""
+    if streams == 1:
+        return fn(*batches)
+    return torch.cat([fn(*parts) for parts in
+                      zip(*(t.chunk(streams) for t in batches))])
+
+
 def make_causal_mask(kh: int, kw: int, mask_type: str = "A") -> np.ndarray:
     """(kh, kw) raster-order causal mask."""
     if mask_type not in ("A", "B"):
@@ -74,10 +86,12 @@ class MaskedConv2d(nn.Module):
         w = self.weight[:, :, self.tap_h, self.tap_w]  # (O, C, taps)
         return w.transpose(1, 2).reshape(w.shape[0], -1)
 
-    def center(self, taps):
+    def center(self, taps, streams: int = 1):
         """The masked conv's output at the centre of each crop, from its
         ``causal_taps`` (N, taps·C) → (N, features), in the taps' dtype:
         the product rounded to it, then the bias added in it, as ``forward``
-        does."""
-        out = torch.matmul(taps, self.tap_weight().to(taps.dtype).t())
+        does. The product runs once for each of ``streams`` equal parts of
+        the rows (``per_stream``)."""
+        w_t = self.tap_weight().to(taps.dtype).t()
+        out = per_stream(lambda x: torch.matmul(x, w_t), streams, taps)
         return out + self.bias.to(out.dtype)

@@ -15,6 +15,13 @@ conv's causal taps (layers/masked_conv.py::MaskedConv2d.center), so the
 encoder and decoder planes need agree only at pixels already coded. Both
 keep zeros elsewhere; the encoder reads each centre from the target.
 
+A batch may hold several independent streams (the S streams of a
+multi-stream server). Their gathers and elementwise steps run batched, but
+each product of a round (the context and EPM's 1×1 convs) runs once per
+stream at the stream's own row count: a GEMM may choose another algorithm,
+split or sum order for another row count, and then a stream's (σ, μ), and
+so its ŷ, would depend on what it was batched with.
+
 Bitstream symbol order is wavefront order, the JAX package's: round-major,
 then tile, lane and channel (``flatten_wavefront_grouped``).
 """
@@ -92,14 +99,17 @@ def _check_rows(scale_table, what: str):
                          f" are limited to 256 rows (got {rows})")
 
 
-def _params(apply_ar_step, scale_table, plane_pad, priors, rnd):
+def _params(apply_ar_step, scale_table, plane_pad, priors, rnd,
+            streams: int = 1):
     """(μ, u8 CDF-row indexes), each (B·L, M) in lane order, of one round:
-    the causal taps and prior rows of its lanes through ``apply_ar_step``."""
+    the causal taps and prior rows of its lanes through ``apply_ar_step``,
+    whose products run once per stream (the batch's ``streams`` equal
+    parts), so a stream's (σ, μ) do not depend on the batch."""
     b, m = plane_pad.shape[0], plane_pad.shape[3]
     n = b * rnd.h.shape[0]
     taps = plane_pad[:, rnd.tap_h, rnd.tap_w, :].reshape(n, -1)
     pvec = priors[:, rnd.h, rnd.w, :].reshape(n, -1)
-    scales, means = apply_ar_step(taps, pvec)
+    scales, means = apply_ar_step(taps, pvec, streams)
     idx = build_indexes(scales, scale_table).to(torch.uint8)
     return means.reshape(n, m), idx.reshape(n, m)
 
@@ -113,17 +123,19 @@ def _write(plane_pad, rnd, values):
 def make_wavefront_encoder(apply_ar_step, scale_table):
     """The device wavefront encoder.
 
-    apply_ar_step: (taps (N, taps·M), prior rows (N, P)) -> (σ, μ) (N, M),
-    in the nets' dtype. Returns fn(target (B, H, W, M), priors (B, H, W, P),
-    rounds) -> (symbols (B, H, W, M) int16, indexes (B, H, W, M) uint8,
-    reconstruction (B, H, W, M) f32). Symbols saturate at int16 (the u8/int16
+    apply_ar_step: (taps (N, taps·M), prior rows (N, P), streams) -> (σ, μ)
+    (N, M), in the nets' dtype, its products run once per stream. Returns
+    fn(target (B, H, W, M), priors (B, H, W, P), rounds, streams) ->
+    (symbols (B, H, W, M) int16, indexes (B, H, W, M) uint8, reconstruction
+    (B, H, W, M) f32); the batch holds ``streams`` streams' tiles, each
+    stream's in one run. Symbols saturate at int16 (the u8/int16
     planes cut the fetch; identical to int32 for any |round(y−μ)| < 32768),
     and the saturated value feeds the context, so encoder and decoder stay
     consistent even then.
     """
     _check_rows(scale_table, "encode")
 
-    def encode(target, priors, rounds):
+    def encode(target, priors, rounds, streams):
         b, h, w, m = target.shape
         target = target.float()
         plane = torch.zeros((b, h + 4, w + 4, m), dtype=torch.float32,
@@ -134,7 +146,7 @@ def make_wavefront_encoder(apply_ar_step, scale_table):
                            device=target.device)
         for rnd in rounds:
             means, idx = _params(apply_ar_step, scale_table, plane, priors,
-                                 rnd)
+                                 rnd, streams)
             means = means.float()
             center = target[:, rnd.h, rnd.w, :].reshape(means.shape)
             sym = torch.clamp(torch.round(center - means), -32768, 32767)
@@ -149,7 +161,8 @@ def make_wavefront_encoder(apply_ar_step, scale_table):
 def make_wavefront_decode_step(apply_ar_step, scale_table):
     """Per-round decode helpers:
 
-    params_step(plane_pad, priors, rnd) -> (μ (B·L, M), u8 indexes)
+    params_step(plane_pad, priors, rnd, streams) -> (μ (B·L, M), u8
+      indexes)
     write_step(plane_pad, rnd, sym, μ) -> plane_pad, with sym + μ written
       (in f32) at the round's pixels
 
@@ -158,8 +171,9 @@ def make_wavefront_decode_step(apply_ar_step, scale_table):
     """
     _check_rows(scale_table, "decode")
 
-    def params_step(plane_pad, priors, rnd):
-        return _params(apply_ar_step, scale_table, plane_pad, priors, rnd)
+    def params_step(plane_pad, priors, rnd, streams):
+        return _params(apply_ar_step, scale_table, plane_pad, priors, rnd,
+                       streams)
 
     def write_step(plane_pad, rnd, sym, means):
         _write(plane_pad, rnd, sym.float() + means.float())

@@ -111,6 +111,13 @@ class CompressionModel:
             return t.to(self.compute_dtype)
         return t
 
+    def forward(self, *args):
+        """The module's forward with rate estimation, its inputs in the
+        compute dtype (models/base.py:141-145 of the JAX package), in eval
+        mode: quantization rounds. The training noise mode comes with the
+        port of training."""
+        return self.module(*(self._cast_in(a) for a in args))
+
     def update(self, scale_table=None, force: bool = False) -> bool:
         """(Re)build codec tables from parameters (priors.py:77-96).
 

@@ -23,6 +23,7 @@ from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
 from ..layers import GDN, Conv, Deconv, LeakyReLU, Sequential
 from ..ops import kernels
+from ..ops.quantize import quantize_dequantize
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
 
@@ -54,6 +55,27 @@ class MeanScaleHyperpriorModule(nn.Module):
         self.entropy_bottleneck = EntropyBottleneck(n, generator=g)
         self.gaussian_conditional = GaussianConditional()
 
+    def forward(self, x):
+        """Forward with rate estimation, eval mode (priors.py:175-191 of the
+        JAX package): {"y", "y_hat", "x_hat", "likelihoods": {"y", "z"}}."""
+        y = self.g_a(x)
+        z = self.h_a(y)
+        z_hat, z_likelihoods = self.entropy_bottleneck(z)
+        scales_hat, means_hat = self.h_s(z_hat).chunk(2, dim=1)
+        y_hat, y_likelihoods = self.gaussian_conditional(y, scales_hat,
+                                                         means_hat)
+        return {
+            "y": y,
+            "y_hat": y_hat,
+            "x_hat": self.g_s(y_hat),
+            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
+        }
+
+    def get_y(self, x):
+        """getY hook (priors.py:390-395): the latent and its rounding."""
+        y = self.g_a(x)
+        return y, quantize_dequantize(y)
+
     def get_x(self, y_hat):
         """getX hook (priors.py:397-402): synthesize and clamp to [0, 1]."""
         return torch.clamp(self.g_s(y_hat), 0.0, 1.0)
@@ -80,6 +102,10 @@ class MeanScaleHyperprior(CompressionModel):
     @torch.no_grad()
     def get_x(self, y_hat):
         return self.module.get_x(self._cast_in(y_hat))
+
+    def get_y(self, x):
+        """(y, round(y)) of g_a, in the compute dtype (priors.py:498)."""
+        return self.module.get_y(self._cast_in(x))
 
     # ---- the I-frame codec (priors.py:354-487 of the JAX package) ---------
 

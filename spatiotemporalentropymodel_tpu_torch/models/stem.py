@@ -43,11 +43,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..entropy import EntropyBottleneck, build_indexes
+from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
 from ..entropy.transport import sparse_capacity
 from ..layers import Conv, Deconv, LeakyReLU, MaskedConv2d, Sequential
+from ..layers.masked_conv import per_stream
 from ..ops import kernels
+from ..ops.quantize import quantize_dequantize
 from . import ar_wavefront as wf
 from .base import (
     CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
@@ -91,6 +93,7 @@ class STEMModule(nn.Module):
             Conv(768, 576, 1, 1, g), lrelu, Conv(576, 2 * m, 1, 1, g),
         ])
         self.entropy_bottleneck = EntropyBottleneck(ebc, generator=g)
+        self.gaussian_conditional = GaussianConditional()
 
     @property
     def use_tpm(self) -> bool:
@@ -103,6 +106,31 @@ class STEMModule(nn.Module):
     @property
     def residual(self) -> bool:
         return self.variant == "res"
+
+    def forward(self, y_cur, y_conditioned):
+        """Forward with rate estimation, eval mode (stem.py:122-156 of the
+        JAX package): {"y_hat", "likelihoods": {"y", "z"}}. The SPM
+        variants' context sees the rounded target and the Gaussian
+        conditional rounds the target again around μ (the reference's
+        double quantization, spatiotemporalpriors.py:570-579)."""
+        z = self.hyper_encode(y_cur, y_conditioned)
+        z_hat, z_likelihoods = self.entropy_bottleneck(z)
+        feats = self.prior_feats(z_hat, y_conditioned)
+        target = y_cur - y_conditioned if self.residual else y_cur
+        if self.use_spm:
+            target_hat = quantize_dequantize(target)
+            feats = torch.cat([feats, self.context_prediction(target_hat)],
+                              dim=1)
+            scales_hat, means_hat = self.EPM(feats).chunk(2, dim=1)
+            _, y_likelihoods = self.gaussian_conditional(target, scales_hat,
+                                                         means_hat)
+        else:
+            scales_hat, means_hat = self.EPM(feats).chunk(2, dim=1)
+            target_hat, y_likelihoods = self.gaussian_conditional(
+                target, scales_hat, means_hat)
+        y_hat = target_hat + y_conditioned if self.residual else target_hat
+        return {"y_hat": y_hat,
+                "likelihoods": {"y": y_likelihoods, "z": z_likelihoods}}
 
     def hyper_encode(self, y_cur, y_conditioned):
         return self.HE(torch.cat([y_cur, y_conditioned], dim=1))
@@ -121,22 +149,26 @@ class STEMModule(nn.Module):
             2, dim=1)
         return scales, means
 
-    def ar_step(self, taps, prior_vec):
+    def ar_step(self, taps, prior_vec, streams: int = 1):
         """One AR pixel per row: the masked 5×5 context at the crop centre
         from its causal taps (N, 12·M) (``MaskedConv2d.causal_taps``), then
         the 1×1 EPM on cat([prior row (N, P), ctx]) → (σ, μ), each (N, M).
-        The same function as the JAX package's ar_step on the whole crop."""
-        ctx = self.context_prediction.center(taps)
-        gp = self._epm_rows(torch.cat([prior_vec, ctx], dim=1))
+        The same function as the JAX package's ar_step on the whole crop.
+        The rows are ``streams`` equal parts, one per stream, and each
+        product runs once per part (``per_stream``)."""
+        ctx = self.context_prediction.center(taps, streams)
+        gp = self._epm_rows(torch.cat([prior_vec, ctx], dim=1), streams)
         scales, means = gp.chunk(2, dim=1)
         return scales, means
 
-    def _epm_rows(self, x):
+    def _epm_rows(self, x, streams: int = 1):
         """EPM's 1×1 convs as products over (N, C) rows, each rounded to
         the rows' dtype before its bias is added, as ``Conv`` does."""
         for layer in self.EPM.layers:
             if isinstance(layer, Conv):
-                x = F.linear(x, layer.weight.flatten(1)) + layer.bias
+                w = layer.weight.flatten(1)
+                x = per_stream(lambda r: F.linear(r, w), streams,
+                               x) + layer.bias
             else:
                 x = layer(x)
         return x
@@ -414,9 +446,11 @@ class SpatioTemporalPriorModel(CompressionModel):
     #
     # ẑ is coded on the host (entropy-bottleneck NumPy helpers) and uploaded
     # with the canonical NCHW strides on both sides, so TPM and HD run the
-    # same cuDNN algorithms and the priors agree bit for bit. The AR planes
-    # are NHWC tile batches (models/ar_wavefront.py). The serial mode (the
-    # reference's raster order, spatiotemporalpriors.py:633-768) runs the
+    # same cuDNN algorithms and the priors agree bit for bit. HE, TPM, HD
+    # and each round's products run once per stream, so a stream batched
+    # with others gets the (σ, μ), streams and ŷ it gets alone. The AR
+    # planes are NHWC tile batches (models/ar_wavefront.py). The serial mode
+    # (the reference's raster order, spatiotemporalpriors.py:633-768) runs the
     # same round steps on a schedule of one pixel per round, untiled and in
     # the lane format; the JAX package's serial path differs only in not
     # saturating symbols at int16.
@@ -443,8 +477,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         """HE, then ẑ's strings and the encoder's ẑ (the decoder's, by
         construction) on the device."""
         t0 = time.perf_counter()
-        z = self.module.hyper_encode(self._cast(y_cur),
-                                     self._cast(y_conditioned))
+        z = per_stream(self.module.hyper_encode, y_cur.shape[0],
+                       self._cast(y_cur), self._cast(y_conditioned))
         z_np = z.float().permute(0, 2, 3, 1).cpu().numpy()
         z_strings = self._eb_compress(z_np)
         z_hat = self._upload(self._eb_quantize(z_np))
@@ -475,9 +509,9 @@ class SpatioTemporalPriorModel(CompressionModel):
             )
         return th, tw, (hgt // th) * (wid // tw)
 
-    def _ar_step(self, taps, prior_vec):
+    def _ar_step(self, taps, prior_vec, streams: int = 1):
         return self.module.ar_step(self._cast_in(taps),
-                                   self._cast_in(prior_vec))
+                                   self._cast_in(prior_vec), streams)
 
     def _wavefront_setup(self, h: int, w: int, serial: bool = False):
         """(coords, valid, rounds, encoder, params_step, write_step) of an
@@ -504,10 +538,12 @@ class SpatioTemporalPriorModel(CompressionModel):
         return (*self._tile_dims(hgt, wid), False)
 
     def _tiled_priors(self, z_hat, y_conditioned, th, tw, nt):
-        """prior_feats as the NHWC tile batch (B·nt, th, tw, P)."""
+        """prior_feats as the NHWC tile batch (B·nt, th, tw, P), the nets
+        run once per stream."""
         t0 = time.perf_counter()
-        priors = self.module.prior_feats(
-            self._cast(z_hat), self._cast(y_conditioned)).permute(0, 2, 3, 1)
+        priors = per_stream(self.module.prior_feats, z_hat.shape[0],
+                            self._cast(z_hat),
+                            self._cast(y_conditioned)).permute(0, 2, 3, 1)
         if nt > 1:
             priors = wf.tile_plane(priors, th, tw)
         self._lap("priors_s", t0)
@@ -526,7 +562,7 @@ class SpatioTemporalPriorModel(CompressionModel):
         coords, valid, rounds, encoder, *_ = self._wavefront_setup(
             th, tw, serial)
         t0 = time.perf_counter()
-        syms, idxs, _ = encoder(target, priors, rounds)
+        syms, idxs, _ = encoder(target, priors, rounds, b)
         if nt > 1:
             flat = [wf.flatten_wavefront_grouped(p, coords, valid, b)
                     for p in (syms, idxs)]
@@ -580,7 +616,7 @@ class SpatioTemporalPriorModel(CompressionModel):
         # blocking u8 index fetch per round
         st = self._codec_stats
         t0 = time.perf_counter()
-        means, idx = params_step(plane, priors, rounds[0])
+        means, idx = params_step(plane, priors, rounds[0], b)
         for k, rnd in enumerate(rounds):
             idx_np = idx.view(b, -1).cpu().numpy()
             t1 = self._lap("device_s", t0)
@@ -599,7 +635,7 @@ class SpatioTemporalPriorModel(CompressionModel):
             sym_dev = torch.from_numpy(sym).to(self.device).view(-1, m)
             plane = write_step(plane, rnd, sym_dev, means)
             if k + 1 < len(rounds):
-                means, idx = params_step(plane, priors, rounds[k + 1])
+                means, idx = params_step(plane, priors, rounds[k + 1], b)
         target_hat = plane[:, 2:-2, 2:-2, :]
         if nt > 1:
             target_hat = wf.untile_plane(target_hat, b, hgt, wid)

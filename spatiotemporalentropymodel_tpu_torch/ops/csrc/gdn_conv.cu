@@ -18,18 +18,23 @@
 // the 64 output pixels as rows (M = 64, K = 25·C): warpgroup wg takes
 // output channels [wg·O/2, (wg + 1)·O/2) (N = O/2), its warp w output row w
 // of the tile, whose 16 pixels it loads from the window with ldmatrix. γ's
-// hi/lo split (32 channels a stage) and then the weights (64 channels of
-// one tap a stage) stream through a 3-slot cp.async ring that both
-// warpgroups read, so a block fetches each weight once: 1.84 MB of L2
-// traffic per block at C = 192.
+// hi/lo split (32 channels a stage, C rows) and then the weights (64
+// channels of one tap a stage, O rows) stream through a 3-slot cp.async
+// ring of max(C, O) rows a slot that both warpgroups read, so a block
+// fetches each weight once: 1.84 MB of L2 traffic per block at C = O = 192.
+// The output width O may differ from C: g_a's last stage of a model with
+// N ≠ M, GDN(N) → Conv(N → M), runs at (C, O) = (128, 192).
 // Halo pixels are normalised again by the neighbouring block: 385 window
 // pixels for 256 input pixels. Window columns are stored even ones first,
 // then odd ones, so a stride-2 tap reads consecutive slots (conflict-free
 // ldmatrix rows).
 //
-// Shared memory at C = 192: window 385 × 400 B = 154,000 B + ring 3 × 192
-// rows × 128 B = 73,728 B + up to 1,024 B to align the ring: 228,752 B of
-// the 232,448 B a block may have, so one block per SM. Registers
+// Shared memory at C = O = 192: window 385 × 400 B = 154,000 B + ring 3 ×
+// 192 rows × 128 B = 73,728 B + up to 1,024 B to align the ring: 228,752 B
+// of the 232,448 B a block may have, so one block per SM. At (128, 192):
+// 385 × 272 B = 104,720 B + 73,728 B + 1,024 B = 179,472 B. (192, 320)
+// would need 154,000 B + 122,880 B + 1,024 B = 277,904 B: it needs O split
+// across blocks, and no model of the port reaches it. Registers
 // (nvcc -Xptxas -v): 149 / 110 / 89 at C = 192 / 128 / 64, no spills.
 //
 // Bound on the H100 at g_a's first stage (4 × 192 × 544 × 960 → 272 × 480):
@@ -58,16 +63,30 @@ __device__ __forceinline__ int conv_slot(int r, int c) {
   return r * kWinW + (c & 1) * kHalf + (c >> 1);
 }
 
+// Ring rows a slot: γ's stages have C rows, the weights' O.
+template <int C, int O>
+__host__ __device__ constexpr int ring_rows() {
+  return C > O ? C : O;
+}
+
+template <int C, int O>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return tc::Layout<C>::window_bytes(kSlots) + 1024 +
+         static_cast<size_t>(tc::kStages) * ring_rows<C, O>() *
+             tc::kRowBytes;
+}
+
 // gamma_s: (C/32, C, 64) bf16, γ's hi/lo split (ops/kernels.py::
 // split_gamma); w: (25, C/64, O, 64) bf16, [ky·5 + kx][c / 64][o][c % 64]
-// (pack_conv_weight). O = C.
-template <int C>
+// (pack_conv_weight).
+template <int C, int O>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
                 const float* __restrict__ beta, const bf16* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ out, int H,
                 int W, int Ho, int Wo, int tiles_w) {
-  constexpr int O = C;
+  static_assert(O % 64 == 0, "two warpgroups of O/2 output channels");
+  static_assert(smem_bytes<C, O>() <= 232448, "shared memory of a block");
   constexpr int KC = C / 64;   // ring stages per tap
   constexpr int KN = C / 32;   // ring stages per norm round
   constexpr int kNorm = tc::norm_stages<C>(kSlots);
@@ -78,12 +97,13 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
   const uint32_t win_u32 = tc::smem_u32(smem);
 
   STEM_PHASE(0);
-  auto src = [=](int q) -> const bf16* {
-    return q < kNorm ? gamma_s + (q % KN) * (C * 64)
-                     : w + (q - kNorm) * (O * 64);
-  };
-  const auto ring =
-      tc::make_ring<C>(tc::ring_base<C>(smem, kSlots), kStagesAll, src);
+  const auto ring = tc::make_ring_fn<ring_rows<C, O>()>(
+      tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
+        if (q < kNorm)
+          tc::load_stage<C>(dst, gamma_s + (q % KN) * (C * 64));
+        else
+          tc::load_stage<O>(dst, w + (q - kNorm) * (O * 64));
+      });
   ring.prefetch();
 
   const int b = blockIdx.y;
@@ -136,7 +156,7 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
   STEM_PHASE(3);
 }
 
-template <int C>
+template <int C, int O>
 int launch(const bf16* x, const bf16* gamma_s, const float* beta,
            const bf16* w, const float* bias, bf16* out, long long batch,
            int H, int W, cudaStream_t stream) {
@@ -145,10 +165,10 @@ int launch(const bf16* x, const bf16* gamma_s, const float* beta,
   const long long tiles =
       static_cast<long long>((Ho + kTileH - 1) / kTileH) * tiles_w;
   if (batch > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = tc::Layout<C>::bytes(kSlots);
-  cudaError_t err = tc::allow_smem(gdn_conv_kernel<C>, smem);
+  const size_t smem = smem_bytes<C, O>();
+  cudaError_t err = tc::allow_smem(gdn_conv_kernel<C, O>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gdn_conv_kernel<C>
+  gdn_conv_kernel<C, O>
       <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch)),
          tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias, out, H, W,
                                        Ho, Wo, tiles_w);
@@ -163,7 +183,8 @@ extern "C" {
 // x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and lo
 // (ops/kernels.py::split_gamma); beta (C,) f32; w (25, C/64, O, 64) bf16 =
 // the conv weight as [ky·5 + kx][c / 64][o][c % 64] (pack_conv_weight);
-// bias (O,) f32; out (B, O, ⌈H/2⌉, ⌈W/2⌉) bf16. C = O ∈ {64, 128, 192}.
+// bias (O,) f32; out (B, O, ⌈H/2⌉, ⌈W/2⌉) bf16. (C, O) ∈ {(64, 64),
+// (128, 128), (192, 192), (128, 192)} (ops/kernels.py::GDN_CONV_PAIRS).
 int stem_gdn_conv_fused_bf16(const void* x, const void* gamma_s,
                              const float* beta, const void* w,
                              const float* bias, void* out, long long batch,
@@ -175,13 +196,17 @@ int stem_gdn_conv_fused_bf16(const void* x, const void* gamma_s,
   const bf16* wb = static_cast<const bf16*>(w);
   bf16* ob = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C != O) return cudaErrorInvalidValue;
-  if (C == 64)
-    return stem::launch<64>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
-  if (C == 128)
-    return stem::launch<128>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
-  if (C == 192)
-    return stem::launch<192>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 64 && O == 64)
+    return stem::launch<64, 64>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 128 && O == 128)
+    return stem::launch<128, 128>(xb, gs, beta, wb, bias, ob, batch, H, W,
+                                  s);
+  if (C == 192 && O == 192)
+    return stem::launch<192, 192>(xb, gs, beta, wb, bias, ob, batch, H, W,
+                                  s);
+  if (C == 128 && O == 192)
+    return stem::launch<128, 192>(xb, gs, beta, wb, bias, ob, batch, H, W,
+                                  s);
   return cudaErrorInvalidValue;
 }
 

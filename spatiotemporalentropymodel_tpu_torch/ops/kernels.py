@@ -25,7 +25,8 @@ the tests run. On a CUDA tensor it launches or raises; it never falls back.
 ``LAUNCHES`` counts the launches per kernel (the bf16 entries of
 ``gdn_fused`` and ``quantize_and_index`` as ``gdn_fused_bf16`` and
 ``quantize_and_index_bf16``), so a caller can show that a path went through
-the kernels. The kernels' layout is the port's: channel-second (NCHW) for
+the kernels; ``LAUNCHES_BY_WIDTH`` splits the same launches by channel
+widths. The kernels' layout is the port's: channel-second (NCHW) for
 the GDN and conv kernels; the elementwise quantizer takes any shape whose
 batch items (dimension 0) are each contiguous.
 
@@ -60,9 +61,27 @@ LAUNCHES = {
     "igdn_deconv_wide": 0,
 }
 
+# launches per (kernel, its channel widths): the same launches as LAUNCHES,
+# split by the widths (C for gdn_fused, (C, O) for the GDN + conv kernels,
+# none for quantize_and_index), so a path's count at one model width shows
+LAUNCHES_BY_WIDTH = {}
+
+
+def _count(name, *widths) -> None:
+    """One launch of kernel ``name`` at ``widths``: the one place a wrapper
+    counts it."""
+    LAUNCHES[name] += 1
+    key = (name, *widths)
+    LAUNCHES_BY_WIDTH[key] = LAUNCHES_BY_WIDTH.get(key, 0) + 1
+
+
 # channel counts the fused GDN + conv kernels are instantiated for
 # (gdn_conv.cu, igdn_deconv.cu)
 FUSED_CHANNELS = (64, 128, 192)
+
+# (C, O) pairs ``gdn_conv_fused`` is instantiated for (gdn_conv.cu): C = O
+# at each width, and g_a's last stage of the N = 128, M = 192 I-model
+GDN_CONV_PAIRS = ((64, 64), (128, 128), (192, 192), (128, 192))
 
 # the JAX package's peephole knobs (pallas_kernels.py:1341, :513, :262,
 # :1151), with its defaults
@@ -96,6 +115,7 @@ def knobs(**values):
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    LAUNCHES_BY_WIDTH.clear()
 
 
 @lru_cache(maxsize=1)
@@ -236,7 +256,7 @@ def _gdn_launch(x, gamma_t, beta, inverse: bool):
         b, cp, p, int(bool(inverse)), _stream(x.device),
     )
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, c)
     return out[:, :c].reshape(x.shape) if cp != c else out.view(x.shape)
 
 
@@ -393,7 +413,7 @@ def _qidx_launch(y, means, scales, table, scale_bound):
             ss, table.data_ptr(), levels, float(scale_bound), ptr, ptr + off,
             _stream(y.device))
         _raise_on(rc, name)
-        LAUNCHES[name] += 1
+        _count(name)
     return (buf.view(torch.int32).as_strided(shape, strides),
             buf.as_strided(shape, strides, off))
 
@@ -424,7 +444,7 @@ def _igdn_deconv_ref(x, gamma_t, beta, weight, bias):
 
 
 def gdn_conv_supported(in_ch: int, out_ch: int) -> bool:
-    return in_ch == out_ch and in_ch in FUSED_CHANNELS
+    return (in_ch, out_ch) in GDN_CONV_PAIRS
 
 
 def igdn_deconv_wide_supported(in_ch: int, out_ch: int) -> bool:
@@ -590,7 +610,7 @@ def _gdn_conv_launch(x, gamma_t, beta, weight, bias):
         x.data_ptr(), gs.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, c, o, h, w, _stream(x.device))
     _raise_on(rc, "gdn_conv_fused")
-    LAUNCHES["gdn_conv_fused"] += 1
+    _count("gdn_conv_fused", c, o)
     return out
 
 
@@ -615,7 +635,7 @@ def _wide_launch(name, x, gamma_t, beta, weight, bias):
         x.data_ptr(), gs.data_ptr(), beta.data_ptr(), wp.data_ptr(),
         bias.data_ptr(), out.data_ptr(), b, c, o, h, w, _stream(x.device))
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, c, o)
     return out
 
 
@@ -651,7 +671,7 @@ def _narrow_launch(name, supported, x, gamma_t, beta, weight, bias):
         bias_m.data_ptr(), out.data_ptr(), b, c, f, narrow_rows(f), h, w,
         _stream(x.device))
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    _count(name, c, f)
     return out
 
 

@@ -333,13 +333,14 @@ def _wide_range(rng, shape, device):
     return torch.from_numpy(a).to(device).to(torch.bfloat16)
 
 
-def _check_gdn_conv(cuda, c, h, w, wide_range=False):
+def _check_gdn_conv(cuda, c, h, w, wide_range=False, o=None):
+    o = c if o is None else o
     rng = np.random.default_rng(c + h)
     x = (_wide_range(rng, (2, c, h, w), cuda) if wide_range
          else _bf16(rng, (2, c, h, w), cuda))
     gt, beta = _gdn_params(rng, c, cuda)
-    weight = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
-    bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(
+    weight = _bf16(rng, (o, c, 5, 5), cuda, 0.05)
+    bias = torch.from_numpy(rng.standard_normal(o).astype(np.float32)).to(
         cuda)
     n0 = kernels.LAUNCHES["gdn_conv_fused"]
     out = kernels.gdn_conv_fused(x, gt, beta, weight, bias)
@@ -347,7 +348,7 @@ def _check_gdn_conv(cuda, c, h, w, wide_range=False):
     win = _window_bf16_conv(x, gt, beta, False, lambda g: F.conv2d(
         g, weight.float(), bias, 2, 2))
     torch.cuda.synchronize()
-    assert out.shape == ref.shape == (2, c, (h + 1) // 2, (w + 1) // 2)
+    assert out.shape == ref.shape == (2, o, (h + 1) // 2, (w + 1) // 2)
     _assert_scaled_close(out, ref, PLAIN_TOL)
     _assert_scaled_close(out, win, WINDOW_TOL)
     assert kernels.LAUNCHES["gdn_conv_fused"] == n0 + 1
@@ -362,6 +363,17 @@ def test_cuda_gdn_conv_fused_matches_plain(cuda, c, h, w):
     right edges with W a multiple of 8 (the 16-byte window load) and not
     (the 2-byte gather), and whole tiles only (8 × 32 → 4 × 16)."""
     _check_gdn_conv(cuda, c, h, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,wide_range", [(17, 35, False),
+                                            (20, 72, False),
+                                            (20, 72, True)])
+def test_cuda_gdn_conv_fused_128_to_192(cuda, h, w, wide_range):
+    """C = 128 → O = 192, g_a's last stage of the hero I-model (N = 128,
+    M = 192): a ring slot of O rows for the weights and C for γ."""
+    assert kernels.gdn_conv_supported(128, 192)
+    _check_gdn_conv(cuda, 128, h, w, wide_range, o=192)
 
 
 @pytest.mark.cuda
@@ -701,7 +713,7 @@ def _encoder_recon(stem, enc, y_cur, y_cond):
     priors = stem._tiled_priors(z_hat, y_cond, th, tw, nt)
     target = wf.tile_plane((y_cur - y_cond).permute(0, 2, 3, 1), th, tw)
     _, _, rounds, encoder, *_ = stem._wavefront_setup(th, tw)
-    recon = wf.untile_plane(encoder(target, priors, rounds)[2], b, h, w)
+    recon = wf.untile_plane(encoder(target, priors, rounds, b)[2], b, h, w)
     return _nchw(recon.permute(0, 3, 1, 2)) + y_cond
 
 

@@ -73,25 +73,47 @@ def test_pipeline_streams_match_model_api_and_jax(wf_setup):
     np.testing.assert_allclose(to_nhwc(y_hat), np.asarray(jhat), atol=1e-4)
 
 
-def test_pipeline_multistream_streams_exact(wf_setup):
+def _assert_batch_invariant(pipe, curs, conds):
     """S streams batched along the batch axis give each stream's solo
-    bitstreams byte for byte, and its solo decode within 1e-5: the CPU's
-    convs and products sum in an order that depends on the batch size (the
-    JAX test asks for equal bits)."""
+    bitstreams byte for byte and its solo decode bit for bit (JAX
+    tests/test_pipeline.py:274-297)."""
+    solo = [pipe.encode_frame(c, yc) for c, yc in zip(curs, conds)]
+    batched = pipe.encode_frame(torch.cat(curs), torch.cat(conds))
+    for s in range(len(curs)):
+        assert batched["strings"][0][s] == solo[s]["strings"][0][0]
+        assert batched["strings"][1][s] == solo[s]["strings"][1][0]
+    y_hat_b = pipe.decode_frame(batched, torch.cat(conds))
+    for s in range(len(curs)):
+        y_hat_s = pipe.decode_frame(solo[s], conds[s])
+        assert torch.equal(y_hat_b[s:s + 1], y_hat_s), s
+
+
+def test_pipeline_multistream_streams_exact(wf_setup):
+    """Two f32 streams batched: each stream's streams and ŷ are its solo
+    ones exactly."""
     x, imodel, stem, _, _ = wf_setup
     pipe = WavefrontVideoPipeline(imodel, stem)
     conds = [pipe.analysis(x), pipe.analysis(x * 0.8 + 0.1)]
     curs = [_noisy(c, 5 + i) for i, c in enumerate(conds)]
-    solo = [pipe.encode_frame(c, yc) for c, yc in zip(curs, conds)]
-    batched = pipe.encode_frame(torch.cat(curs), torch.cat(conds))
-    for s in range(2):
-        assert batched["strings"][0][s] == solo[s]["strings"][0][0]
-        assert batched["strings"][1][s] == solo[s]["strings"][1][0]
-    y_hat_b = pipe.decode_frame(batched, torch.cat(conds))
-    for s in range(2):
-        y_hat_s = pipe.decode_frame(solo[s], conds[s])
-        torch.testing.assert_close(y_hat_b[s:s + 1], y_hat_s, rtol=0,
-                                   atol=1e-5)
+    _assert_batch_invariant(pipe, curs, conds)
+
+
+def test_pipeline_multistream_streams_exact_bf16():
+    """The same at bf16, three streams, tile (1, 4): the nets in bf16
+    round every product, so a batch-dependent sum order would show."""
+    imodel = MeanScaleHyperprior(8, M, device="cpu", seed=4)
+    stem = SpatioTemporalPriorModel(variant="res",
+                                    entropy_bottleneck_channels=EBC,
+                                    in_channels=M, wavefront_tile=(1, 4),
+                                    device="cpu", seed=5)
+    stem.update()
+    imodel.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    pipe = WavefrontVideoPipeline(imodel, stem)
+    g = torch.Generator().manual_seed(6)
+    conds = [torch.randn((1, M, 8, 8), generator=g) for _ in range(3)]
+    curs = [_noisy(c, 7 + i) for i, c in enumerate(conds)]
+    _assert_batch_invariant(pipe, curs, conds)
 
 
 def test_pipeline_gop_schedule(wf_setup):
