@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's serving paths: the P-frame path
 in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
-I-frame codec, the flagship STEM res through WavefrontVideoPipeline, and
-the trained hero models (artifacts/trained/hero) read with jax blocked.
+I-frame codec, the flagship STEM res through WavefrontVideoPipeline, the
+trained hero models (artifacts/trained/hero) read with jax blocked, and the
+file codecs (.stemv video, .bin images) with their CLIs.
 
     python3 chip_smoke.py
 
@@ -93,13 +94,36 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 bpp_est equal to estimate_bpp of stem.forward on the same
                 latents (rtol 1e-5); then the hero res serves them through
                 WavefrontVideoPipeline, tile (1, 4), bf16, held by
-                exactness only. On every path each kernel must have
-                launched exactly as often as the path calls it, and on the
-                hero paths at the widths it runs at.
-  5. report   — one JSON line of kernels (a row per kernel, its launches on
-                every path; then a row per kernel at the hero widths,
-                name@widths, its launches at them), then the card, then
-                the result line.
+                exactness only.
+                file_codecs: the .stemv files of the hero models on the
+                serving probe's frames cut to 1080×1920 (rows 4-1083; the
+                codec pads them to 1088), GOP 4, through encode_video and
+                decode_video(output_dir): without_spm (family 0) in f32,
+                then bf16, every P record sparse, the header's hashes the
+                models' params_hash, the PNGs (read by data/png.py) the
+                decoded frames as decode_video converts them, the frames
+                and streams the in-memory chain's and the file's size its
+                records' to the byte; the same in f32 on the probe's
+                own 1088-row frames, whose P-frames' bpp and PSNR must
+                fall in the band of hero.json's 1080p serving figures
+                (the 1080-row files' padding rows cost bits, so they are
+                held by exactness only); the hero res at tile (1, 4) in
+                bf16 (family 1), its tile in the header and its frames the
+                model-API chain's; data/png.py's writer and reader on a
+                1080p frame, and its reader on one whose rows all use the
+                Paeth filter, each read exact and timed; then both CLIs
+                through main(argv): video_codec
+                with the hero I checkpoint and a seeded STEM (its decode
+                decode_video's), codec with the hero I checkpoint and
+                bmshj2018-factorized/-hyperprior at quality 1 (strings
+                compress's, the PNG decompress's).
+                On every path each kernel must have launched exactly as
+                often as the path calls it, and on the hero paths at the
+                widths it runs at.
+  5. report   — one JSON line of kernels (a row per kernel, its launches
+                summed and by every path that launched it; then a row per
+                kernel at the hero widths, name@widths, its launches at
+                them), then the card, then the result line.
 
 Exits non-zero, printing no result line, on any failure.
 """
@@ -110,6 +134,8 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from functools import partial
+
+import numpy as np
 
 B, H, W = 4, 1088, 1920
 N = M = 192
@@ -1377,6 +1403,422 @@ def run_hero(torch, kernels, card):
     return snaps
 
 
+def _file_want(bf16, n_ga, n_gs, n_q):
+    """Launches (by kernel, by width) of n_ga hero g_a passes, n_gs g_s
+    passes and n_q quantizer calls: per pass 3 GDN stages, fused in bf16 into
+    two 128 → 128 and one 128 → 192 gdn_conv_fused (g_a), or gdn_fused_bf16
+    then the packed pair (g_s)."""
+    if bf16:
+        counts = _want(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
+                       igdn_deconv_wide_packed=n_gs,
+                       igdn_deconv_tail_packed=n_gs,
+                       quantize_and_index_bf16=n_q)
+        widths = {("gdn_conv_fused", HERO_N, HERO_N): 2 * n_ga,
+                  ("gdn_conv_fused", HERO_N, M): n_ga,
+                  ("gdn_fused_bf16", HERO_N): n_gs,
+                  ("igdn_deconv_wide_packed", HERO_N, HERO_N): n_gs,
+                  ("igdn_deconv_tail_packed", HERO_N, 3): n_gs,
+                  ("quantize_and_index_bf16",): n_q}
+    else:
+        counts = _want(gdn_fused=3 * (n_ga + n_gs), quantize_and_index=n_q)
+        widths = {("gdn_fused", HERO_N): 3 * (n_ga + n_gs),
+                  ("quantize_and_index",): n_q}
+    return counts, {k: v for k, v in widths.items() if v}
+
+
+def _counted(torch, kernels, tag, want, fn):
+    """fn() with the launch counts set to 0 just before and checked
+    (by kernel and by width) just after, synchronised; returns (s, fn()'s
+    result, launch snapshot)."""
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, widths = want
+    _check_launches(kernels, tag, counts)
+    _check_widths(kernels, tag, widths)
+    return wall, out, _snap(kernels)
+
+
+def _file_records(vc, path, n):
+    with open(path, "rb") as f:
+        hdr = vc.read_header(f)
+        return hdr, [vc._read_frame(f) for _ in range(n)]
+
+
+def _record_bytes(pack_counts, strings, counts):
+    """A record's size on the wire: 5 bytes of type and ẑ shape, the
+    packed row counts of a sparse record, 4 bytes and the payload per
+    string."""
+    size = 5 + sum(4 + len(g[0]) for g in strings)
+    if counts is not None:
+        size += len(pack_counts(np.asarray(counts).reshape(1, -1)))
+    return size
+
+
+def run_file_leg(torch, kernels, card, i_model, stem, frames, tmp, tag,
+                 bf16):
+    """One .stemv leg on the hero without_spm pair (family 0): encode_video
+    and decode_video of the frames, GOP = their count, each timed with
+    exact launch counts, then decode_video(output_dir) again; every P
+    record sparse, the header's hashes the models', the PNGs the decoded
+    frames as decode_video converts them, the frames the in-memory chain's
+    (I decompress, the pipeline's decode_frame) and the file's size its
+    records' to the byte. Returns ({bpp, psnr} of the P-frames over the
+    picture's rows, launch snapshots by path)."""
+    from spatiotemporalentropymodel_tpu_torch.data.png import read_png
+    from spatiotemporalentropymodel_tpu_torch.entropy.transport import (
+        pack_counts,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.codec import to_png_array
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import psnr
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.ops.padding import pad_centered
+
+    n = len(frames)
+    path, pngs = tmp / f"{tag}.stemv", tmp / f"{tag}_png"
+    meta = {"i_model": "mbt2018-mean", "i_quality": 3}
+    enc_s, stats, snap_e = _counted(
+        torch, kernels, f"{tag}_encode",
+        _file_want(bf16, n, 1, n),
+        lambda: vc.encode_video(frames, i_model, stem, path, gop=n,
+                                meta=meta))
+    dec_s, decoded, snap_d = _counted(
+        torch, kernels, f"{tag}_decode", _file_want(bf16, 0, n, 0),
+        lambda: vc.decode_video(path, i_model, stem))
+    t0 = time.perf_counter()
+    again = vc.decode_video(path, i_model, stem, output_dir=pngs)
+    png_s = time.perf_counter() - t0
+    if not all(np.array_equal(a, b) for a, b in zip(again, decoded)):
+        raise AssertionError(f"{tag}: a second decode differs")
+    hdr, records = _file_records(vc, path, n)
+    if [r[0] for r in records] != [vc.FTYPE_I] + [vc.FTYPE_P_SPARSE] * (n - 1):
+        raise AssertionError(f"{tag}: record types {[r[0] for r in records]}")
+    hashes = (vc.params_hash(stem), vc.params_hash(i_model))
+    if (hdr["stem_params_hash"], hdr["i_params_hash"]) != hashes:
+        raise AssertionError(f"{tag}: header hashes differ from the models'")
+    for t, fr in enumerate(decoded):
+        if not np.array_equal(read_png(pngs / f"frame_{t:04d}.png"),
+                              to_png_array(fr)):
+            raise AssertionError(f"{tag} frame {t}: the PNG is not the "
+                                 f"decoded frame")
+    # the in-memory chain: the same streams, the same frames, the same bytes
+    pipe = StemVideoPipeline(i_model, stem, transport_mode="sparse")
+    size, yc = 45, None
+    top = (-(-frames[0].shape[0] // 64) * 64 - frames[0].shape[0]) // 2
+    rows = slice(top, top + frames[0].shape[0])
+    for t, fr in enumerate(frames):
+        x = torch.from_numpy(fr).permute(2, 0, 1)[None].cuda()
+        x, _ = pad_centered(x, 64)
+        if t == 0:
+            enc = i_model.compress(x)
+            dec = i_model.decompress(enc["strings"], enc["shape"])
+            x_hat, yc, counts = dec["x_hat"], dec["y_hat"], None
+        else:
+            enc, _ = pipe.encode_frame(x, yc)
+            x_hat, yc = pipe.decode_frame(enc, y_cond=yc)
+            counts = enc["counts"]
+        if enc["strings"] != records[t][3]:
+            raise AssertionError(f"{tag} frame {t}: file streams differ from "
+                                 f"the in-memory encode's")
+        want = x_hat[0].float().permute(1, 2, 0).cpu().numpy()[rows]
+        if not np.array_equal(decoded[t], want):
+            raise AssertionError(f"{tag} frame {t}: decoded frame differs "
+                                 f"from the in-memory chain's")
+        size += _record_bytes(pack_counts, enc["strings"], counts)
+    nbytes = path.stat().st_size
+    if nbytes != size:
+        raise AssertionError(f"{tag}: file of {nbytes} B, records and header "
+                             f"{size} B")
+    p_bytes = sum(_record_bytes(pack_counts, r[3], r[2]) for r in records[1:])
+    h, w = frames[0].shape[:2]
+    psnrs = [float(psnr(torch.from_numpy(frames[t]),
+                        torch.from_numpy(decoded[t]))) for t in range(1, n)]
+    got = dict(bpp=p_bytes * 8.0 / ((n - 1) * h * w),
+               psnr=sum(psnrs) / len(psnrs))
+    log(f"  {tag}: {n} frames of {h}×{w} (GOP {n}), file {nbytes} B (header "
+        f"45 B, P records {p_bytes} B), {stats['bpp']:.5f} bpp in all; "
+        f"encode {n / enc_s:.3f} frames/s, decode {n / dec_s:.3f} frames/s "
+        f"({png_s:.2f} s with the PNG writes); P-frames {got['bpp']:.5f} bpp, "
+        f"{got['psnr']:.3f} dB; sparse records, hashes, PNGs, in-memory "
+        f"chain and bytes exact, launches exact | card: {card}")
+    return got, {f"{tag}_encode": snap_e, f"{tag}_decode": snap_d}
+
+
+def run_file_wavefront(torch, kernels, card, frames, tmp):
+    """The hero res at tile (1, 4), bf16, through encode_video/decode_video
+    (family 1): cfg0, cfg1 = the tile, launches exact, the decoded frames
+    the model-API chain's exactly (tests/test_video_codec.py:146-195)."""
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import load_hero
+    from spatiotemporalentropymodel_tpu_torch.ops.padding import pad_centered
+
+    tag, n = "file_codecs_res_bf16", len(frames)
+    models = load_hero(device="cuda", variants=("res",),
+                       wavefront_tile=RES_TILE)
+    i_model, stem = models["i"], models["res"]
+    i_model.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    path = tmp / "res.stemv"
+    enc_s, stats, snap_e = _counted(
+        torch, kernels, f"{tag}_encode", _file_want(True, n, 1, 1),
+        lambda: vc.encode_video(frames, i_model, stem, path, gop=n))
+    dec_s, decoded, snap_d = _counted(
+        torch, kernels, f"{tag}_decode", _file_want(True, 0, n, 0),
+        lambda: vc.decode_video(path, i_model, stem))
+    hdr, records = _file_records(vc, path, n)
+    if (hdr["stem_family"], hdr["cfg0"], hdr["cfg1"]) != (1, *RES_TILE):
+        raise AssertionError(f"{tag}: header {hdr}")
+    if [r[0] for r in records] != [0] + [vc.FTYPE_P_WAVEFRONT] * (n - 1):
+        raise AssertionError(f"{tag}: record types {[r[0] for r in records]}")
+    h = frames[0].shape[0]
+    top = (-(-h // 64) * 64 - h) // 2
+    yc = None
+    for t, fr in enumerate(frames):
+        x, _ = pad_centered(torch.from_numpy(fr).permute(2, 0, 1)[None]
+                            .cuda(), 64)
+        if t == 0:
+            enc = i_model.compress(x)
+            dec = i_model.decompress(enc["strings"], enc["shape"])
+            x_hat, yc = dec["x_hat"], dec["y_hat"]
+        else:
+            enc = stem.compress(i_model.analysis(x), yc)
+            yc = stem.decompress(enc["strings"], enc["shape"], yc)["y_hat"]
+            x_hat = i_model.get_x(yc)
+        want = x_hat[0].float().permute(1, 2, 0).cpu().numpy()[top:top + h]
+        if not np.array_equal(decoded[t], want):
+            raise AssertionError(f"{tag} frame {t}: decoded frame differs "
+                                 f"from the model-API chain's")
+    log(f"  {tag}: tile {RES_TILE} in the header, file "
+        f"{path.stat().st_size} B, {stats['bpp']:.5f} bpp; encode "
+        f"{n / enc_s:.3f} frames/s, decode {n / dec_s:.3f} frames/s; "
+        f"decoded frames == the model-API chain, launches exact | card: "
+        f"{card}")
+    return {f"{tag}_encode": snap_e, f"{tag}_decode": snap_d}
+
+
+def _paeth_png(path, rgb):
+    """rgb as an 8-bit RGB PNG whose rows all use the Paeth filter. The
+    encoder's predictors read the original pixels, so it vectorises; the
+    reader's depend on the pixels it rebuilds (data/png.py's diagonals)."""
+    import struct
+    import zlib
+
+    from spatiotemporalentropymodel_tpu_torch.data import png
+
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 1:], b[1:], c[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.empty((h, 3 * w + 1), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = ((x - pred) & 0xFF).reshape(h, 3 * w)
+    with open(path, "wb") as f:
+        f.write(png.SIGNATURE
+                + png._chunk(b"IHDR", struct.pack(">2I5B", w, h, 8, 2, 0, 0,
+                                                  0))
+                + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
+                + png._chunk(b"IEND", b""))
+
+
+def run_png(card, frame, tmp):
+    """data/png.py on a 1080p frame, timed on the host: the port's writer
+    (Up rows) and its reader, then the reader on a file whose rows all use
+    the Paeth filter; each read must give the frame back."""
+    from spatiotemporalentropymodel_tpu_torch.data.png import (
+        read_png, write_png,
+    )
+
+    times = {}
+    for name, write in (("up", write_png), ("paeth", _paeth_png)):
+        path = tmp / f"{name}.png"
+        t0 = time.perf_counter()
+        write(path, frame)
+        t1 = time.perf_counter()
+        back = read_png(path)
+        times[name] = (t1 - t0, time.perf_counter() - t1)
+        if not np.array_equal(back, frame):
+            raise AssertionError(f"png: the {name} file reads back wrong")
+    h, w = frame.shape[:2]
+    log(f"  png ({h}×{w}, host): write_png {times['up'][0]:.3f} s, read_png "
+        f"{times['up'][1]:.3f} s (Up rows); read_png of Paeth rows "
+        f"{times['paeth'][1]:.3f} s; both read back exactly | card: {card}")
+
+
+def run_file_clis(torch, kernels, card, frames_u8, tmp):
+    """Both CLIs through main(argv), f32, on PNG files that data/png.py
+    wrote: video_codec with the hero I checkpoint (mbt2018-mean, quality
+    3) and a seeded STEM (EB 128), its decode equal to decode_video of the
+    same file; codec with the hero I checkpoint (its strings those of
+    MeanScaleHyperprior.compress), then bmshj2018-factorized and
+    bmshj2018-hyperprior at quality 1 from their seeds (strings those of
+    compress, the decoded PNG that of decompress). Launches exact."""
+    from types import SimpleNamespace
+
+    from spatiotemporalentropymodel_tpu_torch.data.png import (
+        read_png, write_png,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval import codec
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import HERO_DIR
+    from spatiotemporalentropymodel_tpu_torch.ops.padding import pad_centered
+
+    ckpt = str(HERO_DIR / "ckpt_i_0.012.pkl.gz")
+    src = tmp / "cli_frames"
+    src.mkdir()
+    for t, f in enumerate(frames_u8):
+        write_png(src / f"frame_{t:04d}.png", f)
+    n, h, w = len(frames_u8), *frames_u8[0].shape[:2]
+    snaps = {}
+    out = tmp / "cli.stemv"
+    args = ["--i-model", "mbt2018-mean", "--i-quality", "3",
+            "--i-checkpoint", ckpt, "--stem-channels", "128"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    vc.main(["encode", str(src), "-o", str(out), "--gop", str(n), *args])
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    _, records = _file_records(vc, out, n)
+    kinds = [r[0] for r in records]
+    sparse, dense = kinds.count(vc.FTYPE_P_SPARSE), kinds.count(
+        vc.FTYPE_P_DENSE)
+    if kinds[0] != vc.FTYPE_I or sparse + dense != n - 1:
+        raise AssertionError(f"video_codec CLI: record types {kinds}")
+    # a dense P-frame encodes twice (the sparse try, then dense) and decodes
+    # once for its carry; an I-frame compresses and decompresses
+    counts, widths = _file_want(False, 1 + sparse + 2 * dense, 1 + dense,
+                                1 + sparse + 2 * dense)
+    _check_launches(kernels, "cli_video_encode", counts)
+    _check_widths(kernels, "cli_video_encode", widths)
+    snaps["cli_video_encode"] = _snap(kernels)
+    rec = tmp / "cli_rec"
+    snaps["cli_video_decode"] = _counted(
+        torch, kernels, "cli_video_decode", _file_want(False, 0, n, 0),
+        lambda: vc.main(["decode", str(out), "-o", str(rec),
+                         "--i-checkpoint", ckpt]))[2]
+    ns = SimpleNamespace(i_model="mbt2018-mean", i_quality=3,
+                         i_checkpoint=ckpt, stem_family="parallel",
+                         stem_variant="without_spm", stem_channels=128,
+                         stem_checkpoint=None, wavefront_tile=None,
+                         device="cuda")
+    i_model, stem = vc._build_models(ns)
+    for t, fr in enumerate(vc.decode_video(out, i_model, stem)):
+        if not np.array_equal(read_png(rec / f"frame_{t:04d}.png"),
+                              codec.to_png_array(fr)):
+            raise AssertionError(f"video_codec CLI frame {t}: its decode "
+                                 f"differs from decode_video's")
+    log(f"  cli video_codec: {n} frames of {h}×{w}, records {kinds} (the "
+        f"STEM at its seeded initialisation), {out.stat().st_size} B; encode "
+        f"{n / enc_s:.3f} frames/s with the model build and PNG reads; "
+        f"decode == decode_video, launches exact")
+
+    png = src / "frame_0000.png"
+    x = codec.to_device(codec._load_image(png), "cuda")
+    x_padded, _ = pad_centered(x, 64)
+    top, left = (x_padded.shape[2] - h) // 2, (x_padded.shape[3] - w) // 2
+    for name, q, ck in (("mbt2018-mean", 3, ckpt),
+                        ("bmshj2018-factorized", 1, None),
+                        ("bmshj2018-hyperprior", 1, None)):
+        tag = f"cli_codec_{name}"
+        binf, recf = tmp / f"{name}.bin", tmp / f"{name}.png"
+        qidx = int(name != "bmshj2018-factorized")
+        cli = ["--model", name, "--quality", str(q)] + (
+            ["--checkpoint", ck] if ck else [])
+        enc_s, _, snaps[f"{tag}_encode"] = _counted(
+            torch, kernels, f"{tag}_encode", _file_want(False, 1, 0, qidx),
+            lambda: codec.main(["encode", str(png), "-o", str(binf), *cli]))
+        dec_s, _, snaps[f"{tag}_decode"] = _counted(
+            torch, kernels, f"{tag}_decode", _file_want(False, 0, 1, 0),
+            lambda: codec.main(["decode", str(binf), "-o", str(recf)] + (
+                ["--checkpoint", ck] if ck else [])))
+        model = codec._build_model(name, q, ck, "cuda")
+        enc = model.compress(x_padded)
+        with open(binf, "rb") as f:
+            f.read(2 + 8 + 12)
+            strings = []
+            for _ in range(len(enc["strings"])):
+                (length,) = codec._read_uints(f, 1)
+                strings.append([f.read(length)])
+        if strings != enc["strings"]:
+            raise AssertionError(f"{tag}: file strings differ from "
+                                 f"compress's")
+        x_hat = model.decompress(enc["strings"], enc["shape"])["x_hat"]
+        x_hat = x_hat[0, :, top:top + h, left:left + w]
+        want = x_hat.float().permute(1, 2, 0).cpu().numpy()
+        if not np.array_equal(read_png(recf), codec.to_png_array(want)):
+            raise AssertionError(f"{tag}: the decoded PNG is not "
+                                 f"decompress's x̂")
+        log(f"  cli codec {name} q{q}: {binf.stat().st_size} B "
+            f"({binf.stat().st_size * 8 / (h * w):.4f} bpp), encode "
+            f"{enc_s:.2f} s, decode {dec_s:.2f} s (each with its model "
+            f"build and PNG I/O); strings == compress's, PNG == "
+            f"decompress's, launches exact")
+    log(f"  cli checks held | card: {card}")
+    return snaps
+
+
+def run_file_codecs(torch, kernels, card):
+    """file_codecs: the .stemv files of the hero models at 1080×1920 (the
+    rows [4:1084] of the serving probe's frames, padded to 1088 by the
+    codec), family 0 in f32 then bf16, family 1 in bf16, then both CLIs;
+    and family 0 in f32 on the probe's own 1088-row frames, whose P-frames
+    are held to hero.json's 1080p serving figures. The 1080-row files are
+    held by exactness only: the codec's centred padding puts 4 black rows
+    above and below the picture, whose edges cost bits that hero.json's
+    frames never paid. Returns the launch snapshots by path."""
+    import tempfile
+    from pathlib import Path
+
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames, hero_config, load_hero,
+    )
+
+    full_u8 = hero_1080p_frames()
+    frames_u8 = [f[4:1084] for f in full_u8]
+    frames = [f.astype(np.float32) / 255.0 for f in frames_u8]
+    models = load_hero(device="cuda", variants=("without_spm",))
+    i_model, stem = models["i"], models["without_spm"]
+    snaps, got = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        got["f32_1088"], legs = run_file_leg(
+            torch, kernels, card, i_model, stem,
+            [f.astype(np.float32) / 255.0 for f in full_u8], tmp,
+            "file_codecs_f32_1088", False)
+        snaps.update(legs)
+        _within_band("file_codecs_f32_1088 vs hero.json's 1080p serving",
+                     got["f32_1088"], hero_config()["serving_1080p"])
+        for bf16 in (False, True):
+            dt = "bf16" if bf16 else "f32"
+            if bf16:
+                i_model.set_compute_dtype(torch.bfloat16)
+                stem.set_compute_dtype(torch.bfloat16)
+            got[dt], legs = run_file_leg(
+                torch, kernels, card, i_model, stem, frames, tmp,
+                f"file_codecs_{dt}", bf16)
+            snaps.update(legs)
+        log("  P-frames over the picture's rows: "
+            + ", ".join(f"{k} {v['bpp']:.5f} bpp / {v['psnr']:.3f} dB"
+                        for k, v in got.items())
+            + " (the 1080-row legs' padding rows cost bits; the 1088-row "
+              "leg is the band's)")
+        del models, i_model, stem
+        torch.cuda.empty_cache()
+        snaps.update(run_file_wavefront(torch, kernels, card, frames, tmp))
+        torch.cuda.empty_cache()
+        run_png(card, frames_u8[0], tmp)
+        snaps.update(run_file_clis(torch, kernels, card, frames_u8, tmp))
+    return snaps
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -1488,6 +1930,9 @@ def main() -> int:
     log("[4/5] the trained hero models (N 128, M 192, EB 128) with jax "
         "blocked: hero_eval, hero_serving_1080p, gop_forward")
     hero = run_hero(torch, kernels, card)
+    log("[4/5] file_codecs: .stemv files of the hero models at 1080×1920 "
+        "(family 0 f32 and bf16, family 1 bf16), then both CLIs")
+    hero.update(run_file_codecs(torch, kernels, card))
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -1510,7 +1955,7 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": line, "launches": sum(per_path.values()),
-            "launches_by_path": per_path,
+            "launches_by_path": {k: v for k, v in per_path.items() if v},
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"], "library_ms": res["library_ms"],

@@ -10,10 +10,14 @@ names mirror the JAX package's:
 - ``entropy`` : EntropyBottleneck / GaussianConditional, CDF tables, host
                 compress/decompress, the sparse-grouped transport
 - ``coders``  : the native C++ rANS coder (ctypes)
-- ``models``  : MeanScaleHyperprior, the five STEM P-frame variants and
-                the wavefront AR codec of the SPM ones
-- ``eval``    : the P-frame serving pipelines (parallel and wavefront) and
-                the benchmark workload
+- ``models``  : FactorizedPrior, ScaleHyperprior, MeanScaleHyperprior, the
+                five STEM P-frame variants and the wavefront AR codec of the
+                SPM ones
+- ``zoo``     : the model registry and quality configurations
+- ``data``    : PNG files (no PIL) and GOP sequences
+- ``eval``    : the P-frame serving pipelines (parallel and wavefront), the
+                file codecs (``.bin`` images, ``.stemv`` video), the image
+                and GOP evaluations, and the benchmark workload
 - ``convert`` : loads the JAX package's parameter trees (NumPy) into the port
 
 It imports torch and NumPy, never jax. Kernels and the coder build at first
@@ -22,3 +26,29 @@ caller passes ``device="cpu"``, where the kernels' plain versions run.
 """
 
 __version__ = "0.1.0"
+
+_entropy_coder = "rans"
+# the JAX package also has "rans_interleaved" and "numpy"
+_available_coders = ["rans"]
+
+
+def available_entropy_coders():
+    """Names of the entropy coders the port has (``__init__.py:56-82`` of
+    the JAX package): the native C++ rANS, bitstream-compatible with the
+    reference's ``compressai.ans``."""
+    return list(_available_coders)
+
+
+def set_entropy_coder(name: str) -> None:
+    """Set the default entropy coder by name."""
+    global _entropy_coder
+    if name not in _available_coders:
+        raise ValueError(
+            f'Invalid entropy coder "{name}", choose from {_available_coders}'
+        )
+    _entropy_coder = name
+
+
+def get_entropy_coder() -> str:
+    """The current default entropy coder's name."""
+    return _entropy_coder

@@ -13,7 +13,9 @@ one. Layout changes:
 
 A checkpoint read without jax (training/checkpoints.py) gives the leaves of
 such a tree without their paths: ``load_jax_leaves`` rebuilds the paths from
-the port's module in jax's order and loads them.
+the port's module in jax's order and loads them. ``jax_leaves`` goes the
+other way: the port's parameters as that tree's leaves, with their paths
+(the weight hash of the video container, eval/video_codec.py).
 """
 
 import numpy as np
@@ -82,27 +84,52 @@ def _jax_keys(owner):
     return keys
 
 
+def _jax_views(module: torch.nn.Module):
+    """(JAX path, the parameter in the JAX layout, whether that layout is
+    also flipped in kh and kw) of every parameter of ``module``, in its
+    order. The views are transposed only: Conv and MaskedConv2d (O, I, kh,
+    kw) → (kh, kw, I, O), Deconv (I, O, kh, kw) → (kh, kw, I, O)."""
+    for name, p in module.named_parameters():
+        *owner, leaf = name.split(".")
+        t, flip = p.detach(), False
+        if leaf == "weight":
+            sub = module.get_submodule(".".join(owner))
+            if isinstance(sub, Deconv):
+                t, flip = t.permute(2, 3, 0, 1), True
+            elif isinstance(sub, (Conv, MaskedConv2d)):
+                t = t.permute(2, 3, 1, 0)
+            else:
+                raise ValueError(f"weight of a {type(sub).__name__} at "
+                                 f"{'.'.join(owner)}")
+            leaf = "kernel"
+        yield tuple(_jax_keys(owner)) + (leaf,), t, flip
+
+
 def jax_param_paths(module: torch.nn.Module):
     """[(JAX path, JAX shape)] of ``module``'s parameters in jax's flatten
     order: dict keys sorted as strings at every level (``layers_10`` before
     ``layers_2``), which for paths of keys is the tuples' lexicographic
     order. Kernels take their JAX shapes, (kh, kw, in, out)."""
-    paths = []
-    for name, p in module.named_parameters():
-        *owner, leaf = name.split(".")
-        shape = tuple(p.shape)
-        if leaf == "weight":
-            sub = module.get_submodule(".".join(owner))
-            if isinstance(sub, Deconv):  # (I, O, kh, kw)
-                shape = (shape[2], shape[3], shape[0], shape[1])
-            elif isinstance(sub, (Conv, MaskedConv2d)):  # (O, I, kh, kw)
-                shape = (shape[2], shape[3], shape[1], shape[0])
-            else:
-                raise ValueError(f"weight of a {type(sub).__name__} at "
-                                 f"{'.'.join(owner)}")
-            leaf = "kernel"
-        paths.append((tuple(_jax_keys(owner)) + (leaf,), shape))
-    return sorted(paths)
+    return sorted((path, tuple(t.shape)) for path, t, _ in _jax_views(module))
+
+
+def jax_leaves(module: torch.nn.Module):
+    """[(JAX path, NumPy array)] of ``module``'s parameters in jax's flatten
+    order, each in the JAX layout (the inverse of ``state_dict_from_jax``)
+    and in the parameter's current dtype. NumPy has no bf16: bf16
+    parameters come as uint16 arrays of their bit patterns, whose bytes
+    are those of the JAX package's bf16 leaves."""
+    out = []
+    for path, t, flip in _jax_views(module):
+        if flip:
+            t = torch.flip(t, (0, 1))
+        t = t.contiguous().cpu()
+        if t.dtype == torch.bfloat16:
+            arr = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            arr = t.numpy()
+        out.append((path, arr))
+    return sorted(out, key=lambda e: e[0])
 
 
 def tree_from_leaves(module: torch.nn.Module, leaves) -> dict:

@@ -95,6 +95,15 @@ class LeakyReLU(nn.Module):
         return F.leaky_relu(x, slope)
 
 
+class ReLU(nn.Module):
+    """max(x, 0), a ``Sequential`` entry of its own as the JAX package's
+    ``_ReLU`` is (models/priors.py there), so the layer indices of the
+    parameter tree line up."""
+
+    def forward(self, x):
+        return torch.relu(x)
+
+
 def _k5s2(layer, cls) -> bool:
     return (isinstance(layer, cls) and layer.stride == 2
             and layer.weight.shape[-1] == 5)

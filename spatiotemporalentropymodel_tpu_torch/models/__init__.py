@@ -1,5 +1,12 @@
 from . import ar_wavefront
-from .priors import MeanScaleHyperprior, MeanScaleHyperpriorModule
+from .priors import (
+    FactorizedPrior,
+    FactorizedPriorModule,
+    MeanScaleHyperprior,
+    MeanScaleHyperpriorModule,
+    ScaleHyperprior,
+    ScaleHyperpriorModule,
+)
 from .stem import (
     STEM_VARIANTS,
     STEMModule,
@@ -13,8 +20,12 @@ from .stem import (
 
 __all__ = [
     "ar_wavefront",
+    "FactorizedPrior",
+    "FactorizedPriorModule",
     "MeanScaleHyperprior",
     "MeanScaleHyperpriorModule",
+    "ScaleHyperprior",
+    "ScaleHyperpriorModule",
     "STEM_VARIANTS",
     "STEMModule",
     "SpatioTemporalPriorModel",

@@ -18,6 +18,7 @@ import torch
 
 from ..coders import get_coder
 from ..entropy import base as entropy_base
+from ..entropy.tables import CodecTables
 from ..entropy import (
     get_scale_table,
     update_bottleneck_tables,
@@ -125,26 +126,61 @@ class CompressionModel:
         """
         if self.tables and not force:
             return False
+        tables = {}
         for name in self.bottleneck_names:
             eb = self.module.get_submodule(name)
-            self.tables[name] = update_bottleneck_tables(eb.numpy_params())
+            tables[name] = update_bottleneck_tables(eb.numpy_params())
         if self.has_gaussian:
             if scale_table is None:
                 scale_table = get_scale_table()
-            self.tables["gaussian_conditional"] = update_gaussian_tables(
+            tables["gaussian_conditional"] = update_gaussian_tables(
                 scale_table
             )
-        # device copies of the constants every frame reads (an upload per
-        # frame would also sync the stream)
+        self.set_tables(tables)
+        return True
+
+    def set_tables(self, tables: Dict[str, Any]) -> None:
+        """Install codec tables (models/base.py::set_tables of the JAX
+        package), with device copies of the constants every frame reads
+        (an upload per frame would also sync the stream)."""
+        self.tables = dict(tables)
         self._medians = torch.as_tensor(
             self.tables["entropy_bottleneck"].medians, dtype=torch.float32,
             device=self.device,
         ).view(1, -1, 1, 1)
-        if self.has_gaussian:
+        if "gaussian_conditional" in self.tables:
             self._scale_table = kernels.scale_table_tensor(
                 self.tables["gaussian_conditional"].scale_table, self.device
             )
-        return True
+
+    def load_state_leaves(self, leaves) -> None:
+        """Load the leaves of a JAX checkpoint's ``"model"`` entry, the JAX
+        package's ``state_dict()`` ({"params", "tables"}), as its
+        ``load_state_dict`` does: the parameters, then the codec tables that
+        follow them in jax's order (tables by name, each table's fields by
+        name), installed as they are. A checkpoint saved before
+        ``update()`` has no tables; ``update()`` builds them then."""
+        from ..convert import load_jax_leaves
+
+        rest = load_jax_leaves(self.module, leaves)
+        if not rest:
+            self.tables = {}
+            return
+        names = list(self.bottleneck_names)
+        if self.has_gaussian:
+            names.append("gaussian_conditional")
+        fields = {name: sorted(("cdf", "cdf_length", "offset",
+                                "scale_table" if name == "gaussian_conditional"
+                                else "medians")) for name in names}
+        want = sum(len(f) for f in fields.values())
+        if len(rest) != want:
+            raise ValueError(f"{len(rest)} leaves after the parameters, "
+                             f"expected {want} of the codec tables {names}")
+        tables, it = {}, iter(rest)
+        for name in sorted(names):
+            tables[name] = CodecTables.fromdict(
+                {f: next(it) for f in fields[name]})
+        self.set_tables(tables)
 
     def _require_tables(self):
         if not self.tables:

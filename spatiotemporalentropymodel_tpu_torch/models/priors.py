@@ -1,16 +1,23 @@
-"""MeanScaleHyperprior (mbt2018-mean), the I-frame model of the video codec.
+"""Image codecs: FactorizedPrior (bmshj2018-factorized), ScaleHyperprior
+(bmshj2018-hyperprior) and MeanScaleHyperprior (mbt2018-mean), the I-frame
+model of the video codec.
 
-Counterpart of spatiotemporalentropymodel_tpu/models/priors.py::
-MeanScaleHyperprior (compressai/models/priors.py:316-402), NCHW. Every layer
-is here so the whole parameter tree carries across from the JAX package
-(convert.py). The P-frame pipeline calls ``analysis`` (g_a) and ``get_x``
-(g_s + clamp), which cast their input to the compute dtype as the JAX
-package's ``_apply`` does. ``compress``/``decompress`` are the I-frame codec
-of the JAX package's ``_HyperpriorCodecBase`` (priors.py:354-487 there), with
-its stream format and its dispatches: one device expression per compress
-(``fused_encode_expr``), two per decompress (``fused_params_expr``,
-``fused_finish_expr``), host rANS between them. At a bf16 compute dtype the
-nets run in bf16 and the codec math in f32, as in the P-frame path.
+Counterparts of spatiotemporalentropymodel_tpu/models/priors.py
+(compressai/models/priors.py:109-402), NCHW. Every layer is here so the whole
+parameter tree carries across from the JAX package (convert.py).
+
+FactorizedPrior codes y with its EntropyBottleneck: one string group, and
+``shape`` is y's spatial shape. The two hyperprior models share the I-frame
+codec of the JAX package's ``_HyperpriorCodecBase`` (priors.py:354-479
+there), with its stream format and its dispatches: one device expression
+per compress (``fused_encode_expr``), two per decompress
+(``fused_params_expr``, ``fused_finish_expr``), host rANS between them.
+ScaleHyperprior's h_a reads |y| and its h_s gives σ alone, so its μ is 0
+and its ``decompress`` returns no ŷ. MeanScaleHyperprior's h_s gives (σ, μ);
+the P-frame pipeline calls its ``analysis`` (g_a) and ``get_x`` (g_s +
+clamp), which cast their input to the compute dtype as the JAX package's
+``_apply`` does. At a bf16 compute dtype the nets run in bf16 and the codec
+math in f32, as in the P-frame path.
 """
 
 from typing import Any, Dict
@@ -21,10 +28,76 @@ from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
-from ..layers import GDN, Conv, Deconv, LeakyReLU, Sequential
+from ..layers import GDN, Conv, Deconv, LeakyReLU, ReLU, Sequential
 from ..ops import kernels
 from ..ops.quantize import quantize_dequantize
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
+
+
+def _g_a(n, m, g):
+    return Sequential([
+        Conv(3, n, 5, 2, g), GDN(n), Conv(n, n, 5, 2, g), GDN(n),
+        Conv(n, n, 5, 2, g), GDN(n), Conv(n, m, 5, 2, g),
+    ])
+
+
+def _g_s(n, m, g):
+    return Sequential([
+        Deconv(m, n, 5, 2, g), GDN(n, inverse=True),
+        Deconv(n, n, 5, 2, g), GDN(n, inverse=True),
+        Deconv(n, n, 5, 2, g), GDN(n, inverse=True),
+        Deconv(n, 3, 5, 2, g),
+    ])
+
+
+class FactorizedPriorModule(nn.Module):
+    """priors.py:109-181 — g_a/g_s only; y coded by the EntropyBottleneck."""
+
+    def __init__(self, N: int, M: int, generator=None):
+        super().__init__()
+        self.g_a = _g_a(N, M, generator)
+        self.g_s = _g_s(N, M, generator)
+        self.entropy_bottleneck = EntropyBottleneck(M, generator=generator)
+
+    def forward(self, x):
+        """Forward with rate estimation, eval mode (priors.py:62-66 of the
+        JAX package): {"x_hat", "likelihoods": {"y"}}."""
+        y_hat, y_likelihoods = self.entropy_bottleneck(self.g_a(x))
+        return {"x_hat": self.g_s(y_hat), "likelihoods": {"y": y_likelihoods}}
+
+
+class ScaleHyperpriorModule(nn.Module):
+    """priors.py:196-313 — the hyper pair on |y| → σ only."""
+
+    def __init__(self, N: int, M: int, generator=None):
+        super().__init__()
+        n, m, g = N, M, generator
+        self.g_a = _g_a(n, m, g)
+        self.g_s = _g_s(n, m, g)
+        self.h_a = Sequential([
+            Conv(m, n, 3, 1, g), ReLU(), Conv(n, n, 5, 2, g), ReLU(),
+            Conv(n, n, 5, 2, g),
+        ])
+        self.h_s = Sequential([
+            Deconv(n, n, 5, 2, g), ReLU(), Deconv(n, n, 5, 2, g), ReLU(),
+            Conv(n, m, 3, 1, g), ReLU(),
+        ])
+        self.entropy_bottleneck = EntropyBottleneck(n, generator=g)
+        self.gaussian_conditional = GaussianConditional()
+
+    def hyper_analysis(self, y):
+        return self.h_a(torch.abs(y))
+
+    def forward(self, x):
+        """Forward with rate estimation, eval mode (priors.py:117-127 of the
+        JAX package): {"x_hat", "likelihoods": {"y", "z"}}."""
+        y = self.g_a(x)
+        z_hat, z_likelihoods = self.entropy_bottleneck(self.hyper_analysis(y))
+        y_hat, y_likelihoods = self.gaussian_conditional(y, self.h_s(z_hat))
+        return {
+            "x_hat": self.g_s(y_hat),
+            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
+        }
 
 
 class MeanScaleHyperpriorModule(nn.Module):
@@ -33,16 +106,8 @@ class MeanScaleHyperpriorModule(nn.Module):
     def __init__(self, N: int, M: int, generator=None):
         super().__init__()
         n, m, g = N, M, generator
-        self.g_a = Sequential([
-            Conv(3, n, 5, 2, g), GDN(n), Conv(n, n, 5, 2, g), GDN(n),
-            Conv(n, n, 5, 2, g), GDN(n), Conv(n, m, 5, 2, g),
-        ])
-        self.g_s = Sequential([
-            Deconv(m, n, 5, 2, g), GDN(n, inverse=True),
-            Deconv(n, n, 5, 2, g), GDN(n, inverse=True),
-            Deconv(n, n, 5, 2, g), GDN(n, inverse=True),
-            Deconv(n, 3, 5, 2, g),
-        ])
+        self.g_a = _g_a(n, m, g)
+        self.g_s = _g_s(n, m, g)
         self.h_a = Sequential([
             Conv(m, n, 3, 1, g), LeakyReLU(0.01), Conv(n, n, 5, 2, g),
             LeakyReLU(0.01), Conv(n, n, 5, 2, g),
@@ -55,12 +120,14 @@ class MeanScaleHyperpriorModule(nn.Module):
         self.entropy_bottleneck = EntropyBottleneck(n, generator=g)
         self.gaussian_conditional = GaussianConditional()
 
+    def hyper_analysis(self, y):
+        return self.h_a(y)
+
     def forward(self, x):
         """Forward with rate estimation, eval mode (priors.py:175-191 of the
         JAX package): {"y", "y_hat", "x_hat", "likelihoods": {"y", "z"}}."""
         y = self.g_a(x)
-        z = self.h_a(y)
-        z_hat, z_likelihoods = self.entropy_bottleneck(z)
+        z_hat, z_likelihoods = self.entropy_bottleneck(self.h_a(y))
         scales_hat, means_hat = self.h_s(z_hat).chunk(2, dim=1)
         y_hat, y_likelihoods = self.gaussian_conditional(y, scales_hat,
                                                          means_hat)
@@ -81,43 +148,63 @@ class MeanScaleHyperpriorModule(nn.Module):
         return torch.clamp(self.g_s(y_hat), 0.0, 1.0)
 
 
-class MeanScaleHyperprior(CompressionModel):
-    """priors.py:316-402. Weights are drawn from ``seed`` with an explicit
+class FactorizedPrior(CompressionModel):
+    """priors.py:330-352. Weights are drawn from ``seed`` with an explicit
     CPU generator, then moved to ``device``."""
-
-    has_gaussian = True
-    _I16_LIM = 32767.0
 
     def __init__(self, N: int, M: int, device="cuda", seed: int = 0):
         gen = torch.Generator().manual_seed(seed)
-        super().__init__(MeanScaleHyperpriorModule(N, M, gen), device)
+        super().__init__(FactorizedPriorModule(N, M, gen), device)
         self.N, self.M = N, M
 
     @torch.no_grad()
-    def analysis(self, x):
-        """g_a only. The JAX package's ``analysis`` also runs h_a, which its
-        pipeline drops unused; eager PyTorch would run it."""
-        return self.module.g_a(self._cast_in(x))
+    def compress(self, x) -> Dict[str, Any]:
+        """x (B, 3, H, W) in [0, 1] → {"strings": [y_strings], "shape":
+        y's (h, w)}."""
+        self._require_tables()
+        y = self.module.g_a(self._cast_in(x))
+        strings = self._eb_compress(y.float().permute(0, 2, 3, 1).cpu()
+                                    .numpy())
+        return {"strings": [strings], "shape": tuple(y.shape[2:])}
 
     @torch.no_grad()
-    def get_x(self, y_hat):
-        return self.module.get_x(self._cast_in(y_hat))
+    def decompress(self, strings, shape) -> Dict[str, Any]:
+        """{"x_hat": clamp(g_s(ŷ), 0, 1)}, NCHW on the model's device."""
+        if not (isinstance(strings, list) and len(strings) == 1):
+            raise ValueError("strings must be [y_strings]")
+        self._require_tables()
+        y_hat = torch.from_numpy(self._eb_decompress(strings[0], shape))
+        y_hat = _nchw(y_hat.to(self.device).permute(0, 3, 1, 2))
+        x_hat = self.module.g_s(self._cast_in(y_hat))
+        return {"x_hat": torch.clamp(x_hat, 0.0, 1.0)}
 
-    def get_y(self, x):
-        """(y, round(y)) of g_a, in the compute dtype (priors.py:498)."""
-        return self.module.get_y(self._cast_in(x))
 
-    # ---- the I-frame codec (priors.py:354-487 of the JAX package) ---------
+class _HyperpriorCodecBase(CompressionModel):
+    """The I-frame codec shared by the hyperprior image models
+    (priors.py:354-479 of the JAX package). ``_with_means`` tells the
+    σ-only ScaleHyperprior from the (σ, μ) MeanScaleHyperprior."""
+
+    has_gaussian = True
+    _with_means = False
+    _I16_LIM = 32767.0
+
+    def __init__(self, module, N: int, M: int, device):
+        super().__init__(module, device)
+        self.N, self.M = N, M
 
     def _params(self, z_sym):
         """(σ, μ) in the compute dtype from the f32 symbols of ẑ: the two
-        channel-halves of h_s's output, as they are. ẑ = z_sym + medians
-        goes to h_s in the compute dtype with the canonical NCHW strides, on
-        encoder and decoder alike, so both get the same (σ, μ) bit for bit
-        (see ``models/base.py::_nchw``)."""
+        channel-halves of h_s's output as they are, or h_s's output and
+        zeros where h_s gives σ alone. ẑ = z_sym + medians goes to h_s in
+        the compute dtype with the canonical NCHW strides, on encoder and
+        decoder alike, so both get the same (σ, μ) bit for bit (see
+        ``models/base.py::_nchw``)."""
         z_hat = _nchw(z_sym + self._medians,
                       self.compute_dtype or torch.float32)
-        return self.module.h_s(z_hat).chunk(2, dim=1)
+        out = self.module.h_s(z_hat)
+        if self._with_means:
+            return out.chunk(2, dim=1)
+        return out, torch.zeros_like(out)
 
     def _params_f32(self, z_sym):
         """(σ, μ) in f32, μ contiguous: the decoder's."""
@@ -133,7 +220,7 @@ class MeanScaleHyperprior(CompressionModel):
         dtype, its math in f32."""
         lim = self._I16_LIM
         y = self.module.g_a(self._cast_in(x))
-        z = self.module.h_a(y)
+        z = self.module.hyper_analysis(y)
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim, lim)
         scales, means = self._params(z_sym)
         y_sym, idx = kernels.quantize_and_index(y, means, scales,
@@ -160,7 +247,8 @@ class MeanScaleHyperprior(CompressionModel):
         """(int ŷ symbols, μ) → (ŷ f32, x̂ = clamp(g_s(ŷ), 0, 1)) in the
         compute dtype (priors.py:424-430)."""
         y_hat = y_sym.float() + means
-        return y_hat, self.get_x(y_hat)
+        x_hat = torch.clamp(self.module.g_s(self._cast_in(y_hat)), 0.0, 1.0)
+        return y_hat, x_hat
 
     def compress(self, x) -> Dict[str, Any]:
         """x (B, 3, H, W) in [0, 1] → {"strings": [y_strings, z_strings],
@@ -183,8 +271,8 @@ class MeanScaleHyperprior(CompressionModel):
         return {"strings": [y_strings, z_strings], "shape": tuple(z_shape[1:3])}
 
     def decompress(self, strings, shape) -> Dict[str, Any]:
-        """{"x_hat": clamp(g_s(ŷ), 0, 1), "y_hat": ŷ f32}, both NCHW on the
-        model's device."""
+        """{"x_hat": clamp(g_s(ŷ), 0, 1)}, and with the means "y_hat": ŷ
+        f32, both NCHW on the model's device."""
         if not (isinstance(strings, list) and len(strings) == 2):
             raise ValueError("strings must be [y_strings, z_strings]")
         self._require_tables()
@@ -198,4 +286,42 @@ class MeanScaleHyperprior(CompressionModel):
             self.tables["gaussian_conditional"], self.coder)
         y_hat, x_hat = self.fused_finish_expr(_to_nchw(y_sym, self.device),
                                               means)
-        return {"x_hat": x_hat, "y_hat": y_hat}
+        if self._with_means:
+            return {"x_hat": x_hat, "y_hat": y_hat}
+        return {"x_hat": x_hat}
+
+
+class ScaleHyperprior(_HyperpriorCodecBase):
+    """priors.py:481-486. Weights are drawn from ``seed`` with an explicit
+    CPU generator, then moved to ``device``."""
+
+    _with_means = False
+
+    def __init__(self, N: int, M: int, device="cuda", seed: int = 0):
+        gen = torch.Generator().manual_seed(seed)
+        super().__init__(ScaleHyperpriorModule(N, M, gen), N, M, device)
+
+
+class MeanScaleHyperprior(_HyperpriorCodecBase):
+    """priors.py:316-402. Weights are drawn from ``seed`` with an explicit
+    CPU generator, then moved to ``device``."""
+
+    _with_means = True
+
+    def __init__(self, N: int, M: int, device="cuda", seed: int = 0):
+        gen = torch.Generator().manual_seed(seed)
+        super().__init__(MeanScaleHyperpriorModule(N, M, gen), N, M, device)
+
+    @torch.no_grad()
+    def analysis(self, x):
+        """g_a only. The JAX package's ``analysis`` also runs h_a, which its
+        pipeline drops unused; eager PyTorch would run it."""
+        return self.module.g_a(self._cast_in(x))
+
+    @torch.no_grad()
+    def get_x(self, y_hat):
+        return self.module.get_x(self._cast_in(y_hat))
+
+    def get_y(self, x):
+        """(y, round(y)) of g_a, in the compute dtype (priors.py:498)."""
+        return self.module.get_y(self._cast_in(x))

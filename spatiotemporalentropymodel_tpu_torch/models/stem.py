@@ -70,6 +70,7 @@ class STEMModule(nn.Module):
         if variant not in STEM_VARIANTS:
             raise ValueError(f"unknown STEM variant: {variant!r}")
         self.variant = variant
+        self.entropy_bottleneck_channels = entropy_bottleneck_channels
         m, ebc, g = in_channels, entropy_bottleneck_channels, generator
         lrelu = LeakyReLU(0.01)  # torch default slope, as the reference
         self.HE = Sequential([

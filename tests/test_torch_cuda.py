@@ -759,3 +759,61 @@ def test_cuda_res_wavefront_matches_plain_versions(cuda, monkeypatch):
         assert float((dy > 1e-4).float().mean()) <= 1e-3
         assert float(dy.max()) <= 1 + 1e-4
     np.testing.assert_allclose(nbytes, ref_bytes, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,tile", [("without_spm", None),
+                                          ("res", (2, 4))])
+def test_cuda_stemv_round_trip_and_png(cuda, monkeypatch, tmp_path, variant,
+                                       tile):
+    """encode_video/decode_video of 250×256 frames (padded to 256²) on the
+    card, f32 then bf16, in both families, with kernel launches on each:
+    finite frames that a second decode repeats exactly and that read back
+    from their PNGs; then data/png.py round-trips a 1080p frame."""
+    from spatiotemporalentropymodel_tpu_torch.data.png import (
+        read_png, write_png,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.codec import to_png_array
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames,
+        structured_frames,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    i_model = MeanScaleHyperprior(128, 192, device="cuda")
+    stem = SpatioTemporalPriorModel(variant=variant,
+                                    entropy_bottleneck_channels=128,
+                                    in_channels=192, wavefront_tile=tile,
+                                    device="cuda", seed=1)
+    with torch.no_grad():
+        for p in i_model.module.parameters():
+            p.mul_(0.05)
+        for p in stem.module.parameters():
+            p.mul_(0.01)
+    i_model.update()
+    stem.update()
+    frames = [f.astype(np.float32) / 255.0 for f in structured_frames(
+        np.random.default_rng(0), 3, (250, 256))]
+    for dtype in (None, torch.bfloat16):
+        if dtype is not None:
+            i_model.set_compute_dtype(dtype)
+            stem.set_compute_dtype(dtype)
+        out = tmp_path / f"{dtype}.stemv"
+        kernels.reset_launch_counts()
+        vc.encode_video(frames, i_model, stem, out, gop=3)
+        assert sum(kernels.LAUNCHES.values()) > 0
+        kernels.reset_launch_counts()
+        got = vc.decode_video(out, i_model, stem, output_dir=tmp_path / "png")
+        assert sum(kernels.LAUNCHES.values()) > 0
+        again = vc.decode_video(out, i_model, stem)
+        for t, (a, b) in enumerate(zip(got, again)):
+            assert a.shape == (250, 256, 3) and np.isfinite(a).all()
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(
+                read_png(tmp_path / "png" / f"frame_{t:04d}.png"),
+                to_png_array(a))
+    frame = hero_1080p_frames()[0]
+    write_png(tmp_path / "hd.png", frame)
+    np.testing.assert_array_equal(read_png(tmp_path / "hd.png"), frame)

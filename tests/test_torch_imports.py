@@ -1,6 +1,8 @@
 """The port and chip_smoke.py stand alone: no jax, no flax, nothing of the
-JAX package (spatiotemporalentropymodel_tpu); and chip_smoke.py fails, with
-no result line, where it cannot run the port on a card."""
+JAX package (spatiotemporalentropymodel_tpu), and no PIL (the card's
+machine has none; data/png.py reads and writes the images); and
+chip_smoke.py fails, with no result line, where it cannot run the port on
+a card."""
 
 import ast
 import shutil
@@ -12,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "spatiotemporalentropymodel_tpu_torch"
-FORBIDDEN = ("jax", "flax", "spatiotemporalentropymodel_tpu")
+FORBIDDEN = ("jax", "flax", "spatiotemporalentropymodel_tpu", "PIL")
 
 
 def _sources():
@@ -35,8 +37,8 @@ def test_no_jax_imports(path):
 
 
 def test_port_imports_with_jax_blocked():
-    """Every module of the port imports in a process where importing jax or
-    flax fails, and none of them pulls in the JAX package."""
+    """Every module of the port imports in a process where importing jax,
+    flax or PIL fails, and none of them pulls in the JAX package."""
     mods = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py")
@@ -44,6 +46,7 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\nsys.modules['flax'] = None\n"
+        "sys.modules['PIL'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m.removesuffix('.__init__'))\n"
         "assert 'spatiotemporalentropymodel_tpu' not in sys.modules\n"
