@@ -2,8 +2,9 @@
 """On-card check of the PyTorch/CUDA port's serving paths: the P-frame path
 in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
 I-frame codec, the flagship STEM res through WavefrontVideoPipeline, the
-trained hero models (artifacts/trained/hero) read with jax blocked, and the
-file codecs (.stemv video, .bin images) with their CLIs.
+trained hero models (artifacts/trained/hero) read with jax blocked, the
+file codecs (.stemv video, .bin images) with their CLIs, and training
+(train_image, train_stem).
 
     python3 chip_smoke.py
 
@@ -117,6 +118,34 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 decode_video's), codec with the hero I checkpoint and
                 bmshj2018-factorized/-hyperprior at quality 1 (strings
                 compress's, the PNG decompress's).
+                training: one make_image_train_step of MSH(64, 64) at
+                2×64×64 on the card and on the CPU from the same weights
+                with the same fed noise (x + 0.45·sin(7x + k) in place of
+                the draws), TF32 off: loss within 1e-4 relative, each
+                gradient leaf within 1e-4 of its max|g|, each parameter
+                within 1e-6 where the two gradients pin Adam's first step
+                (else 2·lr, counted). train_image with TrainImageConfig's
+                defaults (mbt2018-mean q4 = MSH(128, 192), 16×256²
+                synthetic batches), 3 steps: finite metrics, every main
+                parameter moved, the aux step moved quantiles only, 6
+                gdn_fused launches (C = 128) per forward, the checkpoint
+                read back through load_checkpoint + load_jax_leaves to the
+                trained parameters; then that step's gradients with
+                gdn_fused's kernel against its plain version: each leaf's
+                max|Δg| within 2× that of the plain runs with every (I)GDN
+                output moved by 1e-5 relative (the f32 row's rtol), with
+                random signs or all up: the network's own amplification,
+                measured in the same call. train_stem
+                with TrainStemConfig's defaults (res, M 192, EB 256, 4 ×
+                7 × 256²) and the hero I checkpoint: one batch per_frame
+                (a step per P-frame), 2 per_sequence, each with its
+                validation and checkpoint, then resume for a 3rd: finite
+                metrics, the carry handed back detached, 3 gdn_fused
+                launches per get_y call. Each trainer's ms per step and
+                steps/s (synchronised, the first step apart) and its peak
+                memory; gdn_fused's forward kernel, plain forward and
+                backward (_KernelFn: the plain version recomputed and
+                differentiated) at g_a's first GDN, 16×128×128×128.
                 On every path each kernel must have launched exactly as
                 often as the path calls it, and on the hero paths at the
                 widths it runs at.
@@ -1819,6 +1848,444 @@ def run_file_codecs(torch, kernels, card):
     return snaps
 
 
+# ---- training ------------------------------------------------------------
+
+TRAIN_LR = 1e-4  # the trainers' default main learning rate
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU, as the CPU tests hold the port to JAX
+TRAIN_GRAD_TOL = 1e-4  # × max|g| of each leaf
+TRAIN_PARAM_ATOL = 1e-6  # after one update, where the gradients pin Adam
+# kernel vs plain gdn_fused on a training step: each leaf's max|Δg| within
+# this many times that of the plain runs with every (I)GDN output moved by
+# GDN_RTOL (the f32 row's tolerance; the kernel's measured error is about
+# a tenth of it), with random signs or all up
+TRAIN_KERNEL_SCALE = 2.0
+TRAIN_SMALL = 64  # card vs CPU: MSH(64, 64) at 2×64×64
+HERO_I_CKPT = "artifacts/trained/hero/ckpt_i_0.012.pkl.gz"
+
+
+def _fed_noise(torch):
+    """The training tests' fed noise (tests/torch_port_util.py): the
+    bottleneck's and the Gaussian conditional's quantize_noise replaced by
+    x + 0.45·sin(7·x + k), the identity's gradient, so the card and the
+    CPU (and the kernel and the plain runs) see the same noise. Returns
+    the undo."""
+    from spatiotemporalentropymodel_tpu_torch.entropy import (
+        bottleneck, gaussian,
+    )
+
+    saved = [(m, m.quantize_noise) for m in (bottleneck, gaussian)]
+    for m, k in ((bottleneck, 0.1), (gaussian, 0.7)):
+        m.quantize_noise = (lambda x, generator, k=k: x + (
+            0.45 * torch.sin(7.0 * x + k)).detach())
+
+    def undo():
+        for m, f in saved:
+            m.quantize_noise = f
+
+    return undo
+
+
+def _adam_first(g):
+    """Adam's first update over lr: g/(|g| + ε)."""
+    return g / (np.abs(g) + 1e-8)
+
+
+def _first_moments(state):
+    """{name: g} of a first step's clipped gradients, from the Adams'
+    exp_avg = (1 − β₁)·g, as host arrays."""
+    out = {}
+    for name, p in state.module.named_parameters():
+        opt = next(o for o in state.optimizers[:2] if p in o.state)
+        out[name] = (opt.state[p]["exp_avg"] / 0.1).double().cpu().numpy()
+    return out
+
+
+def _check_grads(tag, got, ref, tol):
+    worst = 0.0
+    for name, r in ref.items():
+        scale = max(float(np.abs(r).max()), 1e-30)
+        err = float(np.abs(got[name] - r).max()) / scale
+        worst = max(worst, err)
+        if err > tol:
+            raise AssertionError(f"{tag}: gradient of {name} off by "
+                                 f"{err:.3g}·max|g| (limit {tol})")
+    return worst
+
+
+def run_train_card_vs_cpu(torch, kernels):
+    """One make_image_train_step of MSH(64, 64) at 2×64×64 from the same
+    weights with the same fed noise on the card and on the CPU (TF32 off,
+    phase 1): loss within 1e-4 relative, each gradient leaf within 1e-4 of
+    its max|g| (from the Adam first moments), each parameter within 1e-6
+    where the two gradients give Adam steps under 5e-7 apart, else within
+    2·lr (counted)."""
+    import copy
+
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        init_train_state, make_image_train_step,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        configure_optimizers,
+    )
+
+    n = TRAIN_SMALL
+    cpu = MeanScaleHyperprior(n, n, device="cpu", seed=5).module
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (2, 3, 64, 64), dtype=np.float32))
+    out = {}
+    undo = _fed_noise(torch)
+    try:
+        for dev, module in (("cpu", cpu),
+                            ("cuda", copy.deepcopy(cpu).to("cuda"))):
+            opt = configure_optimizers(module, TRAIN_LR)
+            state = init_train_state(module, opt)
+            state, metrics = make_image_train_step(module, opt)(
+                state, x.to(dev), torch.Generator(device=dev))
+            out[dev] = ({k: float(v) for k, v in metrics.items()},
+                        _first_moments(state),
+                        {k: v.detach().double().cpu().numpy()
+                         for k, v in module.named_parameters()})
+    finally:
+        undo()
+    (m_cpu, g_cpu, p_cpu), (m_gpu, g_gpu, p_gpu) = out["cpu"], out["cuda"]
+    for k, v in m_cpu.items():
+        if not (np.isfinite(m_gpu[k])
+                and abs(m_gpu[k] - v) <= TRAIN_LOSS_RTOL * abs(v)):
+            raise AssertionError(f"train card vs CPU: {k} {m_gpu[k]} vs {v}")
+    worst_g = _check_grads("train card vs CPU", g_gpu, g_cpu, TRAIN_GRAD_TOL)
+    unpinned = worst_p = 0
+    for k, ref in p_cpu.items():
+        err = np.abs(p_gpu[k] - ref)
+        loose = TRAIN_LR * np.abs(_adam_first(g_gpu[k])
+                                  - _adam_first(g_cpu[k])) > (
+            TRAIN_PARAM_ATOL / 2)
+        unpinned += int(loose.sum())
+        worst_p = max(worst_p, float(np.where(loose, 0, err).max()))
+        if worst_p > TRAIN_PARAM_ATOL or float(
+                np.where(loose, err, 0).max()) > 2 * TRAIN_LR:
+            raise AssertionError(f"train card vs CPU: parameter {k} off by "
+                                 f"{float(err.max()):.3g}")
+    log(f"  card vs CPU, MSH({n}, {n}) one step, fed noise: loss "
+        f"{m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, gradients within "
+        f"{worst_g:.3g}·max|g|, parameters within {worst_p:.3g} "
+        f"({unpinned} entries not pinned by the gradients, within 2·lr)")
+
+
+def _image_grads(torch, kernels, module, x, mode, eps=0.0):
+    """Gradients of the RD loss of one train forward (fed noise), with
+    gdn_fused's kernel (mode "kernel"), its plain version ("plain"), or
+    its plain version with each output scaled by 1 ± eps, the signs drawn
+    from a fixed seed ("random"), or by 1 + eps ("scaled")."""
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        rate_distortion_loss,
+    )
+
+    fused = kernels.gdn_fused
+    gen = torch.Generator(device=x.device).manual_seed(21)
+
+    def plain(v, g, b, inverse=False):
+        out = kernels._gdn_plain(v, g, b, bool(inverse))
+        if mode == "random":
+            sign = torch.empty(out.shape, device=out.device).bernoulli_(
+                0.5, generator=gen) * 2 - 1
+            out = out * (1 + eps * sign)
+        elif mode == "scaled":
+            out = out * (1 + eps)
+        return out
+
+    if mode != "kernel":
+        kernels.gdn_fused = plain
+    try:
+        out = module(x, train=True, generator=None)
+        loss = rate_distortion_loss(out, x)["loss"]
+        params = list(module.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        kernels.gdn_fused = fused
+    return {name: g.double().cpu().numpy()
+            for (name, _), g in zip(module.named_parameters(), grads)
+            if g is not None}
+
+
+def run_train_kernel_vs_plain(torch, kernels, module, x):
+    """The train_image step's gradients on the card at its full shape, with
+    gdn_fused's kernel and with its plain version (fed noise both). The
+    network amplifies a GDN's error into the gradients (a leaf's gradient
+    sums many pixels' terms, and the fed noise and the bottleneck's
+    density are steep), so the yardstick is measured in the same call: the
+    plain run again with every (I)GDN output moved by 1e-5 relative (the
+    f32 row's rtol), once with random signs and once all up (an error that
+    sums coherently over the pixels, as a kernel's bias would). Each
+    leaf's max|kernel − plain| must stay within TRAIN_KERNEL_SCALE × the
+    larger of those runs' max|moved − plain|."""
+    undo = _fed_noise(torch)
+    try:
+        kernels.reset_launch_counts()
+        got = _image_grads(torch, kernels, module, x, "kernel")
+        if kernels.LAUNCHES["gdn_fused"] != 6:
+            raise AssertionError(f"kernel run: {kernels.LAUNCHES}")
+        kernels.reset_launch_counts()
+        ref = _image_grads(torch, kernels, module, x, "plain")
+        moved = [_image_grads(torch, kernels, module, x, m, GDN_RTOL)
+                 for m in ("random", "scaled")]
+        if kernels.LAUNCHES["gdn_fused"] != 0:
+            raise AssertionError(f"plain runs launched: {kernels.LAUNCHES}")
+    finally:
+        undo()
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        d_kernel = float(np.abs(got[name] - r).max())
+        d_moved = max(float(np.abs(m[name] - r).max()) for m in moved)
+        ratio = d_kernel / max(d_moved, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if d_kernel > TRAIN_KERNEL_SCALE * d_moved:
+            raise AssertionError(
+                f"train kernel vs plain: gradient of {name} off by "
+                f"{d_kernel:.3g}, the {GDN_RTOL}-moved plain runs by "
+                f"{d_moved:.3g} (limit ×{TRAIN_KERNEL_SCALE})")
+    scale = max(float(np.abs(r).max()) for r in ref.values())
+    rel = max(float(np.abs(got[n] - r).max() / max(np.abs(r).max(), 1e-30))
+              for n, r in ref.items())
+    log(f"  kernel vs plain gdn_fused on a train_image step "
+        f"({tuple(x.shape)}): worst leaf {worst_name} at {worst:.3g}× the "
+        f"{GDN_RTOL}-moved plain runs' deviation (limit "
+        f"×{TRAIN_KERNEL_SCALE}); "
+        f"max|Δg| per leaf up to {rel:.3g}·max|g| (max|g| {scale:.3g})")
+    return {"worst_ratio": worst, "max_rel": rel}
+
+
+def gdn_train_timing(torch, kernels, c=HERO_N, shape=(16, 128, 128)):
+    """gdn_fused at the training shape (g_a's first GDN of MSH(128, 192) at
+    16×256²): the forward kernel, its plain version, and the backward
+    _KernelFn runs (the plain version recomputed with grad and
+    differentiated), each timed with CUDA events."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, h, w = shape
+    x = torch.randn((b, c, h, w), generator=gen, device="cuda")
+    gamma_t = (0.02 * torch.rand((c, c), generator=gen, device="cuda")
+               + 0.1 * torch.eye(c, device="cuda")).t().contiguous()
+    beta = 1.0 + torch.rand((c,), generator=gen, device="cuda")
+    fwd = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta))
+    plain = cuda_ms(lambda: kernels._gdn_plain(x, gamma_t, beta, False))
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma_t, beta)]
+    out = kernels.gdn_fused(*leaves)
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                              retain_graph=True), iters=10)
+    del out, leaves, cot, x
+    torch.cuda.empty_cache()
+    return {"shape": [b, c, h, w], "fwd_ms": fwd, "plain_fwd_ms": plain,
+            "bwd_ms": bwd}
+
+
+def _timed_steps(torch, module_ns, name, times, check=None):
+    """Wrap module_ns.<name> (a make_*_step) so each step it makes is timed
+    between two synchronisations, its ms appended to ``times``."""
+    make = getattr(module_ns, name)
+
+    def make_timed(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if check is not None:
+                check(out)
+            return out
+
+        return run
+
+    setattr(module_ns, name, make_timed)
+    return lambda: setattr(module_ns, name, make)
+
+
+def _finite_metrics(tag, metrics):
+    vals = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in vals.values()):
+        raise AssertionError(f"{tag}: metrics not finite {vals}")
+    return vals
+
+
+def _rate(times):
+    """(ms per step after the first, steps/s) of timed steps."""
+    rest = times[1:] or times
+    ms = float(np.median(rest))
+    return ms, 1e3 / ms
+
+
+def run_train_image(torch, kernels, card, tmp):
+    """train_image with TrainImageConfig's defaults (mbt2018-mean q4 =
+    MSH(128, 192), 16×256² synthetic batches) for 3 steps: finite metrics,
+    every main parameter moved, the aux optimizer moving quantiles only,
+    6 gdn_fused launches per forward (C = 128), and the checkpoint read
+    back through load_checkpoint + load_jax_leaves."""
+    from spatiotemporalentropymodel_tpu_torch.convert import load_jax_leaves
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        load_checkpoint, train_image as ti,
+    )
+    from spatiotemporalentropymodel_tpu_torch.utils.config import (
+        TrainImageConfig,
+    )
+    from spatiotemporalentropymodel_tpu_torch.zoo import create_model
+
+    cfg = TrainImageConfig(workdir=str(tmp / "train_image"))
+    model = create_model(cfg.model, cfg.quality, device="cuda")
+    before = {k: v.detach().clone() for k, v in
+              model.module.named_parameters()}
+    times, aux_moved = [], []
+    configure = ti.configure_optimizers
+
+    def configure_watched(module, *a):
+        pair = configure(module, *a)
+        step = pair.aux.step
+
+        def aux_step(*sa, **skw):
+            snap = {k: v.detach().clone()
+                    for k, v in module.named_parameters()}
+            out = step(*sa, **skw)
+            aux_moved.append(sorted(
+                k for k, v in module.named_parameters()
+                if not torch.equal(v, snap[k])))
+            return out
+
+        pair.aux.step = aux_step
+        return pair
+
+    ti.configure_optimizers = configure_watched
+    restore = _timed_steps(torch, ti, "make_image_train_step", times)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        wall, (state, metrics), snap = _counted(
+            torch, kernels, "train_image", _file_want(False, 3, 3, 0),
+            lambda: ti.train_image(cfg, max_steps=3, model=model))
+    finally:
+        restore()
+        ti.configure_optimizers = configure
+    peak = torch.cuda.max_memory_allocated()
+    vals = _finite_metrics("train_image", metrics)
+    stuck = [k for k, v in model.module.named_parameters()
+             if "quantiles" not in k and torch.equal(v, before[k])]
+    if stuck or state.step != 3:
+        raise AssertionError(f"train_image: parameters that never moved "
+                             f"{stuck}, steps {state.step}")
+    if aux_moved != [["entropy_bottleneck.quantiles"]] * 3:
+        raise AssertionError(f"train_image: the aux step moved {aux_moved}")
+    leaves = load_checkpoint(tmp / "train_image" / "ckpt" /
+                             "image_latest.pkl")["train_state"]
+    fresh = create_model(cfg.model, cfg.quality, device="cuda", seed=9)
+    load_jax_leaves(fresh.module, leaves)
+    for (k, v), w in zip(model.module.named_parameters(),
+                         fresh.module.parameters()):
+        if not torch.equal(v, w):
+            raise AssertionError(f"train_image checkpoint: {k} differs")
+    ms, sps = _rate(times)
+    log(f"  train_image MSH(128, 192), {cfg.batch_size}×{cfg.cropsize}²: "
+        f"steps {[round(t, 1) for t in times]} ms (the first with cuDNN's "
+        f"choices), {ms:.2f} ms/step, {sps:.3f} steps/s, peak "
+        f"{peak / 2**30:.2f} GiB; {wall:.1f} s in all; loss "
+        f"{vals['loss']:.4f}, bpp {vals['bpp_loss']:.4f}, mse "
+        f"{vals['mse_loss']:.5f}, aux {vals['aux_loss']:.2f}; every main "
+        f"parameter moved, the aux step only quantiles; checkpoint read "
+        f"back equal | card: {card}")
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (cfg.batch_size, 3, cfg.cropsize, cfg.cropsize), dtype=np.float32)
+    ).cuda()
+    kv = run_train_kernel_vs_plain(torch, kernels, model.module, x)
+    return snap, {"ms": ms, "steps_per_s": sps, "peak_bytes": peak,
+                  "kernel_vs_plain": kv}
+
+
+def run_train_stem(torch, kernels, card, tmp):
+    """train_stem with TrainStemConfig's defaults (res, M 192, EB 256,
+    4 × 7 × 256², the I-model from the hero checkpoint): one batch in
+    per_frame (a step per P-frame), 2 in per_sequence, each with its
+    validation and checkpoint, then a resumed 3rd per_sequence step.
+    Finite metrics, the carry handed back detached, 3 gdn_fused launches
+    per get_y call."""
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        load_trees, train_stem as ts,
+    )
+    from spatiotemporalentropymodel_tpu_torch.utils.config import (
+        TrainStemConfig,
+    )
+
+    def carry_detached(out):
+        if len(out) == 3 and out[2].requires_grad:
+            raise AssertionError("per_frame: the carry came back with grad")
+
+    results, snaps = {}, {}
+    i_model = ts.build_i_model(
+        TrainStemConfig(i_checkpoint=HERO_I_CKPT), torch.device("cuda"))
+    for mode, steps, resume, n_get_y in (("per_frame", 1, False, 2),
+                                         ("per_sequence", 2, False, 3),
+                                         ("per_sequence", 3, True, 2)):
+        tag = f"train_stem_{mode}" + ("_resumed" if resume else "")
+        cfg = TrainStemConfig(i_checkpoint=HERO_I_CKPT, step_mode=mode,
+                              resume=resume,
+                              workdir=str(tmp / f"train_stem_{mode}"))
+        times = []
+        maker = ("make_stem_frame_step" if mode == "per_frame"
+                 else "make_stem_train_step")
+        restore = _timed_steps(torch, ts, maker, times, carry_detached)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            wall, (state, metrics), snaps[tag] = _counted(
+                torch, kernels, tag, _file_want(False, n_get_y, 0, 0),
+                lambda: ts.train_stem(cfg, max_steps=steps, i_model=i_model))
+        finally:
+            restore()
+        peak = torch.cuda.max_memory_allocated()
+        vals = _finite_metrics(tag, metrics)
+        ckpt = load_trees(tmp / f"train_stem_{mode}" / "ckpt" /
+                             "stem_latest.pkl")
+        if int(ckpt["counters"]["iteration"]) != steps:
+            raise AssertionError(f"{tag}: checkpoint at "
+                                 f"{ckpt['counters']['iteration']}")
+        ms, sps = _rate(times)
+        results[tag] = {"ms": ms, "steps_per_s": sps, "peak_bytes": peak,
+                        "updates": state.step}
+        log(f"  {tag}: {len(times)} steps {[round(t, 1) for t in times]} "
+            f"ms, {ms:.2f} ms/step (after the first), {sps:.3f} steps/s, "
+            f"peak {peak / 2**30:.2f} GiB, {wall:.1f} s with validation and "
+            f"checkpoint; loss {vals['loss']:.5f}, aux "
+            f"{vals['aux_loss']:.2f}; {state.step} updates | card: {card}")
+    return snaps, results
+
+
+def run_training(torch, kernels, card):
+    """training: the card against the CPU on a small train_image step, the
+    trainers at full width, gdn_fused's kernel against its plain version on
+    a training step, and gdn_fused's backward timing at the training
+    shape. Returns (launch snapshots by path, results)."""
+    import tempfile
+    from pathlib import Path
+
+    run_train_card_vs_cpu(torch, kernels)
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        snaps = {}
+        snaps["train_image"], image = run_train_image(torch, kernels, card,
+                                                      tmp)
+        torch.cuda.empty_cache()
+        stem_snaps, stem = run_train_stem(torch, kernels, card, tmp)
+        snaps.update(stem_snaps)
+    torch.cuda.empty_cache()
+    timing = gdn_train_timing(torch, kernels)
+    log(f"  gdn_fused at the training shape {timing['shape']}: forward "
+        f"kernel {timing['fwd_ms']:.3f} ms, plain forward "
+        f"{timing['plain_fwd_ms']:.3f} ms, backward through _KernelFn (the "
+        f"plain version recomputed and differentiated) "
+        f"{timing['bwd_ms']:.3f} ms | card: {card}")
+    return snaps, {"train_image": image, **stem, "gdn_backward": timing}
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -1933,6 +2400,11 @@ def main() -> int:
     log("[4/5] file_codecs: .stemv files of the hero models at 1080×1920 "
         "(family 0 f32 and bf16, family 1 bf16), then both CLIs")
     hero.update(run_file_codecs(torch, kernels, card))
+    log("[4/5] training: card vs CPU on a small step, train_image MSH(128, "
+        "192) at 16×256², train_stem res (M 192, EB 256) at 4×7×256² from "
+        "the hero I checkpoint, kernel vs plain on a training step")
+    train_snaps, training = run_training(torch, kernels, card)
+    hero.update(train_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -1970,6 +2442,11 @@ def main() -> int:
     rows = [row(name, name, res,
                 {tag: counts[name] for tag, counts in by_path.items()})
             for name, res in results.items()]
+    # the f32 gdn_fused row: its training shape's forward and backward
+    next(r for r in rows if r["name"] == "gdn_fused")["train"] = (
+        training["gdn_backward"])
+    log(json.dumps({"training": {k: v for k, v in training.items()
+                                 if k != "gdn_backward"}}))
     for key, res in hero_rows.items():
         per_path = {tag: widths.get(key, 0)
                     for tag, widths in by_width.items()}

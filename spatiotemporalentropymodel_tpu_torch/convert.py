@@ -15,7 +15,8 @@ A checkpoint read without jax (training/checkpoints.py) gives the leaves of
 such a tree without their paths: ``load_jax_leaves`` rebuilds the paths from
 the port's module in jax's order and loads them. ``jax_leaves`` goes the
 other way: the port's parameters as that tree's leaves, with their paths
-(the weight hash of the video container, eval/video_codec.py).
+(the weight hash of the video container, eval/video_codec.py), and
+``jax_tree`` nests them as the tree a checkpoint saves.
 """
 
 import numpy as np
@@ -130,6 +131,19 @@ def jax_leaves(module: torch.nn.Module):
             arr = t.numpy()
         out.append((path, arr))
     return sorted(out, key=lambda e: e[0])
+
+
+def jax_tree(module: torch.nn.Module) -> dict:
+    """``module``'s parameters as the JAX package's nested tree of NumPy
+    arrays (``jax_leaves`` with their paths as dict keys): what a
+    checkpoint saves, its leaves in jax's order."""
+    tree = {}
+    for path, arr in jax_leaves(module):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
 
 
 def tree_from_leaves(module: torch.nn.Module, leaves) -> dict:

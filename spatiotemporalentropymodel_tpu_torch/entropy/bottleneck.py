@@ -4,10 +4,13 @@ Counterpart of spatiotemporalentropymodel_tpu/entropy/bottleneck.py
 (compressai/entropy_models/entropy_models.py:282-470): per-channel monotone
 CDF as a 5-stage composition of softplus-matmul + bias + tanh-gated
 nonlinearity; ``quantiles`` (C, 1, 3) track (lower tail, median, upper tail).
-The forward runs the eval (dequantize) mode on NCHW input; training noise
-waits for the training slice. Table construction (``update_tables``,
-``solve_quantiles``) is the JAX package's float64 NumPy code, copied, over a
-dict of NumPy parameters (``numpy_params``).
+The forward takes NCHW input and runs the eval (dequantize around the
+medians) or the train mode (U(-0.5, 0.5) noise from the caller's
+generator, drawn on the channel-major (C, 1, N) view as in the JAX
+package); ``aux_loss`` detaches everything but ``quantiles``. Table
+construction (``update_tables``, ``solve_quantiles``) is the JAX package's
+float64 NumPy code, copied, over a dict of NumPy parameters
+(``numpy_params``).
 """
 
 import math
@@ -19,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.bound import lower_bound
-from ..ops.quantize import quantize_dequantize
+from ..ops.quantize import quantize_dequantize, quantize_noise
 from .cdf import build_table_rows
 from .tables import CodecTables
 
@@ -87,14 +90,18 @@ class EntropyBottleneck(nn.Module):
     def medians(self):
         return self.quantiles[:, 0, 1]
 
-    def forward(self, x):
-        """x: NCHW → (x_hat, likelihoods), both NCHW (eval mode).
+    def forward(self, x, train: bool = False, generator=None):
+        """x: NCHW → (x_hat, likelihoods), both NCHW.
 
-        Parity: entropy_models.py:424-452 (channel-major reshape, dequantize
-        around the medians, likelihood with lower bound)."""
+        Parity: entropy_models.py:424-452 (channel-major reshape, noise from
+        ``generator`` in train mode or dequantize around the medians,
+        likelihood with lower bound)."""
         b, c, h, w = x.shape
         perm = x.permute(1, 0, 2, 3).reshape(c, 1, -1)
-        outputs = quantize_dequantize(perm, self.medians()[:, None, None])
+        if train:
+            outputs = quantize_noise(perm, generator)
+        else:
+            outputs = quantize_dequantize(perm, self.medians()[:, None, None])
         likelihood = self._likelihood(outputs)
         if self.likelihood_bound > 0:
             likelihood = lower_bound(likelihood, self.likelihood_bound)
@@ -103,7 +110,9 @@ class EntropyBottleneck(nn.Module):
         return outputs, likelihood
 
     def aux_loss(self):
-        """|logits(quantiles) − target|.sum() (entropy_models.py:383-386)."""
+        """|logits(quantiles) − target|.sum() (entropy_models.py:383-386);
+        the chain's factors, matrices and biases are detached, so its
+        gradient reaches ``quantiles`` only (the aux optimizer's)."""
         logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
         t = math.log(2 / self.tail_mass - 1)
         target = torch.tensor([-t, 0.0, t], device=logits.device)

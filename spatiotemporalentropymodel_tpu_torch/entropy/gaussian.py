@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops.bound import lower_bound
-from ..ops.quantize import quantize_dequantize
+from ..ops.quantize import quantize_dequantize, quantize_noise
 from .cdf import build_table_rows
 from .tables import CodecTables
 
@@ -55,10 +55,15 @@ class GaussianConditional(nn.Module):
         self.scale_bound = float(scale_bound)
         self.likelihood_bound = float(likelihood_bound)
 
-    def forward(self, inputs, scales, means=None):
-        """(inputs, σ, μ) → (outputs, likelihoods), eval mode. Parity:
-        entropy_models.py:588-596."""
-        outputs = quantize_dequantize(inputs, means)
+    def forward(self, inputs, scales, means=None, train: bool = False,
+                generator=None):
+        """(inputs, σ, μ) → (outputs, likelihoods). Parity:
+        entropy_models.py:588-596: in train mode noise from ``generator`` on
+        the inputs, else rounding around μ."""
+        if train:
+            outputs = quantize_noise(inputs, generator)
+        else:
+            outputs = quantize_dequantize(inputs, means)
         values = outputs - means if means is not None else outputs
         lk = likelihood(values.float(), scales.float(), self.scale_bound)
         if self.likelihood_bound > 0:

@@ -20,6 +20,7 @@ from ..coders import get_coder
 from ..entropy import base as entropy_base
 from ..entropy.tables import CodecTables
 from ..entropy import (
+    EntropyBottleneck,
     get_scale_table,
     update_bottleneck_tables,
     update_gaussian_tables,
@@ -57,6 +58,13 @@ def _to_nchw(plane_nhwc: np.ndarray, device):
     """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
     t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))
     return _nchw(t.to(device).permute(0, 3, 1, 2), torch.int32)
+
+
+def aux_loss(module):
+    """The aux loss of every EntropyBottleneck in ``module``, summed: what
+    the aux optimizer minimises, over ``quantiles`` only."""
+    return sum(m.aux_loss() for m in module.modules()
+               if isinstance(m, EntropyBottleneck))
 
 
 class CompressionModel:
@@ -112,12 +120,18 @@ class CompressionModel:
             return t.to(self.compute_dtype)
         return t
 
-    def forward(self, *args):
-        """The module's forward with rate estimation, its inputs in the
-        compute dtype (models/base.py:141-145 of the JAX package), in eval
-        mode: quantization rounds. The training noise mode comes with the
-        port of training."""
-        return self.module(*(self._cast_in(a) for a in args))
+    def forward(self, *args, train: bool = False, generator=None):
+        """The module's forward with rate estimation (models/base.py:141-145
+        of the JAX package): in eval mode quantization rounds and the inputs
+        go in the compute dtype; in train mode it adds U(-0.5, 0.5) noise
+        from ``generator`` and the inputs go as they are."""
+        if not train:
+            args = tuple(self._cast_in(a) for a in args)
+        return self.module(*args, train=train, generator=generator)
+
+    def aux_loss(self):
+        """The EntropyBottlenecks' aux loss, summed (priors.py:58-65)."""
+        return aux_loss(self.module)
 
     def update(self, scale_table=None, force: bool = False) -> bool:
         """(Re)build codec tables from parameters (priors.py:77-96).

@@ -30,7 +30,7 @@ from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
 from ..layers import GDN, Conv, Deconv, LeakyReLU, ReLU, Sequential
 from ..ops import kernels
-from ..ops.quantize import quantize_dequantize
+from ..ops.quantize import quantize_dequantize, quantize_noise
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
 
@@ -59,10 +59,12 @@ class FactorizedPriorModule(nn.Module):
         self.g_s = _g_s(N, M, generator)
         self.entropy_bottleneck = EntropyBottleneck(M, generator=generator)
 
-    def forward(self, x):
-        """Forward with rate estimation, eval mode (priors.py:62-66 of the
-        JAX package): {"x_hat", "likelihoods": {"y"}}."""
-        y_hat, y_likelihoods = self.entropy_bottleneck(self.g_a(x))
+    def forward(self, x, train: bool = False, generator=None):
+        """Forward with rate estimation (priors.py:62-66 of the JAX
+        package): {"x_hat", "likelihoods": {"y"}}. Train mode adds noise
+        from ``generator`` where eval mode rounds."""
+        y_hat, y_likelihoods = self.entropy_bottleneck(
+            self.g_a(x), train, generator)
         return {"x_hat": self.g_s(y_hat), "likelihoods": {"y": y_likelihoods}}
 
 
@@ -88,12 +90,15 @@ class ScaleHyperpriorModule(nn.Module):
     def hyper_analysis(self, y):
         return self.h_a(torch.abs(y))
 
-    def forward(self, x):
-        """Forward with rate estimation, eval mode (priors.py:117-127 of the
-        JAX package): {"x_hat", "likelihoods": {"y", "z"}}."""
+    def forward(self, x, train: bool = False, generator=None):
+        """Forward with rate estimation (priors.py:117-127 of the JAX
+        package): {"x_hat", "likelihoods": {"y", "z"}}. Train mode adds
+        noise from ``generator`` where eval mode rounds."""
         y = self.g_a(x)
-        z_hat, z_likelihoods = self.entropy_bottleneck(self.hyper_analysis(y))
-        y_hat, y_likelihoods = self.gaussian_conditional(y, self.h_s(z_hat))
+        z_hat, z_likelihoods = self.entropy_bottleneck(
+            self.hyper_analysis(y), train, generator)
+        y_hat, y_likelihoods = self.gaussian_conditional(
+            y, self.h_s(z_hat), train=train, generator=generator)
         return {
             "x_hat": self.g_s(y_hat),
             "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
@@ -123,14 +128,16 @@ class MeanScaleHyperpriorModule(nn.Module):
     def hyper_analysis(self, y):
         return self.h_a(y)
 
-    def forward(self, x):
-        """Forward with rate estimation, eval mode (priors.py:175-191 of the
-        JAX package): {"y", "y_hat", "x_hat", "likelihoods": {"y", "z"}}."""
+    def forward(self, x, train: bool = False, generator=None):
+        """Forward with rate estimation (priors.py:175-191 of the JAX
+        package): {"y", "y_hat", "x_hat", "likelihoods": {"y", "z"}}. Train
+        mode adds noise from ``generator`` where eval mode rounds."""
         y = self.g_a(x)
-        z_hat, z_likelihoods = self.entropy_bottleneck(self.h_a(y))
+        z_hat, z_likelihoods = self.entropy_bottleneck(self.h_a(y), train,
+                                                       generator)
         scales_hat, means_hat = self.h_s(z_hat).chunk(2, dim=1)
-        y_hat, y_likelihoods = self.gaussian_conditional(y, scales_hat,
-                                                         means_hat)
+        y_hat, y_likelihoods = self.gaussian_conditional(
+            y, scales_hat, means_hat, train=train, generator=generator)
         return {
             "y": y,
             "y_hat": y_hat,
@@ -138,9 +145,12 @@ class MeanScaleHyperpriorModule(nn.Module):
             "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
         }
 
-    def get_y(self, x):
-        """getY hook (priors.py:390-395): the latent and its rounding."""
+    def get_y(self, x, train: bool = False, generator=None):
+        """getY hook (priors.py:390-395): the latent and its rounding, or
+        in train mode the latent plus noise from ``generator``."""
         y = self.g_a(x)
+        if train:
+            return y, quantize_noise(y, generator)
         return y, quantize_dequantize(y)
 
     def get_x(self, y_hat):

@@ -49,7 +49,7 @@ from ..entropy.transport import sparse_capacity
 from ..layers import Conv, Deconv, LeakyReLU, MaskedConv2d, Sequential
 from ..layers.masked_conv import per_stream
 from ..ops import kernels
-from ..ops.quantize import quantize_dequantize
+from ..ops.quantize import quantize_dequantize, quantize_noise
 from . import ar_wavefront as wf
 from .base import (
     CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
@@ -108,27 +108,32 @@ class STEMModule(nn.Module):
     def residual(self) -> bool:
         return self.variant == "res"
 
-    def forward(self, y_cur, y_conditioned):
-        """Forward with rate estimation, eval mode (stem.py:122-156 of the
-        JAX package): {"y_hat", "likelihoods": {"y", "z"}}. The SPM
-        variants' context sees the rounded target and the Gaussian
-        conditional rounds the target again around μ (the reference's
-        double quantization, spatiotemporalpriors.py:570-579)."""
+    def forward(self, y_cur, y_conditioned, train: bool = False,
+                generator=None):
+        """Forward with rate estimation (stem.py:122-156 of the JAX
+        package): {"y_hat", "likelihoods": {"y", "z"}}. The SPM variants'
+        context sees the quantized target and the Gaussian conditional
+        quantizes the target again (the reference's double quantization,
+        spatiotemporalpriors.py:570-579): in eval mode both round, in train
+        mode they are two separate noise draws from ``generator``."""
         z = self.hyper_encode(y_cur, y_conditioned)
-        z_hat, z_likelihoods = self.entropy_bottleneck(z)
+        z_hat, z_likelihoods = self.entropy_bottleneck(z, train, generator)
         feats = self.prior_feats(z_hat, y_conditioned)
         target = y_cur - y_conditioned if self.residual else y_cur
         if self.use_spm:
-            target_hat = quantize_dequantize(target)
+            target_hat = (quantize_noise(target, generator) if train
+                          else quantize_dequantize(target))
             feats = torch.cat([feats, self.context_prediction(target_hat)],
                               dim=1)
             scales_hat, means_hat = self.EPM(feats).chunk(2, dim=1)
-            _, y_likelihoods = self.gaussian_conditional(target, scales_hat,
-                                                         means_hat)
+            _, y_likelihoods = self.gaussian_conditional(
+                target, scales_hat, means_hat, train=train,
+                generator=generator)
         else:
             scales_hat, means_hat = self.EPM(feats).chunk(2, dim=1)
             target_hat, y_likelihoods = self.gaussian_conditional(
-                target, scales_hat, means_hat)
+                target, scales_hat, means_hat, train=train,
+                generator=generator)
         y_hat = target_hat + y_conditioned if self.residual else target_hat
         return {"y_hat": y_hat,
                 "likelihoods": {"y": y_likelihoods, "z": z_likelihoods}}

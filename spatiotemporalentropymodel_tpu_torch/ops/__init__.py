@@ -4,6 +4,7 @@ from .quantize import (
     dequantize,
     quantize,
     quantize_dequantize,
+    quantize_noise,
     quantize_symbols,
     ste_round,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "ste_round",
     "quantize",
     "quantize_dequantize",
+    "quantize_noise",
     "quantize_symbols",
     "dequantize",
 ]

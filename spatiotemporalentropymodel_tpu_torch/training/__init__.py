@@ -1,3 +1,43 @@
-from .checkpoints import load_checkpoint
+from .checkpoints import (
+    CheckpointManager,
+    load_checkpoint,
+    load_trees,
+    save_checkpoint,
+)
+from .logging import MetricsLogger, StageTimer, profile_trace
+from .losses import (
+    em_loss,
+    pixelwise_rate_distortion_loss,
+    quality2lambda,
+    rate_distortion_loss,
+)
+from .optimizers import (
+    MovingAverage,
+    OptimizerPair,
+    ReduceLROnPlateau,
+    clip_by_global_norm,
+    configure_optimizers,
+    get_main_learning_rate,
+    set_main_learning_rate,
+)
 
-__all__ = ["load_checkpoint"]
+__all__ = [
+    "CheckpointManager",
+    "load_checkpoint",
+    "load_trees",
+    "save_checkpoint",
+    "MetricsLogger",
+    "StageTimer",
+    "profile_trace",
+    "em_loss",
+    "rate_distortion_loss",
+    "pixelwise_rate_distortion_loss",
+    "quality2lambda",
+    "MovingAverage",
+    "OptimizerPair",
+    "ReduceLROnPlateau",
+    "clip_by_global_norm",
+    "configure_optimizers",
+    "get_main_learning_rate",
+    "set_main_learning_rate",
+]

@@ -817,3 +817,66 @@ def test_cuda_stemv_round_trip_and_png(cuda, monkeypatch, tmp_path, variant,
     frame = hero_1080p_frames()[0]
     write_png(tmp_path / "hd.png", frame)
     np.testing.assert_array_equal(read_png(tmp_path / "hd.png"), frame)
+
+
+def _train_grads(module, x, mode, monkeypatch):
+    """Gradients of the RD loss of one train forward of ``module`` (noise
+    fed as x + 0.45·sin(7·x + k), the same on every run), with gdn_fused's
+    kernel ("kernel"), its plain version ("plain"), or its plain version
+    with each output moved by 1e-5 relative, with random signs ("random")
+    or all up ("scaled")."""
+    from spatiotemporalentropymodel_tpu_torch.entropy import (
+        bottleneck, gaussian,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        rate_distortion_loss,
+    )
+
+    gen = torch.Generator(device=x.device).manual_seed(21)
+
+    def plain(v, g, b, inverse=False):
+        out = kernels._gdn_plain(v, g, b, bool(inverse))
+        if mode == "random":
+            sign = torch.empty(out.shape, device=out.device).bernoulli_(
+                0.5, generator=gen) * 2 - 1
+            out = out * (1 + 1e-5 * sign)
+        elif mode == "scaled":
+            out = out * (1 + 1e-5)
+        return out
+
+    with monkeypatch.context() as m:
+        for mod, k in ((bottleneck, 0.1), (gaussian, 0.7)):
+            m.setattr(mod, "quantize_noise", lambda v, generator, k=k: v + (
+                0.45 * torch.sin(7.0 * v + k)).detach())
+        if mode != "kernel":
+            m.setattr(kernels, "gdn_fused", plain)
+        kernels.reset_launch_counts()
+        loss = rate_distortion_loss(module(x, train=True), x)["loss"]
+        grads = torch.autograd.grad(loss, list(module.parameters()),
+                                    allow_unused=True)
+        launched = kernels.LAUNCHES["gdn_fused"]
+    return {n: g for (n, _), g in zip(module.named_parameters(), grads)
+            if g is not None}, launched
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_kernel_matches_plain(cuda, monkeypatch):
+    """One train_image step of MSH(128, 192) at 2×128×128 with gdn_fused's
+    kernel and with its plain version: the forward launches the kernel in
+    each of the 6 (I)GDNs, and each gradient leaf moves no more than twice
+    as far from the plain one as the plain runs with every (I)GDN output
+    moved by 1e-5 relative (the f32 kernel's rtol), with random signs or
+    all up, do."""
+    model = MeanScaleHyperprior(128, 192, device=cuda, seed=2)
+    x = torch.rand((2, 3, 128, 128), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(2))
+    got, n_kernel = _train_grads(model.module, x, "kernel", monkeypatch)
+    ref, n_plain = _train_grads(model.module, x, "plain", monkeypatch)
+    moved = [_train_grads(model.module, x, m, monkeypatch)[0]
+             for m in ("random", "scaled")]
+    assert (n_kernel, n_plain) == (6, 0)
+    assert got.keys() == ref.keys()
+    for name, r in ref.items():
+        err = float((got[name] - r).abs().max())
+        yard = max(float((m[name] - r).abs().max()) for m in moved)
+        assert err <= 2 * yard, (name, err, yard)

@@ -77,3 +77,17 @@ def torch_cuda_available() -> bool:
     import torch
 
     return torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("entry", ["train_image", "train_stem"])
+def test_trainers_raise_without_card(entry, tmp_path):
+    """The trainers run on cuda unless told device="cpu": with no card
+    they raise at once rather than train on the CPU."""
+    if torch_cuda_available():
+        pytest.skip("a card is present; the trainer would run for real")
+    import importlib
+
+    mod = importlib.import_module(
+        f"spatiotemporalentropymodel_tpu_torch.training.{entry}")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        mod.main(["--workdir", str(tmp_path)])

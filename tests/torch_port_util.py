@@ -4,7 +4,17 @@ package (tests/test_torch_*.py). Data crosses between the two as NumPy."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+import spatiotemporalentropymodel_tpu.entropy.bottleneck as jax_eb
+import spatiotemporalentropymodel_tpu.entropy.gaussian as jax_gc
+import spatiotemporalentropymodel_tpu.models.priors as jax_priors
+import spatiotemporalentropymodel_tpu.models.stem as jax_stem
+import spatiotemporalentropymodel_tpu_torch.entropy.bottleneck as port_eb
+import spatiotemporalentropymodel_tpu_torch.entropy.gaussian as port_gc
+import spatiotemporalentropymodel_tpu_torch.models.priors as port_priors
+import spatiotemporalentropymodel_tpu_torch.models.stem as port_stem
 
 from spatiotemporalentropymodel_tpu.models import (
     MeanScaleHyperprior as JaxMSH,
@@ -122,3 +132,35 @@ def build_slice(seed: int = 0, surgery: bool = True):
             jnp.asarray, export_jax_tree(port_stem.module))
     jax_stem.update(force=True)
     return jax_i, jax_stem, port_i, port_stem, xs, y_cond
+
+
+# the training tests' fed noise (tests/test_torch_train_step.py): one phase
+# per call site, so the SPM variants' two draws differ as real draws do; a
+# low frequency, as a steep function would amplify the last-bit differences
+# of the two packages' latents
+NOISE_FREQ = 7.0
+NOISE_SITES = {"bottleneck": (jax_eb, port_eb, 0.1),
+               "gaussian": (jax_gc, port_gc, 0.7),
+               "priors": (jax_priors, port_priors, 1.3),
+               "stem": (jax_stem, port_stem, 2.9)}
+
+
+@pytest.fixture
+def fed_noise(monkeypatch):
+    """Both packages' quantize_noise, in each module that imported it by
+    name, replaced by x + 0.45·sin(7·x + k) with the identity's gradient."""
+    for jax_mod, port_mod, k in NOISE_SITES.values():
+        monkeypatch.setattr(
+            jax_mod, "quantize_noise",
+            lambda x, rng, k=k: x + jax.lax.stop_gradient(
+                0.45 * jnp.sin(NOISE_FREQ * x + k)))
+        monkeypatch.setattr(
+            port_mod, "quantize_noise",
+            lambda x, generator, k=k: x + (
+                0.45 * torch.sin(NOISE_FREQ * x + k)).detach())
+
+
+def paths(tree) -> dict:
+    """{tuple of keys: NumPy leaf} of a nested dict tree (JAX params)."""
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {tuple(k.key for k in path): np.asarray(v) for path, v in flat}
