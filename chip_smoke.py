@@ -3,8 +3,9 @@
 in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
 I-frame codec, the flagship STEM res through WavefrontVideoPipeline, the
 trained hero models (artifacts/trained/hero) read with jax blocked, the
-file codecs (.stemv video, .bin images) with their CLIs, and training
-(train_image, train_stem).
+file codecs (.stemv video, .bin images) with their CLIs, training
+(train_image, train_stem), and the autoregressive image models (mbt2018,
+Cheng2020) with their files and CompressAI checkpoints.
 
     python3 chip_smoke.py
 
@@ -41,7 +42,8 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 rows of their own: gdn_conv_fused 128→128 at 544×960 and
                 272×480 and 128→192 at 136×240, gdn_fused_bf16 at 128,
                 igdn_deconv_wide_packed at 128 and igdn_deconv_tail_packed
-                at 128→3.
+                at 128→3; and gdn_conv_fused 192→320 at 1×192×136×240
+                (mbt2018's last g_a stage at quality 5-8), its own row.
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
                 then StemVideoPipeline(sparse) encodes 3 P-frames of
@@ -145,14 +147,35 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 steps/s (synchronised, the first step apart) and its peak
                 memory; gdn_fused's forward kernel, plain forward and
                 backward (_KernelFn: the plain version recomputed and
-                differentiated) at g_a's first GDN, 16×128×128×128.
+                differentiated) at g_a's first GDN, 16×128×128×128, beside
+                the forward's bound.
+                image_ar: from seeds on the probe's first 1088×1920 frame,
+                the wavefront codec's compress then decompress (321
+                rounds) of mbt2018 at quality 5 (N 192, M 320) and of
+                Cheng2020-attn at quality 6, each in bf16 then f32:
+                encoder ŷ == decoder ŷ bit for bit, a second compress
+                repeats the strings, x̂ finite, bpp finite, compress and
+                decompress ms; a bf16 mbt2018 round trip launches
+                gdn_conv_fused twice at 192→192 and once at 192→320,
+                gdn_fused_bf16 once and the packed g_s pair once, a
+                Cheng2020 one gdn_fused 3 + 3 times. batch_invariance_ar:
+                mbt2018 at quality 4, bf16, the two first frames batched,
+                each coded alone giving the batched strings and ŷ. The
+                serial mbt2018 (8, 12) at a 4×8 latent against its
+                wavefront ŷ within 1e-4. Then the .bin CLI through
+                main(argv) with cheng2020-anchor at quality 3 on a 256²
+                PNG, a .stemv (family 0, GOP 4) with a seeded mbt2018 at
+                quality 4 as the I-model and the hero without_spm STEM,
+                and load_torch_checkpoint of a CompressAI-keyed file
+                written from a seeded mbt2018 at quality 5 (the same
+                parameters and strings).
                 On every path each kernel must have launched exactly as
-                often as the path calls it, and on the hero paths at the
-                widths it runs at.
+                often as the path calls it, and on the hero and image_ar
+                paths at the widths it runs at.
   5. report   — one JSON line of kernels (a row per kernel, its launches
                 summed and by every path that launched it; then a row per
-                kernel at the hero widths, name@widths, its launches at
-                them), then the card, then the result line.
+                kernel at the hero widths and at 192→320, name@widths, its
+                launches at them), then the card, then the result line.
 
 Exits non-zero, printing no result line, on any failure.
 """
@@ -2078,8 +2101,12 @@ def gdn_train_timing(torch, kernels, c=HERO_N, shape=(16, 128, 128)):
                                               retain_graph=True), iters=10)
     del out, leaves, cot, x
     torch.cuda.empty_cache()
+    # the forward's bound, as check_gdn's f32 rows count it
+    pixels = b * h * w
+    b_ms, b_by = gdn_bound(2 * pixels * c * 4 + c * c * 4 + c * 4, pixels,
+                           c, 6)
     return {"shape": [b, c, h, w], "fwd_ms": fwd, "plain_fwd_ms": plain,
-            "bwd_ms": bwd}
+            "bwd_ms": bwd, "bound_ms": b_ms, "bound_by": b_by}
 
 
 def _timed_steps(torch, module_ns, name, times, check=None):
@@ -2282,8 +2309,302 @@ def run_training(torch, kernels, card):
         f"kernel {timing['fwd_ms']:.3f} ms, plain forward "
         f"{timing['plain_fwd_ms']:.3f} ms, backward through _KernelFn (the "
         f"plain version recomputed and differentiated) "
-        f"{timing['bwd_ms']:.3f} ms | card: {card}")
+        f"{timing['bwd_ms']:.3f} ms; the forward's bound "
+        f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} | card: {card}")
     return snaps, {"train_image": image, **stem, "gdn_backward": timing}
+
+
+# ---- the autoregressive image models ------------------------------------
+
+AR_M = 320  # mbt2018 at quality 5-8: N 192, M 320 (zoo cfgs)
+AR_SERIAL = (8, 12, (64, 128))  # serial mbt2018 (N, M) on a 4 × 8 latent
+
+
+def _ar_want(kind, bf16, n_ga, n_gs, n=N):
+    """Launches (by kernel, by width) of n_ga g_a and n_gs g_s passes of an
+    AR image model: mbt2018 at quality 5 ("mbt2018", N 192, M 320) or 1-4
+    ("mbt2018_192", N = M = 192), whose bf16 g_a runs its three GDN → conv
+    stages as gdn_conv_fused and whose bf16 g_s runs its first IGDN as
+    gdn_fused_bf16 and the last two stages as the packed pair; or
+    Cheng2020 ("cheng", N = n), whose six (I)GDNs feed residual sums, so
+    each runs gdn_fused alone. In f32 every (I)GDN is a gdn_fused."""
+    if not bf16 or kind == "cheng":
+        name = "gdn_fused_bf16" if bf16 else "gdn_fused"
+        counts = {name: 3 * (n_ga + n_gs)}
+        widths = {(name, n): 3 * (n_ga + n_gs)}
+    else:
+        m = AR_M if kind == "mbt2018" else N
+        counts = dict(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
+                      igdn_deconv_wide_packed=n_gs,
+                      igdn_deconv_tail_packed=n_gs)
+        widths = {("gdn_conv_fused", N, N): (2 if m != N else 3) * n_ga,
+                  ("gdn_conv_fused", N, AR_M): n_ga if m != N else 0,
+                  ("gdn_fused_bf16", N): n_gs,
+                  ("igdn_deconv_wide_packed", N, N): n_gs,
+                  ("igdn_deconv_tail_packed", N, 3): n_gs}
+    return _want(**counts), {k: v for k, v in widths.items() if v}
+
+
+def _ar_round_trip(torch, kernels, card, model, x, tag, kind, bf16):
+    """compress, then decompress, of x through the model API, timed and
+    with the launch counts set to 0 just before and checked just after:
+    encoder ŷ == decoder ŷ bit for bit, a second compress repeats the
+    strings, x̂ finite of x's shape, bpp finite. Returns its launch
+    snapshot."""
+    kernels.reset_launch_counts()
+    enc_ms, (enc, y_enc) = timed_ms(torch, lambda: model.encode_with_y_hat(x))
+    dec_ms, dec = timed_ms(torch, lambda: model.decompress(enc["strings"],
+                                                           enc["shape"]))
+    # g_a runs once per picture (each its own stream), g_s on the batch
+    counts, widths = _ar_want(kind, bf16, x.shape[0], 1)
+    _check_launches(kernels, tag, counts)
+    _check_widths(kernels, tag, widths)
+    snap = _snap(kernels)
+    if not torch.equal(dec["y_hat"], y_enc):
+        diff = int((dec["y_hat"] != y_enc).sum())
+        raise AssertionError(f"{tag}: encoder ŷ != decoder ŷ at {diff} "
+                             f"elements")
+    if model.compress(x)["strings"] != enc["strings"]:
+        raise AssertionError(f"{tag}: a second compress gives other strings")
+    x_hat = dec["x_hat"]
+    if x_hat.shape != x.shape or not bool(torch.isfinite(x_hat).all()):
+        raise AssertionError(f"{tag}: x̂ {tuple(x_hat.shape)} not finite of "
+                             f"x's shape {tuple(x.shape)}")
+    nbytes = sum(len(s) for group in enc["strings"] for s in group)
+    bpp = nbytes * 8.0 / (x.shape[0] * x.shape[2] * x.shape[3])
+    if not np.isfinite(bpp):
+        raise AssertionError(f"{tag}: bpp {bpp}")
+    h, w = y_enc.shape[2:]
+    rounds = len(model._wavefront_setup(h, w)[2])
+    log(f"  {tag}: {x.shape[0]}×3×{x.shape[2]}×{x.shape[3]}, latent {h}×{w}"
+        f", {rounds} rounds: compress {enc_ms:.1f} ms, decompress "
+        f"{dec_ms:.1f} ms, {nbytes} B ({bpp:.4f} bpp, seeded weights); "
+        f"encoder ŷ == decoder ŷ, strings repeat, launches exact | card: "
+        f"{card}")
+    return snap, dict(compress_ms=enc_ms, decompress_ms=dec_ms, rounds=rounds,
+                      bpp=bpp)
+
+
+def run_ar_serial(torch, card):
+    """The serial mbt2018 codec (N 8, M 12) on a 4 × 8 latent: its symbols
+    decode (encoder ŷ == decoder ŷ), and its ŷ is the wavefront's within
+    SERIAL_ATOL."""
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        JointAutoregressiveHierarchicalPriors,
+    )
+
+    n, m, (h, w) = AR_SERIAL
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.rand((1, 3, h, w), generator=gen, device="cuda")
+    y_hat = {}
+    for mode in ("serial", "wavefront"):
+        model = JointAutoregressiveHierarchicalPriors(n, m, ar_mode=mode,
+                                                      device="cuda", seed=4)
+        model.update()
+        ms, (enc, y_enc) = timed_ms(torch,
+                                    lambda: model.encode_with_y_hat(x))
+        y_hat[mode] = model.decompress(enc["strings"], enc["shape"])["y_hat"]
+        if not torch.equal(y_hat[mode], y_enc):
+            raise AssertionError(f"mbt2018 {mode}: encoder ŷ != decoder ŷ")
+        log(f"  mbt2018_serial {mode}: compress {ms:.1f} ms at "
+            f"{y_enc.shape[2]}×{y_enc.shape[3]}, symbols decode")
+    err = float((y_hat["serial"] - y_hat["wavefront"]).abs().max())
+    if not err <= SERIAL_ATOL:
+        raise AssertionError(f"mbt2018 serial and wavefront ŷ differ by "
+                             f"{err}")
+    log(f"  mbt2018_serial: max|ŷ_serial − ŷ_wavefront| {err:.3e} (limit "
+        f"{SERIAL_ATOL:.0e}) | card: {card}")
+
+
+def run_ar_files(torch, kernels, card, frames_u8, tmp):
+    """The .bin CLI through main(argv) with cheng2020-anchor at quality 3
+    on a 256² PNG (strings compress's, the PNG decompress's); a .stemv of
+    the probe's frames with a seeded mbt2018 at quality 4 as the I-model
+    and the hero without_spm STEM (family 0, GOP 4; the decoded frames the
+    in-memory chain's); load_torch_checkpoint of a CompressAI-keyed
+    .pth.tar written from a seeded mbt2018 at quality 5 (the same
+    parameters and strings). f32. Returns the launch snapshots."""
+    from spatiotemporalentropymodel_tpu_torch import zoo
+    from spatiotemporalentropymodel_tpu_torch.data.png import (
+        read_png, write_png,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval import codec
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import load_hero
+    from spatiotemporalentropymodel_tpu_torch.zoo.convert import KEY_MAPS
+
+    snaps = {}
+    # the .bin CLI
+    name, q, tag = "cheng2020-anchor", 3, "image_ar_cli_cheng2020-anchor"
+    png, binf, recf = tmp / "ar.png", tmp / "ar.bin", tmp / "ar_rec.png"
+    write_png(png, frames_u8[0][:256, :256])
+    n_cli = zoo.cfgs[name][q][0]  # the CLI's model: N 128 at quality 3
+    enc_s, _, snaps[f"{tag}_encode"] = _counted(
+        torch, kernels, f"{tag}_encode",
+        _ar_want("cheng", False, 1, 0, n_cli),
+        lambda: codec.main(["encode", str(png), "-o", str(binf), "--model",
+                            name, "--quality", str(q)]))
+    dec_s, _, snaps[f"{tag}_decode"] = _counted(
+        torch, kernels, f"{tag}_decode",
+        _ar_want("cheng", False, 0, 1, n_cli),
+        lambda: codec.main(["decode", str(binf), "-o", str(recf)]))
+    model = codec._build_model(name, q, None, "cuda")
+    x = codec.to_device(codec._load_image(png), "cuda")
+    enc = model.compress(x)
+    with open(binf, "rb") as f:
+        f.read(2 + 8 + 12)
+        strings = [[f.read(codec._read_uints(f, 1)[0])]
+                   for _ in range(len(enc["strings"]))]
+    if strings != enc["strings"]:
+        raise AssertionError(f"{tag}: file strings differ from compress's")
+    x_hat = model.decompress(enc["strings"], enc["shape"])["x_hat"]
+    want = x_hat[0].float().permute(1, 2, 0).cpu().numpy()
+    if not np.array_equal(read_png(recf), codec.to_png_array(want)):
+        raise AssertionError(f"{tag}: the decoded PNG is not decompress's x̂")
+    log(f"  {tag} q{q}: 256² PNG, {binf.stat().st_size} B; encode "
+        f"{enc_s:.2f} s, decode {dec_s:.2f} s (each with its model build "
+        f"and PNG I/O); strings == compress's, PNG == decompress's, "
+        f"launches exact")
+
+    # the .stemv with an AR I-model
+    tag = "image_ar_stemv_mbt2018"
+    i_model = zoo.create_model("mbt2018", 4, device="cuda", seed=5)
+    i_model.update()
+    stem = load_hero(device="cuda", variants=("without_spm",))[
+        "without_spm"]
+    frames = [f.astype(np.float32) / 255.0 for f in frames_u8]
+    n, path = len(frames), tmp / "ar.stemv"
+    meta = {"i_model": "mbt2018", "i_quality": 4}
+    kernels.reset_launch_counts()
+    enc_ms, _ = timed_ms(torch, lambda: vc.encode_video(
+        frames, i_model, stem, path, gop=n, meta=meta))
+    hdr, records = _file_records(vc, path, n)
+    kinds = [r[0] for r in records]
+    sparse, dense = kinds.count(vc.FTYPE_P_SPARSE), kinds.count(
+        vc.FTYPE_P_DENSE)
+    if kinds[0] != vc.FTYPE_I or sparse + dense != n - 1 or hdr["flags"]:
+        raise AssertionError(f"{tag}: records {kinds}, flags {hdr['flags']}")
+    # I: compress (g_a) and decompress (g_s); a sparse P-frame g_a and one
+    # quantizer call, a dense one the sparse try and the dense encode (g_a
+    # and the quantizer twice) and a decode for its carry (g_s)
+    counts, widths = _ar_want("mbt2018_192", False, 1 + sparse + 2 * dense,
+                              1 + dense)
+    counts["quantize_and_index"] = sparse + 2 * dense
+    widths[("quantize_and_index",)] = sparse + 2 * dense
+    _check_launches(kernels, f"{tag}_encode", counts)
+    _check_widths(kernels, f"{tag}_encode", widths)
+    snaps[f"{tag}_encode"] = _snap(kernels)
+    dec_s, decoded, snaps[f"{tag}_decode"] = _counted(
+        torch, kernels, f"{tag}_decode", _ar_want("mbt2018_192", False, 0, n),
+        lambda: vc.decode_video(path, i_model, stem))
+    pipe = StemVideoPipeline(i_model, stem, transport_mode="sparse")
+    yc = None
+    for t, fr in enumerate(frames):
+        x = torch.from_numpy(fr).permute(2, 0, 1)[None].cuda()
+        if t == 0:
+            enc = i_model.compress(x)
+            dec = i_model.decompress(enc["strings"], enc["shape"])
+            x_hat, yc = dec["x_hat"], dec["y_hat"]
+        else:
+            enc, _ = pipe.encode_frame(x, yc)
+            x_hat, yc = pipe.decode_frame(enc, y_cond=yc)
+        if enc["strings"] != records[t][3]:
+            raise AssertionError(f"{tag} frame {t}: file streams differ from "
+                                 f"the in-memory encode's")
+        if not np.array_equal(decoded[t], x_hat[0].float().permute(
+                1, 2, 0).cpu().numpy()):
+            raise AssertionError(f"{tag} frame {t}: decoded frame differs "
+                                 f"from the in-memory chain's")
+    log(f"  {tag}: {n} frames of {frames[0].shape[0]}×{frames[0].shape[1]}"
+        f" (GOP {n}, records {kinds}), {path.stat().st_size} B; encode "
+        f"{n / (enc_ms / 1e3):.3f} frames/s, decode {n / dec_s:.3f} frames/s"
+        f"; streams and frames the in-memory chain's, launches exact")
+    del stem, pipe, i_model
+
+    # a CompressAI checkpoint of mbt2018 at quality 5
+    tag = "image_ar_checkpoint_mbt2018"
+    src = zoo.create_model("mbt2018", 5, device="cuda", seed=6)
+    src.update()
+    key_map = KEY_MAPS["mbt2018"]
+    state = {key_map(k): v.detach().cpu()
+             for k, v in src.module.named_parameters()}
+    ckpt = tmp / "mbt2018.pth.tar"
+    torch.save({"state_dict": state}, ckpt)
+    got = zoo.load_torch_checkpoint("mbt2018", str(ckpt), 5, device="cuda")
+    for (k, a), b in zip(src.module.named_parameters(),
+                         got.module.parameters()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: {k} differs after the load")
+    x = torch.from_numpy(frames[0]).permute(2, 0, 1)[None].cuda()
+    if got.compress(x)["strings"] != src.compress(x)["strings"]:
+        raise AssertionError(f"{tag}: strings differ after the load")
+    log(f"  {tag}: {len(state)} CompressAI keys → the same parameters and "
+        f"strings at {x.shape[2]}×{x.shape[3]} | card: {card}")
+    return snaps
+
+
+def run_image_ar(torch, kernels, card):
+    """image_ar: the autoregressive image models at full width from seeds
+    on the probe's first 1088×1920 frame: mbt2018 at quality 5 (N 192, M
+    320) in bf16 then f32; batch_invariance_ar, mbt2018 at quality 4 in
+    bf16 on two frames batched; Cheng2020-attn at quality 6 (N 192) in
+    bf16 and f32; the serial mbt2018 at a 4 × 8 latent; then the files.
+    Returns ({path: launch snapshot}, {path: figures})."""
+    import tempfile
+    from pathlib import Path
+
+    from spatiotemporalentropymodel_tpu_torch import zoo
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames,
+    )
+
+    frames_u8 = hero_1080p_frames()
+    x2 = torch.from_numpy(np.stack(frames_u8[:2])).permute(0, 3, 1, 2)
+    x2 = x2.contiguous().cuda().float() / 255.0
+    x = x2[:1]
+    snaps, figures = {}, {}
+    for name, q, kind in (("mbt2018", 5, "mbt2018"),
+                          ("cheng2020-attn", 6, "cheng")):
+        for bf16 in (True, False):
+            tag = f"image_ar_{name}_q{q}_{'bf16' if bf16 else 'f32'}"
+            model = zoo.create_model(name, q, device="cuda", seed=1)
+            model.update()
+            if bf16:
+                model.set_compute_dtype(torch.bfloat16)
+            snaps[tag], figures[tag] = _ar_round_trip(
+                torch, kernels, card, model, x, tag, kind, bf16)
+            del model
+            torch.cuda.empty_cache()
+
+    # batch_invariance_ar: each frame coded alone gives the batched strings
+    # byte for byte and the batched ŷ bit for bit
+    tag = "batch_invariance_ar"
+    model = zoo.create_model("mbt2018", 4, device="cuda", seed=2)
+    model.update()
+    model.set_compute_dtype(torch.bfloat16)
+    snaps[tag], figures[tag] = _ar_round_trip(
+        torch, kernels, card, model, x2, tag, "mbt2018_192", True)
+    enc, y_hat = model.encode_with_y_hat(x2)
+    for i in range(2):
+        solo, y_solo = model.encode_with_y_hat(x2[i:i + 1])
+        if (solo["strings"][0][0] != enc["strings"][0][i]
+                or solo["strings"][1][0] != enc["strings"][1][i]):
+            raise AssertionError(f"{tag} frame {i}: its solo strings differ "
+                                 f"from the batched ones")
+        if not torch.equal(y_solo[0], y_hat[i]):
+            raise AssertionError(f"{tag} frame {i}: solo ŷ != batched ŷ")
+    log(f"  {tag}: each of 2 frames coded alone: strings equal byte for "
+        f"byte, ŷ bit for bit")
+    del model
+    torch.cuda.empty_cache()
+
+    run_ar_serial(torch, card)
+    with tempfile.TemporaryDirectory() as d:
+        snaps.update(run_ar_files(torch, kernels, card, frames_u8, Path(d)))
+    return snaps, figures
 
 
 def main() -> int:
@@ -2359,6 +2680,10 @@ def main() -> int:
     wide, tail = check_gs_pair(torch, F, kernels, 1, HERO_N)
     hero_rows[("igdn_deconv_wide_packed", HERO_N, HERO_N)] = wide
     hero_rows[("igdn_deconv_tail_packed", HERO_N, 3)] = tail
+    # mbt2018's g_a at quality 5-8 (N 192, M 320), its last stage, B = 1
+    log(f"  mbt2018's last g_a stage, {N} → {AR_M}, B = 1")
+    hero_rows[("gdn_conv_fused", N, AR_M)] = check_gdn_conv(
+        torch, F, kernels, 1, N, AR_M, ((H // 8, W // 8),))
     for name, res in results.items():
         lib = res["library_ms"]
         log(f"  {name}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, "
@@ -2405,6 +2730,13 @@ def main() -> int:
         "the hero I checkpoint, kernel vs plain on a training step")
     train_snaps, training = run_training(torch, kernels, card)
     hero.update(train_snaps)
+    torch.cuda.empty_cache()
+    log("[4/5] image_ar: mbt2018 q5 (N 192, M 320) and Cheng2020-attn q6 at "
+        f"{H}×{W} from seeds, bf16 and f32; batch_invariance_ar (mbt2018 q4,"
+        " 2 frames, bf16); the serial mbt2018; the .bin CLI, a .stemv with "
+        "an mbt2018 I-model, a CompressAI checkpoint")
+    ar_snaps, image_ar = run_image_ar(torch, kernels, card)
+    hero.update(ar_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -2438,7 +2770,8 @@ def main() -> int:
         }
 
     # a row per kernel, its launches on every path; then a row per kernel
-    # at the hero widths, its launches at those widths on the hero paths
+    # at the hero widths and at mbt2018's 192 → 320, its launches at those
+    # widths on the hero and image_ar paths
     rows = [row(name, name, res,
                 {tag: counts[name] for tag, counts in by_path.items()})
             for name, res in results.items()]
@@ -2447,6 +2780,7 @@ def main() -> int:
         training["gdn_backward"])
     log(json.dumps({"training": {k: v for k, v in training.items()
                                  if k != "gdn_backward"}}))
+    log(json.dumps({"image_ar": image_ar}))
     for key, res in hero_rows.items():
         per_path = {tag: widths.get(key, 0)
                     for tag, widths in by_width.items()}

@@ -22,10 +22,11 @@ Container format v5 (big-endian):
   u16 in_channels (M)
   u8 cfg0, u8 cfg1    family 1: wavefront tile (th, tw), (0,0) = untiled
                       family 2: (groups, flags bit0=lrp bit1=residual)
-  u8 flags            bit0 (family 1): wavefront stream symbol order —
-                      1 = v2 grouped-by-CDF-row per round, 0 = v1 lane
-                      order; decode sets the model's ``wavefront_format``
-                      from it
+  u8 flags            bit0: wavefront stream symbol order of every
+                      wavefront stream in the file (the family-1 STEM's and
+                      an AR I-model's y) — 1 = v2 grouped-by-CDF-row per
+                      round, 0 = v1 lane order; decode sets both models'
+                      ``wavefront_format`` from it
   u64 stem_params_hash, u64 i_params_hash
                       (blake2b-8 over the weight trees: decoding with the
                        wrong checkpoint fails loudly instead of silently
@@ -40,6 +41,10 @@ Container format v5 (big-endian):
     then n_strings × (u32 len, bytes): 2 for ftypes 0-3 (y, z),
     groups+1 for ftypes 4-5 (y per group, then z)
 
+The I-model is a mean-scale model whose ``decompress`` returns ŷ:
+mbt2018-mean, or one of the autoregressive mbt2018, cheng2020-anchor and
+cheng2020-attn, whose y streams are wavefront streams.
+
 Frames are (H, W, 3) float arrays in [0, 1] at the API, as in the JAX
 package; the models take NCHW tensors on their device. Decoded frames come
 back as (H, W, 3) float32 NumPy arrays.
@@ -47,7 +52,9 @@ back as (H, W, 3) float32 NumPy arrays.
 Usage:
   python -m spatiotemporalentropymodel_tpu_torch.eval.video_codec encode \\
       DIR -o OUT.stemv [--gop 12] [--stem-family parallel|wavefront] \\
-      [--i-checkpoint CKPT] [--stem-checkpoint CKPT] [--device cuda|cpu]
+      [--i-model mbt2018-mean|mbt2018|cheng2020-anchor|cheng2020-attn] \\
+      [--i-quality Q] [--i-checkpoint CKPT] [--stem-checkpoint CKPT] \\
+      [--device cuda|cpu]
   python -m spatiotemporalentropymodel_tpu_torch.eval.video_codec decode \\
       OUT.stemv -o OUTDIR [--i-checkpoint CKPT] [--stem-checkpoint CKPT] \\
       [--device cuda|cpu]
@@ -172,6 +179,13 @@ def _stem_family(stem) -> int:
     return FAMILY_WAVEFRONT if stem.use_spm else FAMILY_PARALLEL
 
 
+def _wavefront_models(i_model, stem, family):
+    """The models whose streams are wavefront streams: a family-1 STEM and
+    an AR I-model (one with a ``wavefront_format``)."""
+    return ([stem] if family == FAMILY_WAVEFRONT else []) + (
+        [i_model] if hasattr(i_model, "wavefront_format") else [])
+
+
 class _LatentCodec:
     """Family 1 file codec legs: the I-model's analysis and synthesis around
     the STEM's own compress/decompress (the evalSTEM.py:93-153 inner loop,
@@ -237,8 +251,9 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
                 raise ValueError(
                     f"I-frame model {type(i_model).__name__} does not expose "
                     "the latent in decompress(); the video codec needs a "
-                    "mean-scale family model (mbt2018-mean) whose decode "
-                    "returns y_hat for the P-frame conditioning"
+                    "mean-scale family model (mbt2018-mean, mbt2018, "
+                    "cheng2020-*) whose decode returns y_hat for the "
+                    "P-frame conditioning"
                 )
             y_cond = dec["y_hat"]
             body.append((FTYPE_I, tuple(enc["shape"]), None, enc["strings"]))
@@ -264,10 +279,17 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
         cfg0, cfg1 = stem.wavefront_tile
     else:
         cfg0 = cfg1 = 0
-    # bit0: the wavefront streams' symbol order (in the JAX package it also
-    # covers an AR I-frame model's y streams; the port has none)
-    flags = int(family == FAMILY_WAVEFRONT
-                and _wf.wire_format(stem.wavefront_format) == "grouped")
+    # bit0 covers every wavefront stream in the file: the family-1 STEM
+    # streams and an AR I-model's y streams; one flag, so the two models
+    # must agree at encode time (video_codec.py:302-320 of the JAX package)
+    fmts = {type(m).__name__: _wf.wire_format(m.wavefront_format)
+            for m in _wavefront_models(i_model, stem, family)}
+    if len(set(fmts.values())) > 1:
+        raise ValueError(
+            f"wavefront stream orders disagree ({fmts}); the .stemv header "
+            "records ONE order for the whole file — set both models' "
+            "wavefront_format to the same value")
+    flags = int("grouped" in fmts.values())
     ebc = stem.module.entropy_bottleneck_channels
     with Path(output).open("wb") as f:
         f.write(MAGIC + struct.pack(">B", VERSION))
@@ -332,11 +354,12 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
             f"file was encoded with family {family}"
         )
     # decode wavefront streams in the symbol order the file was written in
-    # (the model is restored afterwards — decoding a file must not silently
-    # reconfigure the caller's encoder)
-    saved_fmt = stem.wavefront_format
-    if family == FAMILY_WAVEFRONT:
-        stem.wavefront_format = "grouped" if hdr["flags"] & 1 else "lane"
+    # (the models are restored afterwards — decoding a file must not
+    # silently reconfigure the caller's encoder)
+    saved_fmt = {m: m.wavefront_format
+                 for m in _wavefront_models(i_model, stem, family)}
+    for m in saved_fmt:
+        m.wavefront_format = "grouped" if hdr["flags"] & 1 else "lane"
     if family == FAMILY_PARALLEL:
         pipe = pipeline or StemVideoPipeline(i_model, stem,
                                              transport_mode="sparse")
@@ -353,7 +376,8 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
                     raise ValueError(
                         f"I-frame model {type(i_model).__name__} does not "
                         "expose the latent in decompress(); use a mean-scale "
-                        "family model (mbt2018-mean) for .stemv decode"
+                        "family model (mbt2018-mean, mbt2018, cheng2020-*) "
+                        "for .stemv decode"
                     )
                 x_hat, y_cond = dec["x_hat"], dec["y_hat"]
             elif family == FAMILY_PARALLEL:
@@ -370,7 +394,8 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
             top, left = (ph - h) // 2, (pw - w) // 2
             frames.append(x_np[top:top + h, left:left + w])
     finally:
-        stem.wavefront_format = saved_fmt
+        for m, fmt in saved_fmt.items():
+            m.wavefront_format = fmt
     print(f"{len(frames)} frames decoded in {time.time() - t0:.2f}s "
           f"(gop {gop})")
 

@@ -1,6 +1,23 @@
-from .conv import Conv, Deconv, LeakyReLU, ReLU, Sequential
+from .blocks import (
+    AttentionBlock,
+    ResidualBlock,
+    ResidualBlockUpsample,
+    ResidualBlockWithStride,
+    leaky_relu,
+)
+from .conv import (
+    Conv,
+    Deconv,
+    LeakyReLU,
+    ReLU,
+    Sequential,
+    SubpelConv3x3,
+    pixel_shuffle,
+)
 from .gdn import GDN
 from .masked_conv import MaskedConv2d, make_causal_mask
 
-__all__ = ["Conv", "Deconv", "LeakyReLU", "ReLU", "Sequential", "GDN",
-           "MaskedConv2d", "make_causal_mask"]
+__all__ = ["AttentionBlock", "ResidualBlock", "ResidualBlockUpsample",
+           "ResidualBlockWithStride", "leaky_relu", "Conv", "Deconv",
+           "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3",
+           "pixel_shuffle", "GDN", "MaskedConv2d", "make_causal_mask"]

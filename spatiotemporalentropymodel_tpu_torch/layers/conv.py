@@ -104,6 +104,28 @@ class ReLU(nn.Module):
         return torch.relu(x)
 
 
+def pixel_shuffle(x, r: int):
+    """NCHW pixel shuffle (B, C·r², H, W) → (B, C, H·r, W·r) with torch's
+    channel order c·r² + dy·r + dx, the order the JAX package keeps in NHWC
+    (layers/conv.py::pixel_shuffle there)."""
+    return F.pixel_shuffle(x, r)
+
+
+class SubpelConv3x3(nn.Module):
+    """3×3 conv to features·r² channels, then pixel shuffle by r
+    (compressai/layers/layers.py:55-59); its conv is the child ``conv``, as
+    in the JAX package's parameter tree."""
+
+    def __init__(self, in_ch: int, features: int, r: int = 1,
+                 generator=None):
+        super().__init__()
+        self.r = r
+        self.conv = Conv(in_ch, features * r * r, 3, 1, generator)
+
+    def forward(self, x):
+        return pixel_shuffle(self.conv(x), self.r)
+
+
 def _k5s2(layer, cls) -> bool:
     return (isinstance(layer, cls) and layer.stride == 2
             and layer.weight.shape[-1] == 5)

@@ -2,6 +2,8 @@ from . import ar_wavefront
 from .priors import (
     FactorizedPrior,
     FactorizedPriorModule,
+    JointAutoregressiveHierarchicalPriors,
+    JointAutoregressiveModule,
     MeanScaleHyperprior,
     MeanScaleHyperpriorModule,
     ScaleHyperprior,
@@ -17,9 +19,21 @@ from .stem import (
     SpatioTemporalPriorModelWithoutSPMTPM,
     SpatioTemporalPriorModelWithoutTPM,
 )
+from .waseda import (
+    Cheng2020Anchor,
+    Cheng2020AnchorModule,
+    Cheng2020Attention,
+    Cheng2020AttentionModule,
+)
 
 __all__ = [
     "ar_wavefront",
+    "Cheng2020Anchor",
+    "Cheng2020AnchorModule",
+    "Cheng2020Attention",
+    "Cheng2020AttentionModule",
+    "JointAutoregressiveHierarchicalPriors",
+    "JointAutoregressiveModule",
     "FactorizedPrior",
     "FactorizedPriorModule",
     "MeanScaleHyperprior",

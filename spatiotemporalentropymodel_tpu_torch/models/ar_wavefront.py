@@ -26,12 +26,17 @@ Bitstream symbol order is wavefront order, the JAX package's: round-major,
 then tile, lane and channel (``flatten_wavefront_grouped``).
 """
 
+import time
 from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
+from ..entropy import base as entropy_base
 from ..entropy import build_indexes
+from ..layers import Conv
+from ..layers.masked_conv import per_stream
+from .base import _nchw
 
 SPAN = 3  # wavefront slope for a 5x5 causal mask (offset 2)
 
@@ -92,6 +97,21 @@ def device_rounds(coords, valid, taps, device) -> List[Round]:
     return rounds
 
 
+def conv1x1_rows(seq, x, streams: int = 1):
+    """A ``Sequential`` of 1×1 convs and activations (an entropy-parameters
+    stack) on (N, C) rows: each conv a product rounded to the rows' dtype
+    before its bias is added, as ``Conv`` does, run once for each of
+    ``streams`` equal parts of the rows (``per_stream``)."""
+    for layer in seq.layers:
+        if isinstance(layer, Conv):
+            w = layer.weight.flatten(1)
+            x = per_stream(lambda r: torch.nn.functional.linear(r, w),
+                           streams, x) + layer.bias
+        else:
+            x = layer(x)
+    return x
+
+
 def _check_rows(scale_table, what: str):
     rows = int(scale_table.shape[0])
     if rows > 256:
@@ -128,7 +148,10 @@ def make_wavefront_encoder(apply_ar_step, scale_table):
     fn(target (B, H, W, M), priors (B, H, W, P), rounds, streams) ->
     (symbols (B, H, W, M) int16, indexes (B, H, W, M) uint8, reconstruction
     (B, H, W, M) f32); the batch holds ``streams`` streams' tiles, each
-    stream's in one run. Symbols saturate at int16 (the u8/int16
+    stream's in one run. A symbol is round(centre − μ) with the difference
+    taken in the dtype the two promote to, as the JAX package takes it: in
+    bf16 where the target and the nets are bf16 (a bf16 I-model's y), in
+    f32 where the target is f32. Symbols saturate at int16 (the u8/int16
     planes cut the fetch; identical to int32 for any |round(y−μ)| < 32768),
     and the saturated value feeds the context, so encoder and decoder stay
     consistent even then.
@@ -137,7 +160,6 @@ def make_wavefront_encoder(apply_ar_step, scale_table):
 
     def encode(target, priors, rounds, streams):
         b, h, w, m = target.shape
-        target = target.float()
         plane = torch.zeros((b, h + 4, w + 4, m), dtype=torch.float32,
                             device=target.device)
         syms = torch.zeros((b, h, w, m), dtype=torch.int16,
@@ -147,10 +169,10 @@ def make_wavefront_encoder(apply_ar_step, scale_table):
         for rnd in rounds:
             means, idx = _params(apply_ar_step, scale_table, plane, priors,
                                  rnd, streams)
-            means = means.float()
             center = target[:, rnd.h, rnd.w, :].reshape(means.shape)
-            sym = torch.clamp(torch.round(center - means), -32768, 32767)
-            _write(plane, rnd, sym + means)
+            sym = torch.clamp(torch.round((center - means).float()), -32768,
+                              32767)
+            _write(plane, rnd, sym + means.float())
             syms[:, rnd.h, rnd.w, :] = sym.to(torch.int16).view(b, -1, m)
             idxs[:, rnd.h, rnd.w, :] = idx.view(b, -1, m)
         return syms, idxs, plane[:, 2:-2, 2:-2, :]
@@ -282,3 +304,159 @@ def flatten_wavefront_grouped(planes, coords, valid, b: int):
         hh, ww = _lanes(c, v, planes.device)
         chunks.append(planes[:, hh, ww, :].reshape(b, -1))
     return torch.cat(chunks, dim=1)
+
+
+# ---- the AR codec legs of a model ------------------------------------------
+
+
+class ARCodec:
+    """The autoregressive codec legs that the SPM STEM variants
+    (models/stem.py) and the image models with a context model
+    (models/priors.py::JointAutoregressiveHierarchicalPriors, the Cheng2020
+    models) share, mixed into their ``CompressionModel``: the rounds of an
+    h×w plane (wavefront, or raster when serial), the device encoder and
+    the per-round decoder over NHWC tile batches, host rANS between them.
+
+    The model's ``module`` has ``ar_step(taps, prior rows, streams)`` and a
+    ``context_prediction`` masked conv, and its ``__init__`` sets
+    ``_rounds_cache = {}`` (the device rounds by plane shape and mode).
+    ``wavefront_format`` picks the stream order ("lane" v1, "grouped" v2;
+    not bitstream compatible with each other). ``_codec_stats``: set it to
+    a dict and the AR legs add the seconds of each stage (synchronising the
+    device at each boundary) and the decode rounds under "hyper_s",
+    "priors_s", "enc_device_s", "enc_fetch_bytes", "enc_host_s",
+    "device_s", "host_rans_s", "rounds".
+    """
+
+    wavefront_format = "auto"
+    _codec_stats = None
+
+    def _lap(self, key: str, t0: float) -> float:
+        """With ``_codec_stats`` set: synchronise the device, add the
+        seconds since t0 under ``key`` and return the clock; else 0."""
+        st = self._codec_stats
+        if st is None:
+            return 0.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        st[key] = st.get(key, 0.0) + (t - t0)
+        return t
+
+    def _upload(self, plane_nhwc: np.ndarray):
+        """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
+        t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.float32))
+        return _nchw(t.to(self.device).permute(0, 3, 1, 2))
+
+    def _wf_format(self) -> str:
+        return wire_format(self.wavefront_format)
+
+    def _ar_step(self, taps, prior_vec, streams: int = 1):
+        return self.module.ar_step(self._cast_in(taps),
+                                   self._cast_in(prior_vec), streams)
+
+    def _wavefront_setup(self, h: int, w: int, serial: bool = False):
+        """(coords, valid, rounds, encoder, params_step, write_step) of an
+        h×w plane (a tile): wavefront order, or raster order when
+        ``serial``. The device rounds are cached; the steps read the
+        model's current weights and tables."""
+        cache = self._rounds_cache
+        key = (h, w, serial)
+        if key not in cache:
+            coords, valid = (raster_tables(h, w) if serial
+                             else wavefront_tables(h, w))
+            rounds = device_rounds(coords, valid,
+                                   self.module.context_prediction.taps,
+                                   self.device)
+            cache[key] = (coords, valid, rounds)
+        table = self._scale_table
+        encoder = make_wavefront_encoder(self._ar_step, table)
+        steps = make_wavefront_decode_step(self._ar_step, table)
+        return (*cache[key], encoder, *steps)
+
+    def _ar_encode(self, target, priors, streams: int, nt: int = 1,
+                   serial: bool = False):
+        """(the y strings, one per stream, the reconstruction (B·nt, th, tw,
+        M) f32, the decoder's target ŷ) of ``target`` (B·nt, th, tw, M)
+        against ``priors`` (B·nt, th, tw, P), NHWC tile batches whose
+        streams' tiles run in one block each. Wavefront order (grouped per
+        ``wavefront_format``), or the raster order of the serial mode."""
+        _, th, tw, m = target.shape
+        coords, valid, rounds, encoder, *_ = self._wavefront_setup(
+            th, tw, serial)
+        t0 = time.perf_counter()
+        syms, idxs, recon = encoder(target, priors, rounds, streams)
+        if nt > 1:
+            flat = [flatten_wavefront_grouped(p, coords, valid, streams)
+                    for p in (syms, idxs)]
+        else:  # the same order in one gather instead of one per round
+            flat = [flatten_wavefront(p, coords, valid) for p in (syms, idxs)]
+        sym_flat, idx_flat = (p.cpu().numpy() for p in flat)
+        t1 = self._lap("enc_device_s", t0)
+        st = self._codec_stats
+        if st is not None:
+            st["enc_fetch_bytes"] = (st.get("enc_fetch_bytes", 0)
+                                     + sym_flat.nbytes + idx_flat.nbytes)
+        t = self.tables["gaussian_conditional"]
+        esym = entropy_base.get_enc_table(t, self.coder)
+        if not serial and self._wf_format() == "grouped":
+            sizes = round_sizes(valid, nt, m)
+            levels = t.cdf.shape[0]
+            y_strings = []
+            for i in range(streams):
+                sym_g, seg_counts = group_round_symbols(
+                    sym_flat[i], idx_flat[i], sizes, levels)
+                y_strings.append(self.coder.encode_runs_segmented(
+                    sym_g, seg_counts, t.cdf, t.cdf_length, t.offset,
+                    esym=esym))
+        else:
+            y_strings = [
+                self.coder.encode_stream(sym_flat[i], idx_flat[i], t.cdf,
+                                         t.cdf_length, t.offset, esym=esym)
+                for i in range(streams)
+            ]
+        self._lap("enc_host_s", t1)
+        return y_strings, recon
+
+    def _ar_decode(self, y_strings, priors, m: int, nt: int = 1,
+                   serial: bool = False):
+        """The decoded target (B·nt, th, tw, M) f32, NHWC tile batch, of
+        the streams' ``y_strings`` against ``priors`` (B·nt, th, tw, P):
+        per round the device's parameters, one host rANS call per stream,
+        then the round's write."""
+        b = len(y_strings)
+        th, tw = priors.shape[1], priors.shape[2]
+        t = self.tables["gaussian_conditional"]
+        _, _, rounds, _, params_step, write_step = self._wavefront_setup(
+            th, tw, serial)
+        grouped = not serial and self._wf_format() == "grouped"
+        decoders = [self.coder.make_stream_decoder(s) for s in y_strings]
+        lut = entropy_base.get_lut(t, self.coder)
+        plane = torch.zeros((b * nt, th + 4, tw + 4, m), dtype=torch.float32,
+                            device=self.device)
+        # round t's write and round t+1's parameters back to back: one
+        # blocking u8 index fetch per round
+        st = self._codec_stats
+        t0 = time.perf_counter()
+        means, idx = params_step(plane, priors, rounds[0], b)
+        for k, rnd in enumerate(rounds):
+            idx_np = idx.view(b, -1).cpu().numpy()
+            t1 = self._lap("device_s", t0)
+            sym = np.empty(idx_np.shape, np.int32)
+            for i in range(b):
+                if grouped:
+                    sym[i] = decode_round_grouped(decoders[i], idx_np[i], t,
+                                                  lut=lut)
+                else:
+                    sym[i] = decoders[i].decode(idx_np[i], t.cdf,
+                                                t.cdf_length, t.offset,
+                                                lut=lut)
+            t0 = self._lap("host_rans_s", t1)
+            if st is not None:
+                st["rounds"] = st.get("rounds", 0) + 1
+            sym_dev = torch.from_numpy(sym).to(self.device).view(-1, m)
+            plane = write_step(plane, rnd, sym_dev, means)
+            if k + 1 < len(rounds):
+                means, idx = params_step(plane, priors, rounds[k + 1], b)
+        self._lap("device_s", t0)
+        return plane[:, 2:-2, 2:-2, :]

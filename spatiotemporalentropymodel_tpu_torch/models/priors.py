@@ -1,6 +1,7 @@
 """Image codecs: FactorizedPrior (bmshj2018-factorized), ScaleHyperprior
-(bmshj2018-hyperprior) and MeanScaleHyperprior (mbt2018-mean), the I-frame
-model of the video codec.
+(bmshj2018-hyperprior), MeanScaleHyperprior (mbt2018-mean), the I-frame
+model of the video codec, and JointAutoregressiveHierarchicalPriors
+(mbt2018), whose context model codes y autoregressively.
 
 Counterparts of spatiotemporalentropymodel_tpu/models/priors.py
 (compressai/models/priors.py:109-402), NCHW. Every layer is here so the whole
@@ -18,8 +19,17 @@ the P-frame pipeline calls its ``analysis`` (g_a) and ``get_x`` (g_s +
 clamp), which cast their input to the compute dtype as the JAX package's
 ``_apply`` does. At a bf16 compute dtype the nets run in bf16 and the codec
 math in f32, as in the P-frame path.
+
+JointAutoregressiveHierarchicalPriors codes ẑ on the host and y by the
+rounds of models/ar_wavefront.py (``ar_mode="wavefront"``, the default) or
+pixel by pixel in raster order (``"serial"``), with the JAX package's
+streams: each (σ, μ) from the 12 causal taps of the pixel through the masked
+conv's centre and the entropy-parameters stack on rows. g_a, h_a, h_s and
+each round's products run once per picture of the batch, so a picture's
+strings and ŷ do not depend on what it is batched with.
 """
 
+import time
 from typing import Any, Dict
 
 import numpy as np
@@ -28,9 +38,13 @@ from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
-from ..layers import GDN, Conv, Deconv, LeakyReLU, ReLU, Sequential
+from ..layers import (
+    GDN, Conv, Deconv, LeakyReLU, MaskedConv2d, ReLU, Sequential,
+)
+from ..layers.masked_conv import per_stream
 from ..ops import kernels
 from ..ops.quantize import quantize_dequantize, quantize_noise
+from . import ar_wavefront as wf
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
 
@@ -105,6 +119,21 @@ class ScaleHyperpriorModule(nn.Module):
         }
 
 
+def _h_a(n, m, g):
+    return Sequential([
+        Conv(m, n, 3, 1, g), LeakyReLU(0.01), Conv(n, n, 5, 2, g),
+        LeakyReLU(0.01), Conv(n, n, 5, 2, g),
+    ])
+
+
+def _h_s(n, m, g):
+    return Sequential([
+        Deconv(n, m, 5, 2, g), LeakyReLU(0.01),
+        Deconv(m, m * 3 // 2, 5, 2, g), LeakyReLU(0.01),
+        Conv(m * 3 // 2, m * 2, 3, 1, g),
+    ])
+
+
 class MeanScaleHyperpriorModule(nn.Module):
     """priors.py:316-402 — h_s outputs (σ, μ); getY/getX STEM hooks."""
 
@@ -113,15 +142,8 @@ class MeanScaleHyperpriorModule(nn.Module):
         n, m, g = N, M, generator
         self.g_a = _g_a(n, m, g)
         self.g_s = _g_s(n, m, g)
-        self.h_a = Sequential([
-            Conv(m, n, 3, 1, g), LeakyReLU(0.01), Conv(n, n, 5, 2, g),
-            LeakyReLU(0.01), Conv(n, n, 5, 2, g),
-        ])
-        self.h_s = Sequential([
-            Deconv(n, m, 5, 2, g), LeakyReLU(0.01),
-            Deconv(m, m * 3 // 2, 5, 2, g), LeakyReLU(0.01),
-            Conv(m * 3 // 2, m * 2, 3, 1, g),
-        ])
+        self.h_a = _h_a(n, m, g)
+        self.h_s = _h_s(n, m, g)
         self.entropy_bottleneck = EntropyBottleneck(n, generator=g)
         self.gaussian_conditional = GaussianConditional()
 
@@ -155,6 +177,95 @@ class MeanScaleHyperpriorModule(nn.Module):
 
     def get_x(self, y_hat):
         """getX hook (priors.py:397-402): synthesize and clamp to [0, 1]."""
+        return torch.clamp(self.g_s(y_hat), 0.0, 1.0)
+
+
+class JointAutoregressiveModule(nn.Module):
+    """priors.py:406-694 (mbt2018) — the mean-scale hyperprior's nets plus a
+    mask-A 5×5 context model on ŷ and a 1×1 entropy-parameters stack on
+    cat([h_s(ẑ), context]) → (σ, μ). The Cheng2020 modules
+    (models/waseda.py) override the ``_build_*`` factories."""
+
+    def __init__(self, N: int, M: int, generator=None):
+        super().__init__()
+        n, m, g = N, M, generator
+        self.N, self.M = N, M
+        self.g_a = self._build_g_a(g)
+        self.g_s = self._build_g_s(g)
+        self.h_a = self._build_h_a(g)
+        self.h_s = self._build_h_s(g)
+        self.entropy_parameters = Sequential([
+            Conv(m * 4, m * 10 // 3, 1, 1, g), LeakyReLU(0.01),
+            Conv(m * 10 // 3, m * 8 // 3, 1, 1, g), LeakyReLU(0.01),
+            Conv(m * 8 // 3, m * 6 // 3, 1, 1, g),
+        ])
+        self.context_prediction = MaskedConv2d(m, 2 * m, 5, "A", g)
+        self.entropy_bottleneck = EntropyBottleneck(n, generator=g)
+        self.gaussian_conditional = GaussianConditional()
+
+    def _build_g_a(self, g):
+        return _g_a(self.N, self.M, g)
+
+    def _build_g_s(self, g):
+        return _g_s(self.N, self.M, g)
+
+    def _build_h_a(self, g):
+        return _h_a(self.N, self.M, g)
+
+    def _build_h_s(self, g):
+        return _h_s(self.N, self.M, g)
+
+    def forward(self, x, train: bool = False, generator=None):
+        """Forward with rate estimation (priors.py:264-304 of the JAX
+        package): {"y", "y_hat", "x_hat", "likelihoods": {"y", "z"},
+        "entropy_params": {"scales_hat", "means_hat"}}. The context model
+        sees the quantized latent and the Gaussian conditional quantizes y
+        again (the reference's double quantization, priors.py:483-495): in
+        eval mode both round, in train mode they are two separate noise
+        draws from ``generator``."""
+        y = self.g_a(x)
+        z_hat, z_likelihoods = self.entropy_bottleneck(self.h_a(y), train,
+                                                       generator)
+        params = self.h_s(z_hat)
+        y_hat = (quantize_noise(y, generator) if train
+                 else quantize_dequantize(y))
+        ctx = self.context_prediction(y_hat)
+        scales_hat, means_hat = self.entropy_parameters(
+            torch.cat([params, ctx], dim=1)).chunk(2, dim=1)
+        _, y_likelihoods = self.gaussian_conditional(
+            y, scales_hat, means_hat, train=train, generator=generator)
+        return {
+            "y": y,
+            "y_hat": y_hat,
+            "x_hat": self.g_s(y_hat),
+            "likelihoods": {"y": y_likelihoods, "z": z_likelihoods},
+            "entropy_params": {"scales_hat": scales_hat,
+                               "means_hat": means_hat},
+        }
+
+    def ar_step(self, taps, prior_vec, streams: int = 1):
+        """One AR pixel per row: the masked 5×5 context at the crop centre
+        from its causal taps (N, 12·M) (``MaskedConv2d.causal_taps``), then
+        the 1×1 entropy-parameters stack on cat([h_s row (N, 2M), ctx]) →
+        (σ, μ), each (N, M): the JAX package's ar_step on the whole crop
+        (priors.py:306-316). Each product runs once for each of ``streams``
+        equal parts of the rows (``per_stream``)."""
+        ctx = self.context_prediction.center(taps, streams)
+        gp = wf.conv1x1_rows(self.entropy_parameters,
+                             torch.cat([prior_vec, ctx], dim=1), streams)
+        scales, means = gp.chunk(2, dim=1)
+        return scales, means
+
+    def get_y(self, x, train: bool = False, generator=None):
+        """getY (priors.py:686-694): the latent and the latent plus noise
+        from ``generator``; noise in either mode, as in the reference, so
+        ``train`` (the mean-scale model's signature) changes nothing."""
+        del train
+        y = self.g_a(x)
+        return y, quantize_noise(y, generator)
+
+    def get_x(self, y_hat):
+        """getX: synthesize and clamp to [0, 1]."""
         return torch.clamp(self.g_s(y_hat), 0.0, 1.0)
 
 
@@ -335,3 +446,88 @@ class MeanScaleHyperprior(_HyperpriorCodecBase):
     def get_y(self, x):
         """(y, round(y)) of g_a, in the compute dtype (priors.py:498)."""
         return self.module.get_y(self._cast_in(x))
+
+
+class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
+    """mbt2018 (priors.py:511-734 of the JAX package). ``ar_mode=
+    "wavefront"`` (the default) codes anti-diagonal rounds, one host rANS
+    call per round and picture on decode; ``"serial"`` is the reference's
+    per-pixel raster order (8160 rounds for a 1080p latent: small latents
+    only). ``wavefront_format`` ("auto" = "lane", or "grouped") is the
+    stream order of the wavefront mode (models/ar_wavefront.py::ARCodec).
+    Each picture of a batch is a stream of its own. Weights are drawn from
+    ``seed`` with an explicit CPU generator, then moved to ``device``."""
+
+    has_gaussian = True
+    _module_cls = JointAutoregressiveModule
+
+    def __init__(self, N: int = 192, M: int = 192, ar_mode: str = "wavefront",
+                 device="cuda", seed: int = 0):
+        if ar_mode not in ("wavefront", "serial"):
+            raise ValueError(f"unknown ar_mode {ar_mode!r}")
+        gen = torch.Generator().manual_seed(seed)
+        super().__init__(self._module_cls(N, M, gen), device)
+        self.N, self.M = N, M
+        self.ar_mode = ar_mode
+        self._rounds_cache = {}
+
+    @torch.no_grad()
+    def analysis(self, x):
+        """g_a only, in the compute dtype (the video codec's P-frame leg)."""
+        return self.module.g_a(self._cast_in(x))
+
+    @torch.no_grad()
+    def get_x(self, y_hat):
+        return self.module.get_x(self._cast_in(y_hat))
+
+    def get_y(self, x, generator=None):
+        """(y, y + noise) of g_a, in the compute dtype (priors.py:686)."""
+        return self.module.get_y(self._cast_in(x), generator=generator)
+
+    def _priors(self, z_hat, streams: int):
+        """h_s(ẑ) (B, 2M, h, w), run once per stream, as NHWC rows of the
+        rounds."""
+        return per_stream(self.module.h_s, streams,
+                          self._cast(z_hat)).permute(0, 2, 3, 1)
+
+    def compress(self, x) -> Dict[str, Any]:
+        """x (B, 3, H, W) in [0, 1] → {"strings": [y_strings, z_strings],
+        "shape": (z_h, z_w)}: ẑ through the host bottleneck coder, y by the
+        AR rounds against h_s(ẑ) (priors.py:650-700)."""
+        return self.encode_with_y_hat(x)[0]
+
+    @torch.no_grad()
+    def encode_with_y_hat(self, x):
+        """(``compress(x)``, the ŷ the decoder rebuilds, f32 NCHW)."""
+        self._require_tables()
+        b = x.shape[0]
+        t0 = time.perf_counter()
+        y = per_stream(self.module.g_a, b, self._cast_in(x))
+        z = per_stream(self.module.h_a, b, y)
+        z_np = z.float().permute(0, 2, 3, 1).cpu().numpy()
+        z_strings = self._eb_compress(z_np)
+        z_hat = self._upload(self._eb_quantize(z_np))
+        self._lap("hyper_s", t0)
+        priors = self._priors(z_hat, b)
+        y_strings, y_hat = self._ar_encode(y.permute(0, 2, 3, 1), priors, b,
+                                           serial=self.ar_mode == "serial")
+        return ({"strings": [y_strings, z_strings],
+                 "shape": tuple(z_hat.shape[2:4])},
+                _nchw(y_hat.permute(0, 3, 1, 2)))
+
+    @torch.no_grad()
+    def decompress(self, strings, shape) -> Dict[str, Any]:
+        """{"x_hat": clamp(g_s(ŷ), 0, 1), "y_hat": ŷ f32}, both NCHW on the
+        model's device."""
+        if not (isinstance(strings, list) and len(strings) == 2):
+            raise ValueError("strings must be [y_strings, z_strings]")
+        self._require_tables()
+        t0 = time.perf_counter()
+        z_hat = self._upload(self._eb_decompress(strings[1], shape))
+        self._lap("hyper_s", t0)
+        priors = self._priors(z_hat, z_hat.shape[0])
+        y_hat = self._ar_decode(strings[0], priors, self.M,
+                                serial=self.ar_mode == "serial")
+        y_hat = _nchw(y_hat.permute(0, 3, 1, 2))
+        x_hat = self.module.g_s(self._cast_in(y_hat))
+        return {"x_hat": torch.clamp(x_hat, 0.0, 1.0), "y_hat": y_hat}

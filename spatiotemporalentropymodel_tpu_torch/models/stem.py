@@ -40,7 +40,6 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
@@ -163,24 +162,13 @@ class STEMModule(nn.Module):
         The rows are ``streams`` equal parts, one per stream, and each
         product runs once per part (``per_stream``)."""
         ctx = self.context_prediction.center(taps, streams)
-        gp = self._epm_rows(torch.cat([prior_vec, ctx], dim=1), streams)
+        gp = wf.conv1x1_rows(self.EPM, torch.cat([prior_vec, ctx], dim=1),
+                             streams)
         scales, means = gp.chunk(2, dim=1)
         return scales, means
 
-    def _epm_rows(self, x, streams: int = 1):
-        """EPM's 1×1 convs as products over (N, C) rows, each rounded to
-        the rows' dtype before its bias is added, as ``Conv`` does."""
-        for layer in self.EPM.layers:
-            if isinstance(layer, Conv):
-                w = layer.weight.flatten(1)
-                x = per_stream(lambda r: F.linear(r, w), streams,
-                               x) + layer.bias
-            else:
-                x = layer(x)
-        return x
 
-
-class SpatioTemporalPriorModel(CompressionModel):
+class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
     """Host wrapper with the reference's compress/decompress API:
 
       compress(y_cur, y_conditioned) -> {"strings": [y, z], "shape"}
@@ -221,17 +209,8 @@ class SpatioTemporalPriorModel(CompressionModel):
         self.wavefront_tile = (
             tuple(int(v) for v in wavefront_tile) if wavefront_tile else None
         )
+        # the AR legs' rounds, wire order and stage clock: wf.ARCodec
         self._rounds_cache = {}
-        # wavefront stream symbol order: "lane" (v1, per-symbol indexed
-        # coding) or "grouped" (v2, per-round grouped-by-CDF-row run coding);
-        # not bitstream compatible with each other
-        self.wavefront_format = "auto"
-        # observability hook: set to a dict and the AR codec paths add the
-        # seconds of each stage (synchronising the device at each boundary)
-        # and the decode rounds under "hyper_s", "priors_s", "enc_device_s",
-        # "enc_fetch_bytes", "enc_host_s", "device_s", "host_rans_s",
-        # "rounds"
-        self._codec_stats = None
 
     @property
     def use_spm(self) -> bool:
@@ -461,23 +440,6 @@ class SpatioTemporalPriorModel(CompressionModel):
     # the lane format; the JAX package's serial path differs only in not
     # saturating symbols at int16.
 
-    def _lap(self, key: str, t0: float) -> float:
-        """With ``_codec_stats`` set: synchronise the device, add the
-        seconds since t0 under ``key`` and return the clock; else 0."""
-        st = self._codec_stats
-        if st is None:
-            return 0.0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        st[key] = st.get(key, 0.0) + (t - t0)
-        return t
-
-    def _upload(self, plane_nhwc: np.ndarray):
-        """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
-        t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.float32))
-        return _nchw(t.to(self.device).permute(0, 3, 1, 2))
-
     @torch.no_grad()
     def _code_z(self, y_cur, y_conditioned):
         """HE, then ẑ's strings and the encoder's ẑ (the decoder's, by
@@ -490,9 +452,6 @@ class SpatioTemporalPriorModel(CompressionModel):
         z_hat = self._upload(self._eb_quantize(z_np))
         self._lap("hyper_s", t0)
         return z_strings, z_hat
-
-    def _wf_format(self) -> str:
-        return wf.wire_format(self.wavefront_format)
 
     def _tile_dims(self, hgt: int, wid: int):
         """(th, tw, nt) for the configured wavefront tiling (nt=1 untiled)."""
@@ -514,28 +473,6 @@ class SpatioTemporalPriorModel(CompressionModel):
                 f"({th}, {tw})"
             )
         return th, tw, (hgt // th) * (wid // tw)
-
-    def _ar_step(self, taps, prior_vec, streams: int = 1):
-        return self.module.ar_step(self._cast_in(taps),
-                                   self._cast_in(prior_vec), streams)
-
-    def _wavefront_setup(self, h: int, w: int, serial: bool = False):
-        """(coords, valid, rounds, encoder, params_step, write_step) of an
-        h×w plane (a tile): wavefront order, or raster
-        order when ``serial``. The device rounds are cached; the steps read
-        the model's current weights and tables."""
-        key = (h, w, serial)
-        if key not in self._rounds_cache:
-            coords, valid = (wf.raster_tables(h, w) if serial
-                             else wf.wavefront_tables(h, w))
-            rounds = wf.device_rounds(coords, valid,
-                                      self.module.context_prediction.taps,
-                                      self.device)
-            self._rounds_cache[key] = (coords, valid, rounds)
-        table = self._scale_table
-        encoder = wf.make_wavefront_encoder(self._ar_step, table)
-        steps = wf.make_wavefront_decode_step(self._ar_step, table)
-        return (*self._rounds_cache[key], encoder, *steps)
 
     def _ar_dims(self, hgt: int, wid: int):
         """(th, tw, nt, serial) of the configured AR mode."""
@@ -565,41 +502,7 @@ class SpatioTemporalPriorModel(CompressionModel):
         target = target.permute(0, 2, 3, 1)
         if nt > 1:
             target = wf.tile_plane(target, th, tw)
-        coords, valid, rounds, encoder, *_ = self._wavefront_setup(
-            th, tw, serial)
-        t0 = time.perf_counter()
-        syms, idxs, _ = encoder(target, priors, rounds, b)
-        if nt > 1:
-            flat = [wf.flatten_wavefront_grouped(p, coords, valid, b)
-                    for p in (syms, idxs)]
-        else:  # the same order in one gather instead of one per round
-            flat = [wf.flatten_wavefront(p, coords, valid)
-                    for p in (syms, idxs)]
-        sym_flat, idx_flat = (p.cpu().numpy() for p in flat)
-        t1 = self._lap("enc_device_s", t0)
-        st = self._codec_stats
-        if st is not None:
-            st["enc_fetch_bytes"] = (st.get("enc_fetch_bytes", 0)
-                                     + sym_flat.nbytes + idx_flat.nbytes)
-        t = self.tables["gaussian_conditional"]
-        esym = entropy_base.get_enc_table(t, self.coder)
-        if not serial and self._wf_format() == "grouped":
-            sizes = wf.round_sizes(valid, nt, m)
-            levels = t.cdf.shape[0]
-            y_strings = []
-            for i in range(b):
-                sym_g, seg_counts = wf.group_round_symbols(
-                    sym_flat[i], idx_flat[i], sizes, levels)
-                y_strings.append(self.coder.encode_runs_segmented(
-                    sym_g, seg_counts, t.cdf, t.cdf_length, t.offset,
-                    esym=esym))
-        else:
-            y_strings = [
-                self.coder.encode_stream(sym_flat[i], idx_flat[i], t.cdf,
-                                         t.cdf_length, t.offset, esym=esym)
-                for i in range(b)
-            ]
-        self._lap("enc_host_s", t1)
+        y_strings, _ = self._ar_encode(target, priors, b, nt, serial)
         return {"strings": [y_strings, z_strings],
                 "shape": tuple(z_hat.shape[2:4])}
 
@@ -608,47 +511,14 @@ class SpatioTemporalPriorModel(CompressionModel):
         b = z_hat.shape[0]
         hgt, wid = z_hat.shape[2] * 4, z_hat.shape[3] * 4
         m = self.in_channels
-        t = self.tables["gaussian_conditional"]
         th, tw, nt, serial = self._ar_dims(hgt, wid)
         priors = self._tiled_priors(z_hat, y_conditioned, th, tw, nt)
-        _, _, rounds, _, params_step, write_step = self._wavefront_setup(
-            th, tw, serial)
-        grouped = not serial and self._wf_format() == "grouped"
-        decoders = [self.coder.make_stream_decoder(s) for s in strings[0]]
-        lut = entropy_base.get_lut(t, self.coder)
-        plane = torch.zeros((b * nt, th + 4, tw + 4, m), dtype=torch.float32,
-                            device=self.device)
-        # round t's write and round t+1's parameters back to back: one
-        # blocking u8 index fetch per round
-        st = self._codec_stats
-        t0 = time.perf_counter()
-        means, idx = params_step(plane, priors, rounds[0], b)
-        for k, rnd in enumerate(rounds):
-            idx_np = idx.view(b, -1).cpu().numpy()
-            t1 = self._lap("device_s", t0)
-            sym = np.empty(idx_np.shape, np.int32)
-            for i in range(b):
-                if grouped:
-                    sym[i] = wf.decode_round_grouped(decoders[i], idx_np[i],
-                                                     t, lut=lut)
-                else:
-                    sym[i] = decoders[i].decode(idx_np[i], t.cdf,
-                                                t.cdf_length, t.offset,
-                                                lut=lut)
-            t0 = self._lap("host_rans_s", t1)
-            if st is not None:
-                st["rounds"] = st.get("rounds", 0) + 1
-            sym_dev = torch.from_numpy(sym).to(self.device).view(-1, m)
-            plane = write_step(plane, rnd, sym_dev, means)
-            if k + 1 < len(rounds):
-                means, idx = params_step(plane, priors, rounds[k + 1], b)
-        target_hat = plane[:, 2:-2, 2:-2, :]
+        target_hat = self._ar_decode(strings[0], priors, m, nt, serial)
         if nt > 1:
             target_hat = wf.untile_plane(target_hat, b, hgt, wid)
         y_hat = _nchw(target_hat.permute(0, 3, 1, 2))
         if self.residual:
             y_hat = _nchw(y_hat + y_conditioned)
-        self._lap("device_s", t0)
         return {"y_hat": y_hat}
 
 

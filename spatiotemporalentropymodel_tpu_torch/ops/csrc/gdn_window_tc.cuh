@@ -225,6 +225,34 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[8][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d[m64 × n80] += a (registers: this warp's 16 rows × 16, as for
+// mma.m16n8k16) · B (desc: 80 rows × 16 of K-major bf16, 128-byte
+// swizzle), f32 accumulators d[j][e] laid out as mma's for n-tile j.
+__device__ __forceinline__ void wgmma_n80(float (&d)[10][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 // d[m64 × n96] += a (registers: this warp's 16 rows × 16, as for
 // mma.m16n8k16) · B (desc: 96 rows × 16 of K-major bf16, 128-byte
 // swizzle), f32 accumulators d[j][e] laid out as mma's for n-tile j.
@@ -346,10 +374,12 @@ __device__ __forceinline__ void wgmma_n192(float (&d)[24][4],
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 8][4],
                                       const uint32_t (&a)[4], uint64_t desc) {
-  static_assert((N == 16 || N % 32 == 0) && N <= 192, "wgmma width");
+  static_assert((N == 16 || N == 80 || N % 32 == 0) && N <= 192,
+                "wgmma width");
   if constexpr (N == 16) wgmma_n16(d, a, desc);
   if constexpr (N == 32) wgmma_n32(d, a, desc);
   if constexpr (N == 64) wgmma_n64(d, a, desc);
+  if constexpr (N == 80) wgmma_n80(d, a, desc);
   if constexpr (N == 96) wgmma_n96(d, a, desc);
   if constexpr (N == 128) wgmma_n128(d, a, desc);
   if constexpr (N == 192) wgmma_n192(d, a, desc);

@@ -14,7 +14,9 @@ each timed with CUDA events over 20 launches. The wrappers' host time
 (argument checks, packing) is left out, so the ratio is the kernels' alone.
 An entry the other tree lacks (quantize_and_index's strided f32 and bf16
 entries, which read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is
-timed in this tree's build alone, 2N times.
+timed in this tree's build alone, 2N times, and so is gdn_conv_fused at
+192 → 320 on one 192 × 136 × 240 input (g_a's last stage of the zoo's N =
+192, M = 320 models), which trees before its instantiation refuse.
 
 Prints one JSON line per kernel and shape: the median ms per launch of
 each build over its 2N timings, their spread and the ratio other / this
@@ -56,8 +58,9 @@ def _open(path):
 
 
 def _cases(gen):
-    """(label, entry, arguments but the stream) per case, and the tensors
-    the arguments point into (keep them alive)."""
+    """(label, entry, arguments but the stream, whether the other tree
+    takes them) per case, and the tensors the arguments point into (keep
+    them alive)."""
     from ..entropy import get_scale_table
 
     dev, c, b = "cuda", 192, 4
@@ -75,7 +78,7 @@ def _cases(gen):
                   "stem_quantize_and_index_f32",
                   (y.data_ptr(), means.data_ptr(), scales.data_ptr(),
                    table.data_ptr(), table.numel() - 1, 0.11, sym.data_ptr(),
-                   idx.data_ptr(), y.numel())))
+                   idx.data_ptr(), y.numel()), True))
     # (σ, μ) as the halves of one (B, 2M, H, W) tensor, as on the paths
     per = y.numel() // b
     for dtype, entry in (
@@ -88,7 +91,7 @@ def _cases(gen):
                       (yd.data_ptr(), both[:, c:].data_ptr(),
                        both.data_ptr(), b, per, per, 2 * per, 2 * per,
                        table.data_ptr(), table.numel() - 1, 0.11,
-                       sym.data_ptr(), idx.data_ptr())))
+                       sym.data_ptr(), idx.data_ptr()), True))
     gamma = (0.02 * torch.rand((c, c), generator=gen, device=dev)
              + 0.1 * torch.eye(c, device=dev))
     gs = kernels.split_gamma(gamma.t().contiguous())
@@ -112,7 +115,19 @@ def _cases(gen):
             cases.append((f"{entry} {[b, c, h, w]}", entry,
                           (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
                            wp.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
-                           c, c, h, w)))
+                           c, c, h, w), True))
+    o, (h, w) = 320, (136, 240)
+    weight = (torch.randn((o, c, 5, 5), generator=gen, device=dev)
+              * (2.0 / (25 * c)) ** 0.5).to(torch.bfloat16)
+    wc, bias = kernels.pack_conv_weight(weight), torch.zeros(o, device=dev)
+    x = torch.randn((1, c, h, w), generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty((1, o, h // 2, w // 2), dtype=torch.bfloat16, device=dev)
+    keep += [wc, bias, x, out]
+    cases.append((f"stem_gdn_conv_fused_bf16 {[1, c, h, w]} → {o}",
+                  "stem_gdn_conv_fused_bf16",
+                  (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
+                   wc.data_ptr(), bias.data_ptr(), out.data_ptr(), 1, c, o,
+                   h, w), False))
     return cases, keep
 
 
@@ -135,9 +150,9 @@ def run(other: Path, rounds: int):
     cases, _keep = _cases(gen)
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
-    for label, entry, args in cases:
+    for label, entry, args, shared in cases:
         fns = {k: getattr(lib, entry) for k, lib in libs.items()
-               if hasattr(lib, entry)}
+               if hasattr(lib, entry) and (shared or k == "this")}
         for fn in fns.values():  # warm-up
             for _ in range(3):
                 fn(*args, stream)

@@ -80,8 +80,9 @@ def _count(name, *widths) -> None:
 FUSED_CHANNELS = (64, 128, 192)
 
 # (C, O) pairs ``gdn_conv_fused`` is instantiated for (gdn_conv.cu): C = O
-# at each width, and g_a's last stage of the N = 128, M = 192 I-model
-GDN_CONV_PAIRS = ((64, 64), (128, 128), (192, 192), (128, 192))
+# at each width, and g_a's last stage of the N = 128, M = 192 and the
+# N = 192, M = 320 models
+GDN_CONV_PAIRS = ((64, 64), (128, 128), (192, 192), (128, 192), (192, 320))
 
 # the JAX package's peephole knobs (pallas_kernels.py:1341, :513, :262,
 # :1151), with its defaults

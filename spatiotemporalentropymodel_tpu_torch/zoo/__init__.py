@@ -1,19 +1,24 @@
-"""Model registry and quality configurations.
+"""Model registry, quality configurations and CompressAI checkpoints.
 
 Counterpart of spatiotemporalentropymodel_tpu/zoo/__init__.py
 (compressai/zoo/__init__.py:17-24, compressai/zoo/image.py:131-215). A
 name's position in ``model_architectures`` is the model id that the image
-and video containers record, so all six names stand here in the JAX
-package's order, the three whose models the port lacks as constructors that
-raise. The torch-checkpoint converters of the JAX zoo are not ported.
+and video containers record, so the six names stand here in the JAX
+package's order. ``load_torch_checkpoint`` fills a zoo image model from a
+CompressAI ``.pth.tar`` (zoo/convert.py); the video models' loader waits
+for the ROI family (ROADMAP.md, Queue 1 item 5), as does ``stpm_charm``.
 """
 
 from ..models import (
+    Cheng2020Anchor,
+    Cheng2020Attention,
     FactorizedPrior,
+    JointAutoregressiveHierarchicalPriors,
     MeanScaleHyperprior,
     ScaleHyperprior,
     SpatioTemporalPriorModel,
 )
+from .convert import KEY_MAPS, convert_state_dict, rename_key
 
 _LATER = "ROADMAP.md, Queue 1 item 5 (other models)"
 
@@ -32,12 +37,9 @@ model_architectures = {
     "bmshj2018-factorized": FactorizedPrior,
     "bmshj2018-hyperprior": ScaleHyperprior,
     "mbt2018-mean": MeanScaleHyperprior,
-    "mbt2018": _not_ported(
-        "mbt2018", "JointAutoregressiveHierarchicalPriors (models/priors.py)"),
-    "cheng2020-anchor": _not_ported(
-        "cheng2020-anchor", "Cheng2020Anchor (models/waseda.py)"),
-    "cheng2020-attn": _not_ported(
-        "cheng2020-attn", "Cheng2020Attention (models/waseda.py)"),
+    "mbt2018": JointAutoregressiveHierarchicalPriors,
+    "cheng2020-anchor": Cheng2020Anchor,
+    "cheng2020-attn": Cheng2020Attention,
 }
 
 # quality index → constructor args (zoo/image.py:131-188)
@@ -86,4 +88,44 @@ def create_model(architecture: str, quality: int = 1, device="cuda",
                                              device=device, **kwargs)
 
 
-__all__ = ["model_architectures", "stem_models", "cfgs", "create_model"]
+def _install_tables(model, state):
+    """The checkpoint's own CDF tables where it ships them (streams byte
+    compatible with the reference's), else ``update(force=True)``."""
+    from .convert import tables_from_state_dict
+
+    tables = tables_from_state_dict(
+        state, bottleneck_names=model.bottleneck_names,
+        has_gaussian=model.has_gaussian)
+    if tables is not None:
+        model.set_tables(tables)
+    else:
+        model.update(force=True)
+
+
+def load_torch_checkpoint(architecture: str, path, quality: int = 1,
+                          device="cuda"):
+    """A zoo image model at ``quality`` on ``device`` with its parameters
+    from a CompressAI ``.pth.tar`` checkpoint: keys normalized by
+    ``rename_key`` and mapped by the architecture's ``KEY_MAPS`` entry, the
+    codec tables those the checkpoint ships or rebuilt
+    (zoo/__init__.py:160-190 of the JAX package). Both sides are torch
+    layouts, so nothing is transposed."""
+    import torch
+
+    state = torch.load(path, map_location="cpu")
+    if "state_dict" in state:
+        state = state["state_dict"]
+    key_map = KEY_MAPS.get(architecture)
+    if key_map is None:
+        raise NotImplementedError(
+            f"no checkpoint key map for architecture {architecture!r}")
+    model = create_model(architecture, quality, device=device)
+    model.module.load_state_dict(
+        convert_state_dict(state, model.module, key_map), strict=True)
+    _install_tables(model, state)
+    return model
+
+
+__all__ = ["model_architectures", "stem_models", "cfgs", "create_model",
+           "load_torch_checkpoint", "convert_state_dict", "rename_key",
+           "KEY_MAPS"]

@@ -253,6 +253,17 @@ def _assert_scaled_close(out, ref, tol):
     assert err <= tol * scale, f"max err {err} > {tol} × max|ref| {scale}"
 
 
+def _assert_within_top_step(out, ref):
+    """max|out − ref| within one bf16 step of ref's largest magnitude,
+    2^(⌊log2 max|ref|⌋ − 7): what WINDOW_TOL's 2⁻⁸·max|ref| stands for,
+    which it equals only for a maximum at the top of its binade (half
+    the step at the bottom)."""
+    err = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    step = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert err <= step, f"max err {err} > one bf16 step {step} at {scale}"
+
+
 def _window_bf16_conv(x, gt, beta, inverse, conv):
     """The kernels' rounding points: (I)GDN in f32 rounded to bf16, then the
     conv in f32 (``conv`` on the f32 window), then bf16."""
@@ -333,7 +344,8 @@ def _wide_range(rng, shape, device):
     return torch.from_numpy(a).to(device).to(torch.bfloat16)
 
 
-def _check_gdn_conv(cuda, c, h, w, wide_range=False, o=None):
+def _check_gdn_conv(cuda, c, h, w, wide_range=False, o=None,
+                    window_step=False):
     o = c if o is None else o
     rng = np.random.default_rng(c + h)
     x = (_wide_range(rng, (2, c, h, w), cuda) if wide_range
@@ -350,7 +362,10 @@ def _check_gdn_conv(cuda, c, h, w, wide_range=False, o=None):
     torch.cuda.synchronize()
     assert out.shape == ref.shape == (2, o, (h + 1) // 2, (w + 1) // 2)
     _assert_scaled_close(out, ref, PLAIN_TOL)
-    _assert_scaled_close(out, win, WINDOW_TOL)
+    if window_step:
+        _assert_within_top_step(out, win)
+    else:
+        _assert_scaled_close(out, win, WINDOW_TOL)
     assert kernels.LAUNCHES["gdn_conv_fused"] == n0 + 1
 
 
@@ -374,6 +389,24 @@ def test_cuda_gdn_conv_fused_128_to_192(cuda, h, w, wide_range):
     M = 192): a ring slot of O rows for the weights and C for γ."""
     assert kernels.gdn_conv_supported(128, 192)
     _check_gdn_conv(cuda, 128, h, w, wide_range, o=192)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,wide_range", [(17, 35, False),
+                                            (20, 72, False),
+                                            (20, 72, True),
+                                            (136, 240, False)])
+def test_cuda_gdn_conv_fused_192_to_320(cuda, h, w, wide_range):
+    """C = 192 → O = 320, g_a's last stage of the zoo's N = 192, M = 320
+    models (mbt2018 at quality 5-8): O split across two blocks of 160
+    channels, each normalising the window itself; partial edge tiles, whole
+    tiles, and the mbt2018 1080p stage's 136 × 240. Against the window's
+    arithmetic the outputs are held to one bf16 step of the largest: at
+    17 × 35 an output near 8.8 rounds the other way (0.0625 apart, one
+    step there), more than 2⁻⁸·max|plain| = 0.034, which is one step only
+    for a maximum at the top of its binade."""
+    assert kernels.gdn_conv_supported(192, 320)
+    _check_gdn_conv(cuda, 192, h, w, wide_range, o=320, window_step=True)
 
 
 @pytest.mark.cuda
@@ -880,3 +913,36 @@ def test_cuda_train_step_kernel_matches_plain(cuda, monkeypatch):
         err = float((got[name] - r).abs().max())
         yard = max(float((m[name] - r).abs().max()) for m in moved)
         assert err <= 2 * yard, (name, err, yard)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,quality", [("mbt2018", 5),
+                                          ("cheng2020-attn", 6)])
+def test_cuda_image_ar_round_trip(cuda, name, quality):
+    """The zoo's mbt2018 at quality 5 (N 192, M 320) and Cheng2020-attn at
+    quality 6 on the card, bf16, a 256 × 384 picture: encoder ŷ == decoder
+    ŷ bit for bit, a second compress repeats the strings, x̂ finite; mbt2018
+    runs g_a's last stage through gdn_conv_fused at 192 → 320 (one launch
+    per compress), Cheng2020's six (I)GDNs through gdn_fused."""
+    from spatiotemporalentropymodel_tpu_torch import zoo
+
+    model = zoo.create_model(name, quality, device=cuda, seed=1)
+    model.update()
+    model.set_compute_dtype(torch.bfloat16)
+    x = torch.rand((1, 3, 256, 384), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(3))
+    kernels.reset_launch_counts()
+    enc, y_enc = model.encode_with_y_hat(x)
+    dec = model.decompress(enc["strings"], enc["shape"])
+    torch.cuda.synchronize()
+    by_width = dict(kernels.LAUNCHES_BY_WIDTH)
+    assert torch.equal(dec["y_hat"], y_enc)
+    assert model.compress(x)["strings"] == enc["strings"]
+    assert dec["x_hat"].shape == x.shape
+    assert bool(torch.isfinite(dec["x_hat"]).all())
+    if name == "mbt2018":
+        assert by_width[("gdn_conv_fused", 192, 320)] == 1
+        assert by_width[("gdn_conv_fused", 192, 192)] == 2
+        assert by_width[("igdn_deconv_tail_packed", 192, 3)] == 1
+    else:
+        assert by_width == {("gdn_fused_bf16", 192): 6}

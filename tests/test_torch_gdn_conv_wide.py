@@ -1,9 +1,11 @@
 """``gdn_conv_fused`` for C ≠ O: the gate takes exactly the pairs with a
-kernel, (128, 192) among them (g_a's last stage of the hero I-model, N =
-128, M = 192), and the port's plain version at 128 → 192 equals the JAX
-kernel run in Pallas interpret mode (tests/test_pallas.py's atol 2e-4).
-The kernel itself is held against the plain version on the card
-(tests/test_torch_cuda.py::test_cuda_gdn_conv_fused_128_to_192)."""
+kernel, (128, 192) and (192, 320) among them (g_a's last stage of the hero
+I-model, N = 128, M = 192, and of the zoo's N = 192, M = 320 models), and
+the port's plain version at 128 → 192 equals the JAX kernel run in Pallas
+interpret mode (tests/test_pallas.py's atol 2e-4). The kernel itself is
+held against the plain version on the card
+(tests/test_torch_cuda.py::test_cuda_gdn_conv_fused_128_to_192 and
+``_192_to_320``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,9 +22,10 @@ from torch_port_util import to_nchw, to_nhwc
 
 def test_gate_takes_the_instantiated_pairs():
     assert kernels.gdn_conv_supported(128, 192)
+    assert kernels.gdn_conv_supported(192, 320)
     for c in kernels.FUSED_CHANNELS:
         assert kernels.gdn_conv_supported(c, c)
-    for pair in ((192, 320), (192, 128), (64, 128), (128, 256)):
+    for pair in ((192, 128), (64, 128), (128, 256), (128, 320)):
         assert not kernels.gdn_conv_supported(*pair)
 
 

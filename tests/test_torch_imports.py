@@ -36,6 +36,34 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_checks_cover_the_image_ar_modules():
+    """The modules the autoregressive image models brought are among those
+    checked above and below."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if p.is_relative_to(PORT)}
+    assert {"layers/blocks.py", "models/waseda.py", "zoo/convert.py",
+            "models/priors.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["mbt2018", "cheng2020-anchor",
+                                  "cheng2020-attn"])
+def test_ar_models_raise_without_card(name, tmp_path):
+    """The zoo's autoregressive models and the checkpoint loader are built
+    on cuda unless told device="cpu": with no card they raise."""
+    if torch_cuda_available():
+        pytest.skip("a card is present; the model would be built on it")
+    import torch
+
+    from spatiotemporalentropymodel_tpu_torch import zoo
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.create_model(name, 1)
+    path = tmp_path / "m.pth.tar"
+    torch.save({}, path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.load_torch_checkpoint(name, str(path))
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where importing jax,
     flax or PIL fails, and none of them pulls in the JAX package."""

@@ -17,10 +17,16 @@ import spatiotemporalentropymodel_tpu_torch.models.priors as port_priors
 import spatiotemporalentropymodel_tpu_torch.models.stem as port_stem
 
 from spatiotemporalentropymodel_tpu.models import (
+    Cheng2020Anchor as JaxAnchor,
+    Cheng2020Attention as JaxAttention,
+    JointAutoregressiveHierarchicalPriors as JaxJAHP,
     MeanScaleHyperprior as JaxMSH,
     SpatioTemporalPriorModel as JaxStem,
 )
-from spatiotemporalentropymodel_tpu_torch.convert import load_jax_params
+from spatiotemporalentropymodel_tpu_torch.convert import (
+    jax_tree,
+    load_jax_params,
+)
 from spatiotemporalentropymodel_tpu_torch.eval.workload import (
     match_latent_to_prior,
     realistic_stem,
@@ -29,6 +35,9 @@ from spatiotemporalentropymodel_tpu_torch.layers import (
     Conv, Deconv, MaskedConv2d,
 )
 from spatiotemporalentropymodel_tpu_torch.models import (
+    Cheng2020Anchor,
+    Cheng2020Attention,
+    JointAutoregressiveHierarchicalPriors,
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
 )
@@ -164,3 +173,78 @@ def paths(tree) -> dict:
     """{tuple of keys: NumPy leaf} of a nested dict tree (JAX params)."""
     flat = jax.tree_util.tree_flatten_with_path(tree)[0]
     return {tuple(k.key for k in path): np.asarray(v) for path, v in flat}
+
+
+# ---- the autoregressive image models (tests/test_torch_image_ar*.py) -----
+
+HW = 64
+# name → (JAX model, port model(**kw)) at the tests' widths
+AR_MODELS = {
+    "mbt2018": (lambda: JaxJAHP(8, 12),
+                lambda **kw: JointAutoregressiveHierarchicalPriors(
+                    8, 12, device="cpu", **kw)),
+    "cheng2020-anchor": (lambda: JaxAnchor(16),
+                         lambda **kw: Cheng2020Anchor(16, device="cpu", **kw)),
+    "cheng2020-attn": (lambda: JaxAttention(16),
+                       lambda **kw: Cheng2020Attention(16, device="cpu",
+                                                       **kw)),
+}
+
+
+def ar_image(b=1, seed=0, hw=HW):
+    """(b, hw, hw, 3) NHWC in [0, 1): smooth structure plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:hw, 0:hw] / HW
+    base = 0.5 + 0.3 * np.sin(6 * xx + 4 * yy)[None, :, :, None]
+    return np.clip(base + 0.1 * rng.standard_normal((b, hw, hw, 3)), 0,
+                   1).astype(np.float32)
+
+
+def _nodes(tree):
+    yield tree
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _nodes(v)
+
+
+def random_biases(tree, seed):
+    """The tree (nested dicts of NumPy leaves) with N(0, 0.1) biases: the
+    initialisers' zeros would hide where a bias is added."""
+    rng = np.random.default_rng(seed)
+    for node in _nodes(tree):
+        if "bias" in node:
+            node["bias"] = (0.1 * rng.standard_normal(
+                node["bias"].shape)).astype(np.float32)
+    return tree
+
+
+def tame(tree):
+    """The tree with every kernel × 0.7 and g_s's × 0.49. Cheng2020 at its
+    initialisation grows without bound: y reaches 20-170 at 64², and each
+    of g_s's three upsampling blocks ends in an IGDN, x·sqrt(β + γ·x²), so
+    x̂ reaches 1e9 (the anchor) to 1e19 (the attention model), where no f32
+    tolerance means anything, and the fed noise's sine turns the last bits
+    of so large a y into likelihoods 1e-4 apart. Tamed, y stays within
+    about 2.5 (anchor) and 8 (attention) and x̂ within about 7."""
+    for key, sub in tree.items():
+        scale = np.float32(0.49 if key == "g_s" else 0.7)
+        for node in _nodes(sub) if isinstance(sub, dict) else ():
+            if "kernel" in node:
+                node["kernel"] = node["kernel"] * scale
+    return tree
+
+
+def bridge_ar(name, seed=0, **kw):
+    """The port's model from its seed with random biases (the Cheng2020
+    models tamed) and the JAX model with its weights (convert.jax_tree: a
+    JAX init costs 5-25 s here), both with their tables."""
+    pm = AR_MODELS[name][1](seed=seed, **kw)
+    tree = random_biases(jax_tree(pm.module), seed)
+    if name.startswith("cheng"):
+        tree = tame(tree)
+    load_jax_params(pm.module, tree)
+    pm.update()
+    jm = AR_MODELS[name][0]()
+    jm.params = jax.tree_util.tree_map(jnp.asarray, tree)
+    jm.update()
+    return jm, pm
