@@ -519,34 +519,45 @@ def _scaled_err(torch, out, ref, name):
     return err
 
 
-def check_gdn_bf16(torch, kernels, b=B, c=N):
-    """gdn_fused's bf16 entry at g_s's first IGDN: (b, c, 136, 240)."""
-    gen = torch.Generator(device="cuda").manual_seed(13)
+def check_gdn_entry(torch, kernels, b=B, c=N, size=(H // 8, W // 8),
+                    dtype=None, timed_inverse=True, seed=13):
+    """gdn_fused's bf16 entry (or ``dtype``'s) on (b, c, *size), by default
+    at g_s's first IGDN, forward and inverse against the plain version
+    (bf16: rtol 2⁻⁷; f32: rtol 1e-5, atol 1e-6), the inverse (or the
+    forward) timed beside its bound and torch.addmm (the norm's
+    product)."""
+    dtype = dtype or torch.bfloat16
+    bf16 = dtype == torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     gamma_t, beta = _gdn_params(torch, gen, c)
-    x = torch.randn((b, c, H // 8, W // 8), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+    x = torch.randn((b, c, *size), generator=gen, device="cuda").to(dtype)
     worst = 0.0
     for inverse in (False, True):
         out = kernels.gdn_fused(x, gamma_t, beta, inverse)
-        ref = kernels._gdn_ref(x.float(), gamma_t, beta,
-                               inverse).to(torch.bfloat16)
+        ref = kernels._gdn_ref(x.float(), gamma_t, beta, inverse).to(dtype)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         ok = bool(torch.allclose(out.float(), ref.float(),
-                                 rtol=GDN_BF16_RTOL, atol=GDN_ATOL))
-        log(f"  gdn_fused bf16 {'inv' if inverse else 'fwd'} "
-            f"{tuple(x.shape)}: max abs {err:.3e} ok={ok}")
+                                 rtol=GDN_BF16_RTOL if bf16 else GDN_RTOL,
+                                 atol=GDN_ATOL))
+        log(f"  gdn_fused {'bf16' if bf16 else 'f32'} "
+            f"{'inv' if inverse else 'fwd'} {tuple(x.shape)}: max abs "
+            f"{err:.3e} ok={ok}")
         if not ok:
-            raise AssertionError("gdn_fused bf16 disagrees with its plain "
-                                 "version")
+            raise AssertionError(f"gdn_fused disagrees with its plain "
+                                 f"version at {tuple(x.shape)} {dtype}")
         worst = max(worst, err)
     rows = x.numel() // c
     xsq_rows = _norm_rows(torch, x)
-    ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, True))
+    ms = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta, timed_inverse))
     plain_ms = cuda_ms(lambda: kernels._gdn_ref(
-        x.float(), gamma_t, beta, True).to(torch.bfloat16))
+        x.float(), gamma_t, beta, timed_inverse).to(dtype))
     lib_ms = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
-    b_ms, b_by = gdn_bound(2 * rows * c * 2 + c * c * 4 + c * 4, rows, c, 3)
+    size = x.element_size()
+    b_ms, b_by = gdn_bound(2 * rows * c * size + c * c * 4 + c * 4, rows, c,
+                           3 if bf16 else 6)
+    del x, xsq_rows
+    torch.cuda.empty_cache()
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                 shape=[rows, c])
@@ -1997,17 +2008,11 @@ def run_train_card_vs_cpu(torch, kernels):
         f"({unpinned} entries not pinned by the gradients, within 2·lr)")
 
 
-def _image_grads(torch, kernels, module, x, mode, eps=0.0):
-    """Gradients of the RD loss of one train forward (fed noise), with
-    gdn_fused's kernel (mode "kernel"), its plain version ("plain"), or
-    its plain version with each output scaled by 1 ± eps, the signs drawn
-    from a fixed seed ("random"), or by 1 + eps ("scaled")."""
-    from spatiotemporalentropymodel_tpu_torch.training import (
-        rate_distortion_loss,
-    )
-
-    fused = kernels.gdn_fused
-    gen = torch.Generator(device=x.device).manual_seed(21)
+def _gdn_moved(torch, kernels, mode, eps, device):
+    """A stand-in for gdn_fused: its plain version ("plain"), with each
+    output scaled by 1 ± eps, the signs drawn from a fixed seed
+    ("random"), or by 1 + eps ("scaled")."""
+    gen = torch.Generator(device=device).manual_seed(21)
 
     def plain(v, g, b, inverse=False):
         out = kernels._gdn_plain(v, g, b, bool(inverse))
@@ -2019,8 +2024,39 @@ def _image_grads(torch, kernels, module, x, mode, eps=0.0):
             out = out * (1 + eps)
         return out
 
+    return plain
+
+
+def _kernel_vs_moved(tag, got, ref, moved):
+    """Each leaf's max|kernel − plain| (``got``, ``ref``: {name: gradient})
+    within TRAIN_KERNEL_SCALE × the largest max|moved − plain| of the
+    ``moved`` runs. Returns (the worst ratio, its leaf)."""
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        d_kernel = float(np.abs(got[name] - r).max())
+        d_moved = max(float(np.abs(m[name] - r).max()) for m in moved)
+        ratio = d_kernel / max(d_moved, 1e-30)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+        if d_kernel > TRAIN_KERNEL_SCALE * d_moved:
+            raise AssertionError(
+                f"{tag}: gradient of {name} off by {d_kernel:.3g}, the "
+                f"{GDN_RTOL}-moved plain runs by {d_moved:.3g} (limit "
+                f"×{TRAIN_KERNEL_SCALE})")
+    return worst, worst_name
+
+
+def _image_grads(torch, kernels, module, x, mode, eps=0.0):
+    """Gradients of the RD loss of one train forward (fed noise), with
+    gdn_fused's kernel (mode "kernel") or _gdn_moved's stand-in of the
+    mode."""
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        rate_distortion_loss,
+    )
+
+    fused = kernels.gdn_fused
     if mode != "kernel":
-        kernels.gdn_fused = plain
+        kernels.gdn_fused = _gdn_moved(torch, kernels, mode, eps, x.device)
     try:
         out = module(x, train=True, generator=None)
         loss = rate_distortion_loss(out, x)["loss"]
@@ -2058,18 +2094,8 @@ def run_train_kernel_vs_plain(torch, kernels, module, x):
             raise AssertionError(f"plain runs launched: {kernels.LAUNCHES}")
     finally:
         undo()
-    worst, worst_name = 0.0, None
-    for name, r in ref.items():
-        d_kernel = float(np.abs(got[name] - r).max())
-        d_moved = max(float(np.abs(m[name] - r).max()) for m in moved)
-        ratio = d_kernel / max(d_moved, 1e-30)
-        if ratio > worst:
-            worst, worst_name = ratio, name
-        if d_kernel > TRAIN_KERNEL_SCALE * d_moved:
-            raise AssertionError(
-                f"train kernel vs plain: gradient of {name} off by "
-                f"{d_kernel:.3g}, the {GDN_RTOL}-moved plain runs by "
-                f"{d_moved:.3g} (limit ×{TRAIN_KERNEL_SCALE})")
+    worst, worst_name = _kernel_vs_moved("train kernel vs plain", got, ref,
+                                         moved)
     scale = max(float(np.abs(r).max()) for r in ref.values())
     rel = max(float(np.abs(got[n] - r).max() / max(np.abs(r).max(), 1e-30))
               for n, r in ref.items())
@@ -2607,6 +2633,526 @@ def run_image_ar(torch, kernels, card):
     return snaps, figures
 
 
+# ---- the ROI / pixel-domain STEM family -----------------------------------
+
+ROI_EBC, ROI_M, ROI_N = 256, 192, 128  # TrainStemRoiConfig; the fixed trunk
+ROI_NAMES = ("stem_baseline", "stem_baselinev2", "stem_roi",
+             "stem_roi_wo_gsc", "stem_roi_i")
+ROI_LEVELS = (0, 50, 100, -1)
+ROI_RC = (0.45,)
+ROI_TRAIN_GRAD_TOL = 2e-3  # × max|g|, f32 against f64, plain GDN
+ROI_TIMED = 3  # compress and decompress times: the median of 3
+
+
+def _roi_model(torch, name, bf16, seed=1):
+    """A seeded model of the family, tamed (eval/workload.py::tame_roi: at
+    their initialisation the quality-map transforms blow x̂ past f32)."""
+    from spatiotemporalentropymodel_tpu_torch import zoo
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import tame_roi
+
+    model = zoo.roi_models[name](entropy_bottleneck_channels=ROI_EBC,
+                                 in_channels=ROI_M, device="cuda", seed=seed)
+    tame_roi(model.module)
+    model.update()
+    if bf16:
+        model.set_compute_dtype(torch.bfloat16)
+    return model
+
+
+def _roi_want(name, bf16, frames=1):
+    """Launches (by kernel, by width) of ``frames`` compress + decompress
+    round trips, B = 1. The pixel encoders (the baselines' PEncoder and
+    ConditionEncoder, the ROI P-models' ConditionEncoder) run 3 GDNs each
+    (bf16: 3 gdn_conv_fused, 128 → 128 twice and 128 → M): a baseline runs
+    3 (x_cur and x_cond, then x_cond to decode), a ROI P-model 2; the ROI
+    g_a and g_s run 3 GDNs each, alone; the baselines' PDecoder 3 IGDNs
+    (bf16: its first alone, then the packed pair); quantize_and_index
+    once per compress."""
+    n = ROI_N
+    baseline = name.startswith("stem_baseline")
+    n_enc = 3 if baseline else (0 if name == "stem_roi_i" else 2)
+    n_alone = 0 if baseline else 6
+    q = "quantize_and_index_bf16" if bf16 else "quantize_and_index"
+    counts, widths = {q: 1}, {(q,): 1}
+    if bf16:
+        g = n_alone + int(baseline)
+        counts.update(gdn_conv_fused=3 * n_enc, gdn_fused_bf16=g)
+        widths.update({("gdn_conv_fused", n, n): 2 * n_enc,
+                       ("gdn_conv_fused", n, ROI_M): n_enc,
+                       ("gdn_fused_bf16", n): g})
+        if baseline:
+            counts.update(igdn_deconv_wide_packed=1,
+                          igdn_deconv_tail_packed=1)
+            widths.update({("igdn_deconv_wide_packed", n, n): 1,
+                           ("igdn_deconv_tail_packed", n, 3): 1})
+    else:
+        g = 3 * n_enc + n_alone + 3 * int(baseline)
+        counts["gdn_fused"] = g
+        widths[("gdn_fused", n)] = g
+    counts = {k: v * frames for k, v in counts.items()}
+    widths = {k: v * frames for k, v in widths.items() if v}
+    return _want(**counts), widths
+
+
+def _add_snap(total, snap):
+    for part, add in zip(total, snap):
+        for k, v in add.items():
+            part[k] = part.get(k, 0) + v
+
+
+def _roi_round_trip(torch, kernels, model, args, cond, tag, want):
+    """compress, then decompress with no quality map, counted: encoder ŷ ==
+    decoder ŷ bit for bit, x̂ finite and in [0, 1], launches exact; then
+    ROI_TIMED − 1 more round trips for the times, each compress's strings
+    the first's. Returns (snapshot, figures)."""
+    kernels.reset_launch_counts()
+    enc_ms, (enc, y_enc) = timed_ms(torch,
+                                    lambda: model.encode_with_y_hat(*args))
+    dec_ms, dec = timed_ms(torch, lambda: model.decompress(
+        enc["strings"], enc["shape"], *cond))
+    _check_launches(kernels, tag, want[0])
+    _check_widths(kernels, tag, want[1])
+    snap = _snap(kernels)
+    if not torch.equal(dec["y_hat"], y_enc):
+        diff = int((dec["y_hat"] != y_enc).sum())
+        raise AssertionError(f"{tag}: encoder ŷ != decoder ŷ at {diff} "
+                             f"elements")
+    x_hat = dec["x_hat"]
+    if not (bool(torch.isfinite(x_hat).all()) and float(x_hat.min()) >= 0
+            and float(x_hat.max()) <= 1):
+        raise AssertionError(f"{tag}: x̂ not finite in [0, 1]")
+    enc_t, dec_t = [enc_ms], [dec_ms]
+    for _ in range(ROI_TIMED - 1):
+        ms, again = timed_ms(torch, lambda: model.compress(*args))
+        enc_t.append(ms)
+        if again["strings"] != enc["strings"]:
+            raise AssertionError(f"{tag}: a second compress gives other "
+                                 f"strings")
+        dec_t.append(timed_ms(torch, lambda: model.decompress(
+            enc["strings"], enc["shape"], *cond))[0])
+    nbytes = sum(len(s) for group in enc["strings"] for s in group)
+    x = args[0]
+    bpp = nbytes * 8.0 / (x.shape[2] * x.shape[3])
+    return snap, dict(compress_ms=float(np.median(enc_t)),
+                      decompress_ms=float(np.median(dec_t)), bytes=nbytes,
+                      bpp=bpp, x_hat_shape=list(x_hat.shape))
+
+
+def _roi_inputs(torch, frames_u8, rows=None):
+    """(x_cur, x_cond, qmap) on the card: the probe's frames 1 and 0 and a
+    synthesize_qmap map (random.Random(3)) cut to the frame, (1, 1, H, W);
+    ``rows`` cuts the frames' rows."""
+    import random
+
+    from spatiotemporalentropymodel_tpu_torch.data import synthesize_qmap
+
+    rows = rows or slice(None)
+    xs = [torch.from_numpy(f[rows]).permute(2, 0, 1)[None].contiguous()
+          .cuda().float() / 255.0 for f in frames_u8[:2]]
+    h, w = xs[0].shape[2:]
+    q = synthesize_qmap(max(h, w), rng=random.Random(3))[:h, :w]
+    return xs[1], xs[0], torch.from_numpy(
+        np.ascontiguousarray(q[None, :, :, 0]))[None].cuda()
+
+
+def _roi_args(name, x, xc, q):
+    if name == "stem_roi_i":
+        return (x, q), ()
+    return ((x, xc, q) if name.startswith("stem_roi") else (x, xc)), (xc,)
+
+
+def run_roi_models(torch, kernels, card, frames_u8, total):
+    """The five models at EB 256, M 192 from seeds (tamed) on one
+    1088×1920 pair, f32 then bf16; then stem_roi on the pair cut to rows
+    4-1083, unpadded (its hyper-encoder's map is the 1080 → 68 resize)."""
+    figures = {}
+    x, xc, q = _roi_inputs(torch, frames_u8)
+    for bf16 in (False, True):
+        for name in ROI_NAMES:
+            tag = f"roi_{name}_{'bf16' if bf16 else 'f32'}"
+            model = _roi_model(torch, name, bf16)
+            args, cond = _roi_args(name, x, xc, q)
+            snap, figures[tag] = _roi_round_trip(
+                torch, kernels, model, args, cond, tag,
+                _roi_want(name, bf16))
+            _add_snap(total, snap)
+            f = figures[tag]
+            log(f"  {tag}: 1×3×{H}×{W}: compress {f['compress_ms']:.1f} ms, "
+                f"decompress {f['decompress_ms']:.1f} ms (median of "
+                f"{ROI_TIMED}), {f['bytes']} B ({f['bpp']:.4f} bpp, seeded "
+                f"weights); encoder ŷ == decoder ŷ, x̂ in [0, 1], strings "
+                f"repeat, launches exact | card: {card}")
+            del model
+        torch.cuda.empty_cache()
+    tag = "roi_stem_roi_unpadded_1080"
+    x, xc, q = _roi_inputs(torch, frames_u8, slice(4, 1084))
+    model = _roi_model(torch, "stem_roi", False)
+    args, cond = _roi_args("stem_roi", x, xc, q)
+    snap, f = _roi_round_trip(torch, kernels, model, args, cond, tag,
+                              _roi_want("stem_roi", False))
+    _add_snap(total, snap)
+    if f["x_hat_shape"] != [1, 3, H, W]:
+        raise AssertionError(f"{tag}: x̂ {f['x_hat_shape']}")
+    figures[tag] = f
+    h = x.shape[2]
+    log(f"  {tag}: 1×3×{h}×{W} unpadded (latent {-(-h // 16)}×{W // 16}, "
+        f"the map resized {h} → {-(-h // 16)} rows): compress "
+        f"{f['compress_ms']:.1f} ms, decompress "
+        f"{f['decompress_ms']:.1f} ms, {f['bytes']} B; encoder ŷ == decoder "
+        f"ŷ, launches exact")
+    del model
+    torch.cuda.empty_cache()
+    return figures
+
+
+def run_roi_eval(torch, kernels, card, frames_u8, total):
+    """eval_levels on a 3-frame GOP of 1088×1920 (stem_roi_i, then stem_roi
+    conditioned on the padded reconstruction) at ROI_LEVELS, then eval_rc
+    at ROI_RC, in f32: every compress's streams decode to its encoder's ŷ
+    exactly, bpp and PSNR finite, the launches exact."""
+    from spatiotemporalentropymodel_tpu_torch.data import ArraySequence
+    from spatiotemporalentropymodel_tpu_torch.eval import eval_stem_roi
+
+    model_i = _roi_model(torch, "stem_roi_i", False, seed=2)
+    model_p = _roi_model(torch, "stem_roi", False, seed=3)
+    checked = []
+    for model in (model_i, model_p):
+        def compress(*a, _m=model):
+            enc, y_enc = type(_m).encode_with_y_hat(_m, *a)
+            _m._y_enc = y_enc
+            return enc
+
+        def decompress(*a, _m=model):
+            dec = type(_m).decompress(_m, *a)
+            if not torch.equal(dec["y_hat"], _m._y_enc):
+                raise AssertionError("roi eval: encoder ŷ != decoder ŷ")
+            checked.append(1)
+            return dec
+
+        model.compress, model.decompress = compress, decompress
+    seq = ArraySequence(frames_u8[:3], gop_size=3)
+    # per level an I-frame (stem_roi_i: a forward, 6 GDNs, and a round
+    # trip, 6) and two P-frames (stem_roi: a forward, 9, and a round trip,
+    # 12), each compress one quantize_and_index
+    n_lv = len(ROI_LEVELS) + len(ROI_RC)
+    g, nq = n_lv * (12 + 2 * 21), 3 * n_lv
+    want = (_want(gdn_fused=g, quantize_and_index=nq),
+            {("gdn_fused", ROI_N): g, ("quantize_and_index",): nq})
+    tag = "roi_eval"
+    wall, (levels, rc), snap = _counted(
+        torch, kernels, tag, want,
+        lambda: (eval_stem_roi.eval_levels(model_i, model_p, [seq],
+                                           list(ROI_LEVELS)),
+                 eval_stem_roi.eval_rc(model_i, model_p, [seq],
+                                       list(ROI_RC))))
+    _add_snap(total, snap)
+    if len(checked) != nq:
+        raise AssertionError(f"{tag}: {len(checked)} decodes checked")
+    for level, r in {**levels, **rc}.items():
+        if not (np.isfinite(r["psnr"]) and np.isfinite(r["bpp"])
+                and r["bpp"] > 0):
+            raise AssertionError(f"{tag} level {level}: {r}")
+        # MS-SSIM is NaN below its 5-scale size and not asked for here
+        r.pop("ms-ssim")
+    log(f"  {tag}: a 3-frame GOP of {H}×{W}, levels {list(ROI_LEVELS)} and "
+        f"rc {list(ROI_RC)}: "
+        + ", ".join(f"{k}: {v['bpp']:.4f} bpp / {v['psnr']:.2f} dB"
+                    for k, v in {**levels, **rc}.items())
+        + f" (seeded weights); {len(checked)} decodes == their encoder's ŷ"
+        f", launches exact; {wall:.1f} s | card: {card}")
+    del model_i, model_p
+    torch.cuda.empty_cache()
+    return {"levels": levels, "rc": rc, "seconds": wall}
+
+
+def run_roi_train_card_vs_cpu(torch, kernels):
+    """One joint step of each recipe (roi: stem_roi_i + stem_roi at EB 16,
+    M 12, tamed; baseline: MeanScaleHyperprior(16, 16) + stem_baselinev2)
+    on a 2-frame 2×64² sequence, from the same weights with the same fed
+    noise: on the CPU in f64 and f32, and on the card with the gdn_fused
+    kernel, with its plain version, and with the plain version's outputs
+    moved by GDN_RTOL (random signs; all up). The card's loss within 1e-4
+    relative of the CPU's; the CPU's and the card's plain f32 gradients
+    within ROI_TRAIN_GRAD_TOL of each leaf's max|g| of the f64 run's; the
+    kernel's gradients off the card's plain ones by at most
+    TRAIN_KERNEL_SCALE × the nudged runs' largest deviation, leaf by leaf
+    (the training phase's criterion, _kernel_vs_moved): the SFT and quality-map gradients
+    are sums that cancel to a small part of their terms, so a GDN output
+    moved by its f32 tolerance moves them by up to a tenth of max|g|."""
+    import copy
+    import random
+
+    from spatiotemporalentropymodel_tpu_torch.data import synthesize_qmap
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import tame_roi
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior, StemBaselineModule, StemROIModule,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        init_train_state,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        configure_optimizers, train_stem_roi as tr,
+    )
+
+    rng = np.random.default_rng(7)
+    frames = torch.from_numpy(rng.random((2, 2, 3, 64, 64),
+                                         dtype=np.float32))
+    q = torch.from_numpy(np.stack([synthesize_qmap(
+        64, rng=random.Random(i))[None, :, :, 0] for i in range(2)]))
+    real = kernels.gdn_fused
+    # (tag, device, dtype, the gdn_fused stand-in's mode and eps or None)
+    runs = (("cpu64", "cpu", torch.float64, None),
+            ("cpu", "cpu", torch.float32, None),
+            ("kernel", "cuda", torch.float32, None),
+            ("plain", "cuda", torch.float32, ("plain", 0.0)),
+            ("nudged", "cuda", torch.float32, ("random", GDN_RTOL)),
+            ("up", "cuda", torch.float32, ("scaled", GDN_RTOL)))
+    undo = _fed_noise(torch)
+    try:
+        for mode in ("roi", "baseline"):
+            g = torch.Generator().manual_seed(5)
+            if mode == "roi":
+                cpu = (StemROIModule(16, 12, conditional=False, generator=g),
+                       StemROIModule(16, 12, generator=g))
+            else:
+                cpu = (MeanScaleHyperprior(16, 16, device="cpu",
+                                           seed=5).module,
+                       StemBaselineModule(16, 12, True, generator=g))
+            for m in cpu:
+                tame_roi(m)
+            out = {}
+            for tag, dev, dtype, gdn in runs:
+                if gdn is not None:
+                    kernels.gdn_fused = _gdn_moved(torch, kernels, *gdn, dev)
+                try:
+                    mods = [copy.deepcopy(m).to(dev, dtype) for m in cpu]
+                    opts = [configure_optimizers(m, TRAIN_LR) for m in mods]
+                    states = [init_train_state(m, o)
+                              for m, o in zip(mods, opts)]
+                    step = tr.make_joint_sequence_step(
+                        *mods, *opts, mode=mode, loss_threshold=1e9)
+                    *states, metrics = step(
+                        *states, frames.to(dev, dtype), q.to(dev, dtype),
+                        torch.Generator(device=dev))
+                finally:
+                    kernels.gdn_fused = real
+                out[tag] = (float(metrics["loss"]),
+                            [_first_moments(s) for s in states])
+            loss = {k: v[0] for k, v in out.items()}
+            if not abs(loss["kernel"] - loss["cpu"]) <= (
+                    TRAIN_LOSS_RTOL * abs(loss["cpu"])):
+                raise AssertionError(f"roi train card vs CPU ({mode}): loss "
+                                     f"{loss['kernel']} vs {loss['cpu']}")
+            grads = {k: v[1] for k, v in out.items()}
+            worst = {k: max(_check_grads(
+                f"roi train {k} f32 vs f64 ({mode})", a, b,
+                ROI_TRAIN_GRAD_TOL) for a, b in zip(grads[k], grads["cpu64"]))
+                for k in ("cpu", "plain")}
+            # the I- and P-modules' leaves in one dict each
+            flat = {k: {f"{i}.{n}": g for i, d in enumerate(v)
+                        for n, g in d.items()} for k, v in grads.items()}
+            ratio, _ = _kernel_vs_moved(
+                f"roi train kernel vs plain ({mode})", flat["kernel"],
+                flat["plain"], [flat["nudged"], flat["up"]])
+            log(f"  roi train card vs CPU, {mode}: one joint step, fed "
+                f"noise: loss {loss['kernel']:.6f} vs {loss['cpu']:.6f} "
+                f"(f64 {loss['cpu64']:.6f}); f32 gradients off the f64 "
+                f"run's by {worst['cpu']:.3g} (CPU) and {worst['plain']:.3g} "
+                f"(card, plain GDN) of max|g| (limit {ROI_TRAIN_GRAD_TOL}); "
+                f"the kernel's off the plain ones by at most {ratio:.3g}× "
+                f"the nudged runs' deviation (limit {TRAIN_KERNEL_SCALE})")
+    finally:
+        undo()
+
+
+def _unmoved(torch, modules, before):
+    """The parameters of ``modules`` equal to their ``before`` copies."""
+    return [f"{i}.{k}" for i, m in enumerate(modules)
+            for k, v in m.named_parameters() if torch.equal(v, before[i][k])]
+
+
+def _params(modules):
+    return [{k: v.detach().clone() for k, v in m.named_parameters()}
+            for m in modules]
+
+
+def run_roi_train(torch, kernels, card, total):
+    """train_stem_roi in both modes at TrainStemRoiConfig's defaults (EB
+    256, M 192, 4 × 256², the JAX package's synthetic 3-frame batches),
+    but for loss_skip_threshold, 3 steps, the weights tamed (roi): finite
+    metrics, every frame valid, every parameter of both modules moved, the
+    checkpoint, the gdn_fused launches of the forwards (6 for the I-frame,
+    9 per P-frame); then one step of each on a 7-frame batch (a Vimeo
+    septuplet's length), every frame valid and every parameter moved
+    again. The seeded weights' losses (400-470 on the card) are far past
+    the default threshold 3.0, which would mask every frame's gradient, so
+    that no main parameter would move: the threshold is 1e9, as in the
+    card-vs-CPU check. ms per step with the first apart, steps/s, peak
+    memory."""
+    import tempfile
+    from pathlib import Path
+
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import tame_roi
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        init_train_state,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        configure_optimizers, load_trees, train_stem_roi as tr,
+    )
+    from spatiotemporalentropymodel_tpu_torch.utils.config import (
+        TrainStemRoiConfig,
+    )
+
+    results = {}
+    steps, frames = 3, 3
+    with tempfile.TemporaryDirectory() as d:
+        for mode in ("roi", "baseline"):
+            tag = f"roi_train_{mode}"
+            cfg = TrainStemRoiConfig(mode=mode, workdir=str(Path(d) / mode),
+                                     loss_skip_threshold=1e9)
+            modules = tr.build_modules(cfg, torch.device("cuda"))
+            for m in modules:
+                tame_roi(m)
+            before = _params(modules)
+            times = []
+            restore = _timed_steps(torch, tr, "make_joint_sequence_step",
+                                   times)
+            torch.cuda.reset_peak_memory_stats()
+            n = steps * (6 + 9 * (frames - 1))
+            try:
+                wall, ((st_i, st_p), metrics), snap = _counted(
+                    torch, kernels, tag,
+                    (_want(gdn_fused=n), {("gdn_fused", ROI_N): n}),
+                    lambda: tr.train_stem_roi(cfg, steps, modules))
+            finally:
+                restore()
+            _add_snap(total, snap)
+            peak = torch.cuda.max_memory_allocated()
+            vals = _finite_metrics(tag, metrics)
+            stuck = _unmoved(torch, modules, before)
+            if vals["valid_frames"] != frames or stuck:
+                raise AssertionError(f"{tag}: valid frames "
+                                     f"{vals['valid_frames']}, parameters "
+                                     f"that never moved {stuck}")
+            ckpt = load_trees(Path(d) / mode / "ckpt" / "stem_roi_latest.pkl")
+            if int(ckpt["counters"]["iteration"]) != steps or \
+                    st_i.step != steps or st_p.step != steps:
+                raise AssertionError(f"{tag}: {st_i.step}, {st_p.step} "
+                                     f"updates")
+            ms, sps = _rate(times)
+            # one step on a septuplet, the same modules
+            x7 = torch.rand((cfg.batch_size, 7, 3, cfg.cropsize,
+                             cfg.cropsize), device="cuda")
+            q7 = torch.rand((cfg.batch_size, 1, cfg.cropsize, cfg.cropsize),
+                            device="cuda")
+            opts = [configure_optimizers(m, cfg.learning_rate)
+                    for m in modules]
+            states = [init_train_state(m, o) for m, o in zip(modules, opts)]
+            step7 = tr.make_joint_sequence_step(
+                *modules, *opts, mode=mode,
+                loss_threshold=cfg.loss_skip_threshold, lmbda=cfg.lmbda)
+            before = _params(modules)
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            ms7, out7 = timed_ms(torch, lambda: step7(
+                *states, x7, q7, torch.Generator(device="cuda")))
+            n7 = 6 + 9 * 6
+            _check_launches(kernels, f"{tag}_7", _want(gdn_fused=n7))
+            _add_snap(total, _snap(kernels))
+            peak7 = torch.cuda.max_memory_allocated()
+            vals7 = _finite_metrics(f"{tag}_7", out7[2])
+            stuck = _unmoved(torch, modules, before)
+            if vals7["valid_frames"] != 7 or stuck:
+                raise AssertionError(f"{tag}_7: valid frames "
+                                     f"{vals7['valid_frames']}, parameters "
+                                     f"that never moved {stuck}")
+            results[tag] = {"ms": ms, "steps_per_s": sps, "peak_bytes": peak,
+                            "septuplet_ms": ms7, "septuplet_peak_bytes": peak7,
+                            "valid_frames": vals["valid_frames"],
+                            "septuplet_valid_frames": vals7["valid_frames"],
+                            "loss_skip_threshold": cfg.loss_skip_threshold}
+            n_params = sum(len(b) for b in before)
+            log(f"  {tag}: {cfg.batch_size}×{frames}×{cfg.cropsize}² "
+                f"synthetic, {len(times)} steps "
+                f"{[round(t, 1) for t in times]} ms, {ms:.1f} ms/step (after "
+                f"the first), {sps:.3f} steps/s, peak {peak / 2**30:.2f} GiB, "
+                f"{wall:.1f} s with the checkpoint; loss {vals['loss']:.4f}, "
+                f"valid frames {vals['valid_frames']:.0f} of {frames}; a "
+                f"7-frame step {ms7:.1f} ms, peak {peak7 / 2**30:.2f} GiB, "
+                f"loss {vals7['loss']:.4f}, valid frames "
+                f"{vals7['valid_frames']:.0f} of 7; all {n_params} parameters "
+                f"moved in both runs (threshold "
+                f"{cfg.loss_skip_threshold:g}) | card: {card}")
+            del modules, states, opts, step7, out7, st_i, st_p, before
+            torch.cuda.empty_cache()
+    return results
+
+
+def run_roi_checkpoints(torch, card, frames_u8):
+    """load_video_torch_checkpoint on CompressAI-keyed state dicts written
+    from a seeded stem_roi (EB 256, M 192, tamed) and a seeded STEM res:
+    the same parameters, and compress gives the source model's strings
+    (stem_roi on the 1088×1920 pair, res on latents of its size)."""
+    from spatiotemporalentropymodel_tpu_torch import zoo
+    from spatiotemporalentropymodel_tpu_torch.zoo.convert import KEY_MAPS
+
+    x, xc, q = _roi_inputs(torch, frames_u8)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lat = [torch.randn((1, ROI_M, H // 16, W // 16), generator=gen,
+                       device="cuda") for _ in range(2)]
+    for name, key_map, args in (
+            ("stem_roi", "stem-roi", (x, xc, q)),
+            ("stpm_res", "stem", lat)):
+        if name == "stem_roi":
+            src = _roi_model(torch, name, False, seed=6)
+        else:
+            src = zoo.stem_models[name](entropy_bottleneck_channels=ROI_EBC,
+                                        in_channels=ROI_M, device="cuda",
+                                        seed=6)
+            src.update()
+        km = KEY_MAPS[key_map]
+        state = {"state_dict": {km(k): v.detach().cpu()
+                                for k, v in src.module.named_parameters()}}
+        got = zoo.load_video_torch_checkpoint(
+            name, state, device="cuda", entropy_bottleneck_channels=ROI_EBC,
+            in_channels=ROI_M)
+        for (k, a), b in zip(src.module.named_parameters(),
+                             got.module.parameters()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"roi checkpoint {name}: {k} differs")
+        if got.compress(*args)["strings"] != src.compress(*args)["strings"]:
+            raise AssertionError(f"roi checkpoint {name}: strings differ")
+        log(f"  roi_checkpoint {name} ({key_map}): "
+            f"{len(state['state_dict'])} CompressAI keys → the same "
+            f"parameters and strings | card: {card}")
+        del src, got
+    torch.cuda.empty_cache()
+
+
+def run_roi(torch, kernels, card):
+    """roi: the ROI / pixel-domain STEM family at full width from seeds —
+    the five models' round trips in f32 and bf16 and stem_roi unpadded at
+    1080 rows, eval_levels and eval_rc, train_stem_roi in both modes (and
+    the card against the CPU on a small joint step), and the video
+    checkpoint loader. Returns ({"roi": launch snapshot}, figures)."""
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames,
+    )
+
+    t0 = time.perf_counter()
+    frames_u8 = hero_1080p_frames()
+    total = ({}, {})
+    figures = {"models": run_roi_models(torch, kernels, card, frames_u8,
+                                        total)}
+    figures["eval"] = run_roi_eval(torch, kernels, card, frames_u8, total)
+    run_roi_train_card_vs_cpu(torch, kernels)
+    figures["train"] = run_roi_train(torch, kernels, card, total)
+    run_roi_checkpoints(torch, card, frames_u8)
+    figures["seconds"] = time.perf_counter() - t0
+    log(f"  roi phase: {figures['seconds']:.1f} s | card: {card}")
+    return {"roi": total}, figures
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -2657,7 +3203,7 @@ def main() -> int:
     for dtype in (torch.float32, torch.bfloat16):
         name = kernels._QIDX_ENTRIES[dtype][0]
         results[name] = check_qidx(torch, kernels, table, dtype)
-    results["gdn_fused_bf16"] = check_gdn_bf16(torch, kernels)
+    results["gdn_fused_bf16"] = check_gdn_entry(torch, kernels)
     results["gdn_conv_fused"] = check_gdn_conv(torch, F, kernels)
     wide, tail = check_gs_pair(torch, F, kernels)
     results["igdn_deconv_wide_packed"] = wide
@@ -2674,8 +3220,8 @@ def main() -> int:
             ((H // 2, W // 2), (H // 4, W // 4))),
         ("gdn_conv_fused", HERO_N, M): check_gdn_conv(
             torch, F, kernels, 1, HERO_N, M, ((H // 8, W // 8),)),
-        ("gdn_fused_bf16", HERO_N): check_gdn_bf16(torch, kernels, 1,
-                                                   HERO_N),
+        ("gdn_fused_bf16", HERO_N): check_gdn_entry(torch, kernels, 1,
+                                                    HERO_N),
     }
     wide, tail = check_gs_pair(torch, F, kernels, 1, HERO_N)
     hero_rows[("igdn_deconv_wide_packed", HERO_N, HERO_N)] = wide
@@ -2684,6 +3230,12 @@ def main() -> int:
     log(f"  mbt2018's last g_a stage, {N} → {AR_M}, B = 1")
     hero_rows[("gdn_conv_fused", N, AR_M)] = check_gdn_conv(
         torch, F, kernels, 1, N, AR_M, ((H // 8, W // 8),))
+    # the ROI trunk's first GDN, 1×128×544×960, f32 and bf16
+    log(f"  the ROI trunk's GDN, C = {ROI_N}, 1×{ROI_N}×{H // 2}×{W // 2}")
+    roi_rows = {(name, ROI_N): check_gdn_entry(
+        torch, kernels, 1, ROI_N, (H // 2, W // 2), dtype, False, 17)
+        for name, dtype in (("gdn_fused", torch.float32),
+                            ("gdn_fused_bf16", torch.bfloat16))}
     for name, res in results.items():
         lib = res["library_ms"]
         log(f"  {name}: {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, "
@@ -2737,6 +3289,13 @@ def main() -> int:
         "an mbt2018 I-model, a CompressAI checkpoint")
     ar_snaps, image_ar = run_image_ar(torch, kernels, card)
     hero.update(ar_snaps)
+    torch.cuda.empty_cache()
+    log(f"[4/5] roi: the five ROI-family models (EB {ROI_EBC}, M {ROI_M}) "
+        f"at {H}×{W} from seeds, f32 and bf16, and stem_roi unpadded at "
+        f"1080 rows; eval_levels and eval_rc on a 3-frame GOP; "
+        f"train_stem_roi in both modes; the video checkpoint loader")
+    roi_snaps, roi = run_roi(torch, kernels, card)
+    hero.update(roi_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -2781,13 +3340,17 @@ def main() -> int:
     log(json.dumps({"training": {k: v for k, v in training.items()
                                  if k != "gdn_backward"}}))
     log(json.dumps({"image_ar": image_ar}))
-    for key, res in hero_rows.items():
+    log(json.dumps({"roi": roi}))
+    roi_shape = f"1x{ROI_N}x{H // 2}x{W // 2}"
+    for key, res, suffix in (
+            [(k, r, "") for k, r in hero_rows.items()]
+            + [(k, r, f":{roi_shape}") for k, r in roi_rows.items()]):
         per_path = {tag: widths.get(key, 0)
                     for tag, widths in by_width.items()}
         if not sum(per_path.values()):
             raise AssertionError(f"{key}: never launched on the hero paths")
-        rows.append(row(f"{key[0]}@{'x'.join(map(str, key[1:]))}", key[0],
-                        res, per_path))
+        rows.append(row(f"{key[0]}@{'x'.join(map(str, key[1:]))}{suffix}",
+                        key[0], res, per_path))
     log(json.dumps({"kernels": rows}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Counterpart of spatiotemporalentropymodel_tpu/data/vimeo.py
 (stem/dataset_vidseq.py:25-103: 7-frame sequences from
 sep_trainlist/sep_testlist, the same random crop across all frames, 50 %
 temporal reversal) and of the training-time temporal subsampling of
-trainSTEM.py:176-182. Frames are read with ``data/png.py`` (no PIL); the
-crops and reversals come from the same ``random.Random`` draws as the JAX
+trainSTEM.py:176-182, and ``VimeoSepTupletQMap``
+(stem_roi_dataset.py:13-154), which adds a quality map per sample. Frames
+are read with ``data/png.py`` (no PIL); the crops and reversals come from the same ``random.Random`` draws as the JAX
 package's, so a seed gives the same samples. Batches are NHWC float32 in
 [0, 1]; the train loops move them to the card as NCHW.
 """
@@ -85,3 +86,31 @@ def subsample_frames(batch: np.ndarray, rng: Optional[random.Random] = None):
     rng = rng or random
     idx = rng.choice(TEMPORAL_SUBSAMPLES)
     return batch[:, list(idx)]
+
+
+class VimeoSepTupletQMap(VimeoSepTuplet):
+    """Septuplets and a synthesized quality map per sample
+    (stem_roi_dataset.py:13-154, VimeoSepTuplet_QMap): training maps are
+    30 % uniform, 30 % gradient, 40 % Gaussian mixture (data/qmap.py), drawn
+    from the dataset's ``random.Random`` after the frames' crop and
+    reversal; test maps are uniform at ``level``. Returns (frames (7, cs,
+    cs, 3), qmap (cs, cs, 1))."""
+
+    def __init__(self, data_root: str, is_training: bool = True,
+                 cropsize: int = 256, level: float = 0,
+                 level_range=(0, 100), rng: Optional[random.Random] = None):
+        super().__init__(data_root, is_training, cropsize, rng)
+        self.level = level
+        self.level_range = level_range
+
+    def __getitem__(self, index: int):
+        from .qmap import synthesize_qmap, uniform_qmap
+
+        frames = super().__getitem__(index)
+        if self.training:
+            qmap = synthesize_qmap(self.cropsize, self.level_range,
+                                   rng=self.rng)
+        else:
+            qmap = uniform_qmap(self.cropsize, self.level,
+                                self.level_range[1])
+        return frames, qmap

@@ -16,6 +16,9 @@ converged model codes mostly zeros. The port's pipeline codes the real g_a,
 so its last conv is rescaled channel by channel until the latent on the
 given frame has the per-channel mean and standard deviation of that sampler.
 
+``tame_roi`` scales the ROI family's quality-map transforms down: at their
+initialisation (the JAX package's, which the port draws) x̂ overflows f32.
+
 ``wavefront_y_cur`` is the wavefront bench's latent (bench.py:669-672): the
 conditioning latent plus 0.2·ε, with g_a run on the pixel frame for its cost
 and kept live, so the rate point is controlled.
@@ -69,6 +72,26 @@ def realistic_stem(stem, rng_seed: int = 7):
         solve_quantiles(eb.numpy_params()).astype(np.float32)))
     stem.update(force=True)
     return stem
+
+
+@torch.no_grad()
+def tame_roi(module, scale: float = 0.1):
+    """``module`` (an ROI-family module) with each SFT's γ and β convs and
+    each SFTResblk's two convs scaled by ``scale``. At their initialisation
+    the quality-map transforms multiply the latent by 1 + γ at every stage:
+    y reaches about 200 at 64², and the decoder's IGDNs (x·sqrt(β + γ·x²))
+    take x̂ past f32 (NaN), where no tolerance means anything. Tamed, y
+    stays within about 6 and x̂ within about 4."""
+    from ..layers import SFT, SFTResblk
+
+    for m in module.modules():
+        if isinstance(m, SFT):
+            m.mlp_gamma.weight.mul_(scale)
+            m.mlp_beta.weight.mul_(scale)
+        elif isinstance(m, SFTResblk):
+            m.conv_0.weight.mul_(scale)
+            m.conv_1.weight.mul_(scale)
+    return module
 
 
 @torch.no_grad()

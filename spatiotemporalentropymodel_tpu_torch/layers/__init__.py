@@ -3,6 +3,9 @@ from .blocks import (
     ResidualBlock,
     ResidualBlockUpsample,
     ResidualBlockWithStride,
+    SFT,
+    SFTResblk,
+    adaptive_avg_pool,
     leaky_relu,
 )
 from .conv import (
@@ -18,6 +21,7 @@ from .gdn import GDN
 from .masked_conv import MaskedConv2d, make_causal_mask
 
 __all__ = ["AttentionBlock", "ResidualBlock", "ResidualBlockUpsample",
-           "ResidualBlockWithStride", "leaky_relu", "Conv", "Deconv",
+           "ResidualBlockWithStride", "SFT", "SFTResblk",
+           "adaptive_avg_pool", "leaky_relu", "Conv", "Deconv",
            "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3",
            "pixel_shuffle", "GDN", "MaskedConv2d", "make_causal_mask"]

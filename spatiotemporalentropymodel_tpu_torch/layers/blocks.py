@@ -1,17 +1,25 @@
-"""Cheng2020's residual and attention blocks, NCHW.
+"""Cheng2020's residual and attention blocks and the ROI family's SFT
+layers, NCHW.
 
 Counterpart of spatiotemporalentropymodel_tpu/layers/blocks.py
-(compressai/layers/layers.py:67-213). The submodules carry the JAX
-package's names (``conv1``, ``gdn``, ``skip``, ``subpel_conv``, ``a_0`` …),
-so the parameter trees map one to one (convert.py). Each GDN and IGDN is the
+(compressai/layers/layers.py:67-213, compressai/models/stem_utils.py:
+24-63). The submodules carry the JAX package's names (``conv1``, ``gdn``,
+``skip``, ``subpel_conv``, ``a_0`` …), so the parameter trees map one to
+one (convert.py). Each GDN and IGDN is the
 port's ``GDN`` layer, so it runs the ``gdn_fused`` kernel in f32 and bf16.
 In bf16 every step rounds where the JAX package's does: each conv's bias
 goes on after its rounded sum (``Conv``), the LeakyReLU slope is bf16, the
 sigmoid rounds after each of its three operations (``_sigmoid``), and the
 gate's product and the residual sums round to bf16 each.
-The quality-map SFT layers wait for the ROI family (models/stem_roi.py).
+
+The quality-map layers (``adaptive_avg_pool``, ``SFT``, ``SFTResblk``)
+carry the JAX package's names too (``mlp_shared``, ``mlp_gamma``,
+``mlp_beta``; ``norm_0``, ``conv_0``, ``norm_1``, ``conv_1``). At bf16 the
+pool's mean runs in f32 and rounds once, as ``jnp.mean`` does, and SFT's
+``x·(1 + γ) + β`` rounds after each operation.
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -120,3 +128,94 @@ class AttentionBlock(nn.Module):
             a = getattr(self, f"a_{i}")(a)
             b = getattr(self, f"b_{i}")(b)
         return x + a * _sigmoid(self.b_out(b))
+
+
+# ---- the quality-map layers of the ROI family ------------------------------
+
+_LEAKY_RELU_02 = LeakyReLU(0.2)  # SFTResblk's slope (stem_utils.py:59-62)
+
+
+def _resize_weights(n_in: int, n_out: int):
+    """(n_in, n_out) f32 weights of ``jax.image.resize(..., "linear")``
+    along one axis: ``scale_and_translate``'s ``compute_weight_mat`` with
+    the triangle kernel and ``antialias=True``, whose kernel widens by the
+    downscale factor (a scaled triangle, not the box of an average pool or
+    the two taps of ``F.interpolate``), each step in f32 as JAX takes it."""
+    f32 = torch.float32
+    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=f32)
+    kernel_scale = torch.maximum(inv_scale, torch.tensor(1.0, dtype=f32))
+    sample = (torch.arange(n_out, dtype=f32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32)[:, None]).abs()
+    weights = torch.clamp_min(1 - (x / kernel_scale).abs(), 0)
+    total = weights.sum(dim=0, keepdim=True)
+    eps = 1000.0 * float(np.finfo(np.float32).eps)
+    weights = torch.where(total.abs() > eps,
+                          weights / torch.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], weights, 0)
+
+
+def adaptive_avg_pool(x, out_hw):
+    """NCHW adaptive average pool (layers/blocks.py:106-116 of the JAX
+    package): the mean over each block where both sizes divide (torch's
+    ``F.adaptive_avg_pool2d``), else JAX's antialiased linear resize
+    (``_resize_weights``) along each axis whose size changes. The mean runs
+    in f32 and rounds once to x's dtype. The resize contracts the axes in
+    the order of JAX's einsum path, the fewer products first and rows first
+    on a tie, so at bf16 its intermediate rounds where JAX's does."""
+    b, c, h, w = x.shape
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    if h % oh == 0 and w % ow == 0:
+        blocks = x.float().reshape(b, c, oh, h // oh, ow, w // ow)
+        return blocks.mean(dim=(3, 5)).to(x.dtype)
+    steps = []
+    if h != oh:
+        steps.append(("bchw,hH->bcHw", _resize_weights(h, oh)))
+    if w != ow:
+        steps.append(("bchw,wW->bchW", _resize_weights(w, ow)))
+    if len(steps) == 2 and h * ow * (w + oh) < oh * w * (h + ow):
+        steps.reverse()
+    for spec, weights in steps:
+        x = torch.einsum(spec, x, weights.to(x.device, x.dtype))
+    return x
+
+
+class SFT(nn.Module):
+    """Spatial feature transform conditioned on a quality map
+    (stem_utils.py:24-43): the map pooled to x's size, a shared conv and
+    ReLU, then per-pixel (γ, β) convs; out = x·(1 + γ) + β. ``prior_nc``
+    is the map's channel count, which the JAX package infers."""
+
+    def __init__(self, x_nc: int, prior_nc: int = 1, ks: int = 3,
+                 nhidden: int = 128, generator=None):
+        super().__init__()
+        g = generator
+        self.mlp_shared = Conv(prior_nc, nhidden, ks, 1, g)
+        self.mlp_gamma = Conv(nhidden, x_nc, ks, 1, g)
+        self.mlp_beta = Conv(nhidden, x_nc, ks, 1, g)
+
+    def forward(self, x, qmap):
+        actv = torch.relu(self.mlp_shared(
+            adaptive_avg_pool(qmap, x.shape[2:])))
+        return x * (1 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
+
+
+class SFTResblk(nn.Module):
+    """x + conv(lrelu₀.₂(SFT(conv(lrelu₀.₂(SFT(x)))))), each SFT on the
+    same map (stem_utils.py:46-63)."""
+
+    def __init__(self, x_nc: int, prior_nc: int = 1, ks: int = 3,
+                 generator=None):
+        super().__init__()
+        g = generator
+        self.norm_0 = SFT(x_nc, prior_nc, ks, generator=g)
+        self.conv_0 = Conv(x_nc, x_nc, 3, 1, g)
+        self.norm_1 = SFT(x_nc, prior_nc, ks, generator=g)
+        self.conv_1 = Conv(x_nc, x_nc, 3, 1, g)
+
+    def forward(self, x, qmap):
+        dx = self.conv_0(_LEAKY_RELU_02(self.norm_0(x, qmap)))
+        dx = self.conv_1(_LEAKY_RELU_02(self.norm_1(dx, qmap)))
+        return x + dx

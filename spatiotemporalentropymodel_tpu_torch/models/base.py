@@ -196,6 +196,16 @@ class CompressionModel:
                 {f: next(it) for f in fields[name]})
         self.set_tables(tables)
 
+    def state_tree(self):
+        """The JAX package's ``state_dict()``: {"params": the parameters as
+        its tree (``convert.jax_tree``), "tables": each codec table's
+        fields}, what a checkpoint's ``"model"`` entry saves and
+        ``load_state_leaves`` reads back."""
+        from ..convert import jax_tree
+
+        return {"params": jax_tree(self.module),
+                "tables": {k: v.asdict() for k, v in self.tables.items()}}
+
     def _require_tables(self):
         if not self.tables:
             raise RuntimeError("Uninitialized CDFs. Run update() first")

@@ -3,8 +3,7 @@
 Counterpart of spatiotemporalentropymodel_tpu/utils/config.py: dataclasses
 bound to the command line by ``parse_config``, with the JAX package's
 defaults, plus ``device`` (the port's entry points run on ``cuda`` unless
-the caller asks for ``cpu``). ``TrainStemRoiConfig`` waits for the ROI
-models (ROADMAP.md); ``data_parallel`` waits for the port's
+the caller asks for ``cpu``). ``data_parallel`` waits for the port's
 DistributedDataParallel work and raises when set.
 """
 
@@ -86,6 +85,30 @@ class TrainStemConfig:
     step_mode: str = "per_frame"  # "per_frame" (faithful) | "per_sequence"
     seed: int = 0
     workdir: str = "runs/train_stem"
+    data_parallel: bool = False
+    resume: bool = False
+    device: str = "cuda"
+
+
+@dataclass
+class TrainStemRoiConfig:
+    """Joint I+P / ROI training (stem_roi/train_stem_roi.py parity)."""
+
+    mode: str = "roi"  # "baseline" (single-rate joint) | "roi" (variable-rate)
+    in_channels: int = 192
+    entropy_bottleneck_channels: int = 256
+    data_root: Optional[str] = None
+    cropsize: int = 256
+    batch_size: int = 4
+    learning_rate: float = 1e-4
+    aux_learning_rate: float = 1e-3
+    clip_max_norm: float = 1.0
+    lmbda: float = 1e-2  # baseline mode single-rate lambda
+    epochs: int = 50
+    steps_per_epoch: int = 0
+    loss_skip_threshold: float = 3.0  # train_stem_roi.py:526-529
+    seed: int = 0
+    workdir: str = "runs/train_stem_roi"
     data_parallel: bool = False
     resume: bool = False
     device: str = "cuda"

@@ -5,8 +5,9 @@ Counterpart of spatiotemporalentropymodel_tpu/zoo/__init__.py
 name's position in ``model_architectures`` is the model id that the image
 and video containers record, so the six names stand here in the JAX
 package's order. ``load_torch_checkpoint`` fills a zoo image model from a
-CompressAI ``.pth.tar`` (zoo/convert.py); the video models' loader waits
-for the ROI family (ROADMAP.md, Queue 1 item 5), as does ``stpm_charm``.
+CompressAI ``.pth.tar`` (zoo/convert.py), ``load_video_torch_checkpoint``
+a STEM variant or a model of the ROI family; ``stpm_charm`` waits for its
+port (ROADMAP.md, Queue 1 item 5).
 """
 
 from ..models import (
@@ -17,6 +18,11 @@ from ..models import (
     MeanScaleHyperprior,
     ScaleHyperprior,
     SpatioTemporalPriorModel,
+    StemBaseline,
+    StemBaselineV2,
+    StemROI,
+    StemROIWoGsc,
+    StemROI_I,
 )
 from .convert import KEY_MAPS, convert_state_dict, rename_key
 
@@ -75,6 +81,25 @@ stem_models = {
         "stpm_charm", "SpatioTemporalPriorModelChannelAR (models/charm.py)"),
 }
 
+# the ROI / pixel-domain video family (stem_roi.py class names)
+roi_models = {
+    "stem_baseline": StemBaseline,
+    "stem_baselinev2": StemBaselineV2,
+    "stem_roi": StemROI,
+    "stem_roi_wo_gsc": StemROIWoGsc,
+    "stem_roi_i": StemROI_I,
+}
+
+# video model name → its key map (zoo/convert.py)
+_VIDEO_KEY_MAP = {
+    "stem_baseline": "stem-baseline",
+    "stem_baselinev2": "stem-baseline",
+    "stem_roi": "stem-roi",
+    "stem_roi_wo_gsc": "stem-roi",
+    "stem_roi_i": "stem-roi",
+    **dict.fromkeys(stem_models, "stem"),
+}
+
 
 def create_model(architecture: str, quality: int = 1, device="cuda",
                  **kwargs):
@@ -102,6 +127,16 @@ def _install_tables(model, state):
         model.update(force=True)
 
 
+def _torch_state(path_or_state):
+    """A CompressAI checkpoint's state dict from its path or as loaded."""
+    import torch
+
+    state = path_or_state
+    if isinstance(state, (str, bytes)) or hasattr(state, "__fspath__"):
+        state = torch.load(state, map_location="cpu")
+    return state.get("state_dict", state)
+
+
 def load_torch_checkpoint(architecture: str, path, quality: int = 1,
                           device="cuda"):
     """A zoo image model at ``quality`` on ``device`` with its parameters
@@ -110,11 +145,7 @@ def load_torch_checkpoint(architecture: str, path, quality: int = 1,
     codec tables those the checkpoint ships or rebuilt
     (zoo/__init__.py:160-190 of the JAX package). Both sides are torch
     layouts, so nothing is transposed."""
-    import torch
-
-    state = torch.load(path, map_location="cpu")
-    if "state_dict" in state:
-        state = state["state_dict"]
+    state = _torch_state(path)
     key_map = KEY_MAPS.get(architecture)
     if key_map is None:
         raise NotImplementedError(
@@ -126,6 +157,29 @@ def load_torch_checkpoint(architecture: str, path, quality: int = 1,
     return model
 
 
-__all__ = ["model_architectures", "stem_models", "cfgs", "create_model",
-           "load_torch_checkpoint", "convert_state_dict", "rename_key",
+def load_video_torch_checkpoint(name: str, path_or_state, device="cuda",
+                                **kwargs):
+    """A video model (a STEM variant or the ROI family) on ``device`` from a
+    CompressAI checkpoint, as the reference trains them (stem/trainSTEM.py,
+    stem_roi/train_stem_roi.py): ``path_or_state`` a ``.pth.tar`` path or a
+    loaded state dict; ``kwargs`` the model's constructor arguments
+    (zoo/__init__.py:110-140 of the JAX package). The tables are those the
+    checkpoint ships, else rebuilt."""
+    if name in roi_models:
+        build = roi_models[name]
+    elif name in stem_models:
+        build = stem_models[name]
+    else:
+        raise ValueError(f'Invalid video model name "{name}"')
+    state = _torch_state(path_or_state)
+    model = build(device=device, **kwargs)
+    model.module.load_state_dict(convert_state_dict(
+        state, model.module, KEY_MAPS[_VIDEO_KEY_MAP[name]]), strict=True)
+    _install_tables(model, state)
+    return model
+
+
+__all__ = ["model_architectures", "stem_models", "roi_models", "cfgs",
+           "create_model", "load_torch_checkpoint",
+           "load_video_torch_checkpoint", "convert_state_dict", "rename_key",
            "KEY_MAPS"]

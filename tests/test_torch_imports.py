@@ -45,6 +45,42 @@ def test_the_checks_cover_the_image_ar_modules():
             "models/priors.py"} <= names
 
 
+def test_the_checks_cover_the_roi_modules():
+    """The modules the ROI family brought, data/qmap.py (NumPy only, copied
+    rather than imported from the JAX package) among them, are among those
+    checked above and below."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if p.is_relative_to(PORT)}
+    assert {"models/stem_roi.py", "training/train_stem_roi.py",
+            "eval/eval_stem_roi.py", "data/qmap.py", "data/vimeo.py",
+            "zoo/__init__.py", "zoo/convert.py"} <= names
+
+
+@pytest.mark.parametrize("name", ["stem_baseline", "stem_baselinev2",
+                                  "stem_roi", "stem_roi_wo_gsc",
+                                  "stem_roi_i"])
+def test_roi_models_raise_without_card(name, tmp_path):
+    """The ROI family and the video checkpoint loader are built on cuda
+    unless told device="cpu": with no card they raise."""
+    if torch_cuda_available():
+        pytest.skip("a card is present; the model would be built on it")
+    import torch
+
+    from spatiotemporalentropymodel_tpu_torch import zoo
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.roi_models[name](entropy_bottleneck_channels=16, in_channels=12)
+    path = tmp_path / "m.pth.tar"
+    torch.save({}, path)
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.load_video_torch_checkpoint(name, str(path),
+                                        entropy_bottleneck_channels=16,
+                                        in_channels=12)
+    assert zoo.roi_models[name](entropy_bottleneck_channels=16,
+                                in_channels=12, device="cpu").device.type \
+        == "cpu"
+
+
 @pytest.mark.parametrize("name", ["mbt2018", "cheng2020-anchor",
                                   "cheng2020-attn"])
 def test_ar_models_raise_without_card(name, tmp_path):
@@ -107,7 +143,8 @@ def torch_cuda_available() -> bool:
     return torch.cuda.is_available()
 
 
-@pytest.mark.parametrize("entry", ["train_image", "train_stem"])
+@pytest.mark.parametrize("entry", ["train_image", "train_stem",
+                                   "train_stem_roi"])
 def test_trainers_raise_without_card(entry, tmp_path):
     """The trainers run on cuda unless told device="cpu": with no card
     they raise at once rather than train on the CPU."""

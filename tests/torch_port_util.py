@@ -27,9 +27,10 @@ from spatiotemporalentropymodel_tpu_torch.convert import (
     jax_tree,
     load_jax_params,
 )
-from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+from spatiotemporalentropymodel_tpu_torch.eval.workload import (  # noqa: F401
     match_latent_to_prior,
     realistic_stem,
+    tame_roi,
 )
 from spatiotemporalentropymodel_tpu_torch.layers import (
     Conv, Deconv, MaskedConv2d,
@@ -41,6 +42,13 @@ from spatiotemporalentropymodel_tpu_torch.models import (
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
 )
+
+# One intra-op thread: the tests run in several processes at once (pytest
+# -n 6 on 8 cores), and torch's CPU pool of one thread per core then spins
+# against the others' pools: one joint ROI train step at 64² took 6.2-7.4 s
+# in each of six processes run at once with one thread, 351-355 s with
+# eight (5.0 s alone with eight, 6.4 s with one).
+torch.set_num_threads(1)
 
 # the small slice: 64×64 frames, N = M = 64, EB 32
 N = M = 64
@@ -248,3 +256,50 @@ def bridge_ar(name, seed=0, **kw):
     jm.params = jax.tree_util.tree_map(jnp.asarray, tree)
     jm.update()
     return jm, pm
+
+
+# ---- the ROI family (tests/test_torch_roi*.py) ---------------------------
+
+ROI_EBC, ROI_M, ROI_HW = 16, 12, 64
+# model name → (JAX class, port class), the zoo's names
+ROI_MODELS = {
+    "stem_baseline": ("StemBaseline", "StemBaseline"),
+    "stem_baselinev2": ("StemBaselineV2", "StemBaselineV2"),
+    "stem_roi": ("StemROI", "StemROI"),
+    "stem_roi_wo_gsc": ("StemROIWoGsc", "StemROIWoGsc"),
+    "stem_roi_i": ("StemROI_I", "StemROI_I"),
+}
+
+
+def bridge_roi(name, seed=1):
+    """The port's ROI-family model from its seed, tamed, with random biases,
+    and the JAX model with its weights, both with their tables."""
+    import spatiotemporalentropymodel_tpu.models as jmodels
+    import spatiotemporalentropymodel_tpu_torch.models as pmodels
+
+    jcls, pcls = ROI_MODELS[name]
+    kw = dict(entropy_bottleneck_channels=ROI_EBC, in_channels=ROI_M)
+    pm = getattr(pmodels, pcls)(device="cpu", seed=seed, **kw)
+    tree = random_biases(jax_tree(tame_roi(pm.module)), seed)
+    load_jax_params(pm.module, tree)
+    pm.update()
+    jm = getattr(jmodels, jcls)(**kw)
+    jm.params = jax.tree_util.tree_map(jnp.asarray, tree)
+    jm.update()
+    return jm, pm
+
+
+def roi_args(name, seed=0, hw=ROI_HW, b=1):
+    """The model's NHWC inputs: (x_cur, x_conditioned, qmap) for the ROI
+    P-models, (x_cur, qmap) for stem_roi_i, (x_cur, x_conditioned) for the
+    baselines; frames in [0, 1), the conditioning frame x_cur plus noise,
+    the map uniform in [0, 1). ``hw``: a side, or (H, W)."""
+    rng = np.random.default_rng(seed)
+    h, w = (hw, hw) if np.isscalar(hw) else hw
+    x = rng.random((b, h, w, 3), dtype=np.float32)
+    xc = np.clip(x + 0.05 * rng.standard_normal(x.shape), 0, 1).astype(
+        np.float32)
+    q = rng.random((b, h, w, 1), dtype=np.float32)
+    if name == "stem_roi_i":
+        return x, q
+    return (x, xc, q) if name.startswith("stem_roi") else (x, xc)
