@@ -4,8 +4,9 @@ in f32 and bf16, the bf16 g_s chain under the JAX package's wide knobs, the
 I-frame codec, the flagship STEM res through WavefrontVideoPipeline, the
 trained hero models (artifacts/trained/hero) read with jax blocked, the
 file codecs (.stemv video, .bin images) with their CLIs, training
-(train_image, train_stem), and the autoregressive image models (mbt2018,
-Cheng2020) with their files and CompressAI checkpoints.
+(train_image, train_stem), the autoregressive image models (mbt2018,
+Cheng2020) with their files and CompressAI checkpoints, the ROI family, and
+charm, the channel-autoregressive STEM, with the other two entropy coders.
 
     python3 chip_smoke.py
 
@@ -169,9 +170,33 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 and load_torch_checkpoint of a CompressAI-keyed file
                 written from a seeded mbt2018 at quality 5 (the same
                 parameters and strings).
+                roi: the five ROI-family models (EB 256, M 192) at
+                1088×1920 from seeds, f32 and bf16; eval_levels and
+                eval_rc; train_stem_roi in both modes; the video
+                checkpoint loader.
+                charm: bench.py's run_charm workload
+                (eval/workload.py::charm_workload: G 4, EB 256, M 192,
+                seeded weights × 0.02, y_cond = 0.3·ε, y_cur = y_cond +
+                0.2·ε at 1 × 192 × 68 × 120) through the model API in f32
+                and bf16: the fetch-free, per-group sparse and dense
+                decodes and the encoder's own recursion give one ŷ bit for
+                bit, mean|ŷ − y_cur| ≤ 1.0, no kernel launched; the
+                transport, bpp with the counts, compress and decompress
+                ms (median of 3) and one run's split by the stage clock.
+                A dense round trip with rans_interleaved at that latent
+                and a sparse one with the numpy coder on a 16 × 16 crop,
+                each ŷ the rans decode's. A .stemv family-2 file of 3
+                probe frames with MeanScaleHyperprior(192, 192) from a
+                seed (g_a's last conv × 0.05) and the charm, both bf16:
+                header (2, 4, 3), every P record sparse, encoder ŷ ==
+                carry == decoded ŷ, x̂ finite. eval_sequence on 3 frames
+                of 256² (f32), the bpp with the counts. Two train_stem
+                steps with a charm module at 4 × 3 × 256²: finite losses,
+                every parameter moved but the last group's LRP (the rate
+                loss does not reach it).
                 On every path each kernel must have launched exactly as
-                often as the path calls it, and on the hero and image_ar
-                paths at the widths it runs at.
+                often as the path calls it, and on the hero, image_ar,
+                roi and charm paths at the widths it runs at.
   5. report   — one JSON line of kernels (a row per kernel, its launches
                 summed and by every path that launched it; then a row per
                 kernel at the hero widths and at 192→320, name@widths, its
@@ -2111,7 +2136,9 @@ def gdn_train_timing(torch, kernels, c=HERO_N, shape=(16, 128, 128)):
     """gdn_fused at the training shape (g_a's first GDN of MSH(128, 192) at
     16×256²): the forward kernel, its plain version, and the backward
     _KernelFn runs (the plain version recomputed with grad and
-    differentiated), each timed with CUDA events."""
+    differentiated), and torch.addmm of the norm's product (the nearest
+    single library call, as check_gdn times it), each timed with CUDA
+    events."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     b, h, w = shape
     x = torch.randn((b, c, h, w), generator=gen, device="cuda")
@@ -2120,6 +2147,10 @@ def gdn_train_timing(torch, kernels, c=HERO_N, shape=(16, 128, 128)):
     beta = 1.0 + torch.rand((c,), generator=gen, device="cuda")
     fwd = cuda_ms(lambda: kernels.gdn_fused(x, gamma_t, beta))
     plain = cuda_ms(lambda: kernels._gdn_plain(x, gamma_t, beta, False))
+    # the nearest single library call: the norm's product alone
+    xsq_rows = _norm_rows(torch, x)
+    lib = cuda_ms(lambda: torch.addmm(beta, xsq_rows, gamma_t))
+    del xsq_rows
     leaves = [t.clone().requires_grad_(True) for t in (x, gamma_t, beta)]
     out = kernels.gdn_fused(*leaves)
     cot = torch.randn(out.shape, generator=gen, device="cuda")
@@ -2132,7 +2163,8 @@ def gdn_train_timing(torch, kernels, c=HERO_N, shape=(16, 128, 128)):
     b_ms, b_by = gdn_bound(2 * pixels * c * 4 + c * c * 4 + c * 4, pixels,
                            c, 6)
     return {"shape": [b, c, h, w], "fwd_ms": fwd, "plain_fwd_ms": plain,
-            "bwd_ms": bwd, "bound_ms": b_ms, "bound_by": b_by}
+            "library_ms": lib, "bwd_ms": bwd, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def _timed_steps(torch, module_ns, name, times, check=None):
@@ -2333,7 +2365,8 @@ def run_training(torch, kernels, card):
     timing = gdn_train_timing(torch, kernels)
     log(f"  gdn_fused at the training shape {timing['shape']}: forward "
         f"kernel {timing['fwd_ms']:.3f} ms, plain forward "
-        f"{timing['plain_fwd_ms']:.3f} ms, backward through _KernelFn (the "
+        f"{timing['plain_fwd_ms']:.3f} ms, torch.addmm of the norm "
+        f"{timing['library_ms']:.3f} ms, backward through _KernelFn (the "
         f"plain version recomputed and differentiated) "
         f"{timing['bwd_ms']:.3f} ms; the forward's bound "
         f"{timing['bound_ms']:.4f} ms by {timing['bound_by']} | card: {card}")
@@ -3153,6 +3186,421 @@ def run_roi(torch, kernels, card):
     return {"roi": total}, figures
 
 
+# ---- charm, the channel-autoregressive STEM ------------------------------
+
+CHARM_GROUPS = 4
+CHARM_MEAN_ERR = 1.0  # mean|ŷ − y_cur|, the tripwire of bench.py:1058-1060
+CHARM_TIMED = 3  # compress and decompress ms: the median of 3
+CHARM_EVAL_HW = 256  # the GOP eval's and the trainer's frames
+CHARM_FILE_FRAMES = 3
+
+
+def _charm_decodes(torch, model, y_cur, y_cond, tag):
+    """The three decodes of charm's model API on one latent pair: the
+    fetch-free one (the counts), the per-group sparse one (counts None)
+    and the dense one (a dense compress), each ŷ bit for bit the others'
+    and the encoder's own recursion's (the carry of its encode
+    expressions, not a decode), and mean|ŷ − y_cur| ≤ CHARM_MEAN_ERR.
+    Returns (sparse enc, dense enc, ŷ)."""
+    enc = model.compress(y_cur, y_cond)
+    if enc["transport"] != "sparse":
+        raise AssertionError(f"{tag}: the workload frame went "
+                             f"{enc['transport']}")
+    dense = model.compress(y_cur, y_cond, transport_mode="dense")
+    outs = {
+        "fetchfree": model.decompress(enc["strings"], enc["shape"], y_cond,
+                                      counts=enc["counts"])["y_hat"],
+        "per_group": model.decompress(enc["strings"], enc["shape"],
+                                      y_cond)["y_hat"],
+        "dense": model.decompress(dense["strings"], dense["shape"], y_cond,
+                                  transport_mode="dense")["y_hat"],
+        "encoder_sparse": model.fused_encode_sparse_carry_expr(
+            y_cur, y_cond)[1],
+        "encoder_dense": model.fused_encode_carry_expr(y_cur, y_cond)[1],
+    }
+    y_hat = outs["fetchfree"]
+    for name, out in outs.items():
+        if not torch.equal(out, y_hat):
+            diff = int((out != y_hat).sum())
+            raise AssertionError(f"{tag}: the {name} ŷ differs from the "
+                                 f"fetch-free decode's at {diff} elements")
+    err = float((y_hat - y_cur).abs().mean())
+    if not err <= CHARM_MEAN_ERR:
+        raise AssertionError(f"{tag}: mean|ŷ − y_cur| = {err}")
+    return enc, dense, y_hat, err
+
+
+def _charm_bpp(enc, pixels):
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import actual_bpp
+
+    return actual_bpp(enc["strings"], pixels, counts=enc.get("counts"))
+
+
+def _charm_times(torch, model, y_cur, y_cond, enc):
+    """Median ms over CHARM_TIMED runs of compress and of the fetch-free
+    decompress (synchronised, no stage clock); then one run of each with
+    the stage clock (models/base.py::_codec_stats, which synchronises at
+    each boundary): its split into encode dispatch (the device pass and its
+    fetch), host rANS and decode dispatch."""
+    comp, deco = [], []
+    for _ in range(CHARM_TIMED):
+        comp.append(timed_ms(torch, lambda: model.compress(y_cur, y_cond))[0])
+        deco.append(timed_ms(torch, lambda: model.decompress(
+            enc["strings"], enc["shape"], y_cond,
+            counts=enc["counts"]))[0])
+    model._codec_stats = {}
+    try:
+        model.compress(y_cur, y_cond)
+        model.decompress(enc["strings"], enc["shape"], y_cond,
+                         counts=enc["counts"])
+        split = {k[:-2] + "_ms": 1e3 * v
+                 for k, v in model._codec_stats.items()}
+    finally:
+        model._codec_stats = None
+    return float(np.median(comp)), float(np.median(deco)), split
+
+
+def run_charm_model_api(torch, kernels, card, bf16):
+    """The workload of eval/workload.py::charm_workload (bench.py's
+    run_charm: G 4, EB 256, M 192, weights × 0.02, a 1 × 192 × 68 × 120
+    latent pair) through the model API, f32 or bf16: the three decodes
+    and the encoder's ŷ bit for bit equal, mean|ŷ − y_cur| ≤ 1.0, no
+    kernel launched (charm has none); the transport, bpp (the counts
+    included), and compress and decompress ms with their split. Returns
+    (launch snapshot, figures, model, y_cur, y_cond, ŷ)."""
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        charm_workload,
+    )
+
+    tag = f"charm_{'bf16' if bf16 else 'f32'}"
+    model, y_cur, y_cond = charm_workload("cuda", groups=CHARM_GROUPS)
+    if bf16:
+        model.set_compute_dtype(torch.bfloat16)
+    _charm_decodes(torch, model, y_cur, y_cond, tag)  # warm-up
+    kernels.reset_launch_counts()
+    enc, dense, y_hat, err = _charm_decodes(torch, model, y_cur, y_cond,
+                                            tag)
+    _check_launches(kernels, tag, _want())
+    snap = _snap(kernels)
+    comp, deco, split = _charm_times(torch, model, y_cur, y_cond, enc)
+    pixels = 16 * y_cur.shape[2] * 16 * y_cur.shape[3]
+    bpp, bpp_dense = _charm_bpp(enc, pixels), _charm_bpp(dense, pixels)
+    log(f"  {tag}: {tuple(y_cur.shape)} latent, transport "
+        f"{enc['transport']}, {bpp:.5f} bpp with its counts (dense "
+        f"{bpp_dense:.5f}), mean|ŷ − y_cur| {err:.4f}; compress "
+        f"{comp:.2f} ms, decompress (fetch-free) {deco:.2f} ms, median of "
+        f"{CHARM_TIMED}; split " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(split.items()))
+        + f" ms; 3 decodes == encoder ŷ bit for bit | card: {card}")
+    figures = dict(transport=enc["transport"], bpp=bpp, bpp_dense=bpp_dense,
+                   mean_abs_err=err, compress_ms=comp, decompress_ms=deco,
+                   split_ms=split)
+    return snap, figures, model, y_cur, y_cond, y_hat
+
+
+def run_charm_coders(torch, card, y_cur, y_cond, ref):
+    """The other two coders on the f32 workload: a dense round trip with
+    rans_interleaved (8 lanes, built by g++ from the repo's rans.cpp with
+    "rans") at the full latent, its ŷ the "rans" dense decode's (``ref``);
+    then the sparse round trip with the NumPy coder, the fetch-free decode
+    through its fallback, on a 16 × 16 crop (a 256² frame), its ŷ the
+    "rans" model's on the same crop."""
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        charm_workload,
+    )
+
+    figures = {}
+    inter, _, _ = charm_workload("cuda", groups=CHARM_GROUPS,
+                                 entropy_coder="rans_interleaved")
+    ms, enc = timed_ms(torch, lambda: inter.compress(
+        y_cur, y_cond, transport_mode="dense"))
+    dms, dec = timed_ms(torch, lambda: inter.decompress(
+        enc["strings"], enc["shape"], y_cond, transport_mode="dense"))
+    if not torch.equal(dec["y_hat"], ref):
+        raise AssertionError("charm rans_interleaved: ŷ != the rans dense "
+                             "decode's")
+    figures["rans_interleaved"] = dict(compress_ms=ms, decompress_ms=dms)
+    log(f"  charm_rans_interleaved: dense round trip at "
+        f"{tuple(y_cur.shape)}: compress {ms:.2f} ms, decompress {dms:.2f} "
+        f"ms, ŷ == the rans decode's | card: {card}")
+
+    side = CHARM_EVAL_HW // 16
+    crop = [t[:, :, :side, :side].contiguous() for t in (y_cur, y_cond)]
+    native, _, _ = charm_workload("cuda", groups=CHARM_GROUPS)
+    spec, _, _ = charm_workload("cuda", groups=CHARM_GROUPS,
+                                entropy_coder="numpy")
+    want = native.compress(*crop)
+    want = native.decompress(want["strings"], want["shape"], crop[1],
+                             counts=want.get("counts"))["y_hat"]
+    ms, enc = timed_ms(torch, lambda: spec.compress(*crop))
+    dms, dec = timed_ms(torch, lambda: spec.decompress(
+        enc["strings"], enc["shape"], crop[1],
+        transport_mode=enc["transport"], counts=enc.get("counts")))
+    if enc["transport"] != "sparse" or not torch.equal(dec["y_hat"], want):
+        raise AssertionError(f"charm numpy: {enc['transport']} transport, "
+                             f"ŷ == the rans decode's: "
+                             f"{torch.equal(dec['y_hat'], want)}")
+    figures["numpy"] = dict(compress_ms=ms, decompress_ms=dms)
+    log(f"  charm_numpy: sparse round trip at {tuple(crop[0].shape)}, "
+        f"fetch-free decode through decode_grouped: compress {ms:.1f} ms, "
+        f"decompress {dms:.1f} ms, ŷ == the rans decode's | card: {card}")
+    return figures
+
+
+def _record(obj, name, store, pick=lambda out: out):
+    """Wrap the method obj.<name> (an instance attribute over the class's)
+    so that pick(its result) is appended to ``store`` at each call; returns
+    the function that unwraps it."""
+    fn = getattr(obj, name)
+
+    def rec(*a, **kw):
+        out = fn(*a, **kw)
+        store.append(pick(out))
+        return out
+
+    setattr(obj, name, rec)
+    return lambda: delattr(obj, name)
+
+
+def _charm_recorder(model):
+    """Record the ŷ of each call of the model's encode expressions (the
+    carry of the one compress runs: "encoder") and of its decompress
+    ("decoder"). Returns (the lists by kind, a function that unwraps)."""
+    seen = {"encoder": [], "decoder": []}
+    undo = [_record(model, name, seen["encoder"], lambda out: out[1])
+            for name in ("fused_encode_sparse_carry_expr",
+                         "fused_encode_carry_expr")]
+    undo.append(_record(model, "decompress", seen["decoder"],
+                        lambda out: out["y_hat"]))
+    return seen, lambda: [u() for u in undo]
+
+
+def _charm_i_model(torch):
+    """MeanScaleHyperprior(192, 192) from a seed, f32, its g_a's last conv
+    × 0.05 so that its latent sits in the charm workload's sparse regime
+    (seeded g_a weights give a spread of a few units)."""
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior,
+    )
+
+    i_model = MeanScaleHyperprior(N, M, device="cuda", seed=9)
+    with torch.no_grad():
+        last = i_model.module.g_a.layers[-1]
+        last.weight.mul_(0.05)
+        last.bias.mul_(0.05)
+    i_model.update()
+    return i_model
+
+
+def run_charm_file(torch, kernels, card, model, tmp):
+    """A .stemv family-2 file of CHARM_FILE_FRAMES probe frames (1088 ×
+    1920, GOP 3) with MeanScaleHyperprior(192, 192) from a seed in bf16
+    (its g_a's last conv × 0.05, so that the latent sits in the charm's
+    sparse regime) and the bf16 charm: the header (family 2, cfg0 4, cfg1
+    3), every P record sparse (type 4), each P-frame's ŷ the same in the
+    encoder's recursion, its carry and the file's decode, x̂ finite, and
+    exact launches by kernel and width: g_a 3 times and g_s once to
+    encode (the I-frame's compress and decompress, the P-frames'
+    analysis), one quantize_and_index_bf16, g_s 3 times to decode."""
+    from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        hero_1080p_frames,
+    )
+
+    i_model = _charm_i_model(torch)
+    i_model.set_compute_dtype(torch.bfloat16)
+    frames = [f.astype(np.float32) / 255.0
+              for f in hero_1080p_frames()[:CHARM_FILE_FRAMES]]
+    n = len(frames)
+    n_p = n - 1
+    out = tmp / "charm.stemv"
+
+    def want(n_ga, n_gs, n_q):
+        counts, widths = _ar_want("mbt2018_192", True, n_ga, n_gs)
+        counts["quantize_and_index_bf16"] = n_q
+        if n_q:
+            widths[("quantize_and_index_bf16",)] = n_q
+        return counts, widths
+
+    seen, undo = _charm_recorder(model)
+    try:
+        enc_s, stats, snap_e = _counted(
+            torch, kernels, "charm_file_encode", want(n, 1, 1),
+            lambda: vc.encode_video(frames, i_model, model, out, gop=n))
+        carried = list(seen["decoder"])
+        encoder = list(seen["encoder"])
+        seen["decoder"].clear()
+        dec_s, decoded, snap_d = _counted(
+            torch, kernels, "charm_file_decode", want(0, n, 0),
+            lambda: vc.decode_video(out, i_model, model))
+    finally:
+        undo()
+    with open(out, "rb") as f:
+        hdr = vc.read_header(f)
+        records = [vc._read_frame(f, hdr["cfg0"]) for _ in range(n)]
+    got = (hdr["stem_family"], hdr["cfg0"], hdr["cfg1"])
+    if got != (vc.FAMILY_CHARM, CHARM_GROUPS, 3):
+        raise AssertionError(f"charm file: header (family, cfg0, cfg1) "
+                             f"{got}")
+    ftypes = [r[0] for r in records]
+    if ftypes != [vc.FTYPE_I] + [vc.FTYPE_P_CHARM] * n_p:
+        raise AssertionError(f"charm file: records {ftypes}")
+    if not (len(encoder) == len(carried) == len(seen["decoder"]) == n_p):
+        raise AssertionError(f"charm file: {len(encoder)} encodes, "
+                             f"{len(carried)} carries, "
+                             f"{len(seen['decoder'])} decodes")
+    for t, (e, c, d) in enumerate(zip(encoder, carried, seen["decoder"])):
+        if not (torch.equal(e, c) and torch.equal(c, d)):
+            raise AssertionError(f"charm file frame {t + 1}: encoder ŷ, "
+                                 f"carry and decoded ŷ differ")
+    if not all(np.isfinite(fr).all() for fr in decoded):
+        raise AssertionError("charm file: x̂ not finite")
+    h, w = frames[0].shape[:2]
+    log(f"  charm_file: {n} frames of {h}×{w}, GOP {n}, records {ftypes}, "
+        f"{stats['bpp']:.5f} bpp, {stats['bytes']} B; encode {enc_s:.2f} s,"
+        f" decode {dec_s:.2f} s; header family 2 (4, 3); encoder ŷ == carry"
+        f" == decoded ŷ on every P-frame; launches exact | card: {card}")
+    return {"charm_file_encode": snap_e, "charm_file_decode": snap_d}, dict(
+        bpp=stats["bpp"], bytes=stats["bytes"], encode_s=enc_s,
+        decode_s=dec_s)
+
+
+def run_charm_eval(torch, kernels, card):
+    """charm through eval_stem.eval_sequence (the model API, f32) behind
+    MeanScaleHyperprior(192, 192) from a seed on the hero eval set's first
+    3 frames (256², GOP 3): every value finite, the bpp the mean of the
+    frames' actual bpp with the P-frames' counts, and exact launches (f32:
+    3 gdn_fused per g_a and g_s pass: g_a and g_s in the I-frame's
+    forward, g_a in its compress and g_s in its decompress, g_a (get_y)
+    and g_s (get_x) per P-frame; one quantize_and_index)."""
+    from spatiotemporalentropymodel_tpu_torch.data import ArraySequence
+    from spatiotemporalentropymodel_tpu_torch.eval import eval_stem
+    from spatiotemporalentropymodel_tpu_torch.eval.metrics import actual_bpp
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        charm_workload, hero_gop_set,
+    )
+
+    frames = hero_gop_set(1, 3)[0].frames
+    seq = ArraySequence(frames, 3, "seq0")
+    i_model = _charm_i_model(torch)
+    stem, _, _ = charm_workload("cuda", groups=CHARM_GROUPS)
+    encs, i_encs = [], []
+    undo = [_record(stem, "compress", encs),
+            _record(i_model, "compress", i_encs)]
+    counts, widths = _ar_want("mbt2018_192", False, 4, 4)
+    counts["quantize_and_index"] = 1
+    widths[("quantize_and_index",)] = 1
+    try:
+        wall, res, snap = _counted(
+            torch, kernels, "charm_eval", (counts, widths),
+            lambda: eval_stem.eval_sequence(i_model, stem, seq,
+                                            compute_msssim=False))
+    finally:
+        for u in undo:
+            u()
+    pixels = CHARM_EVAL_HW * CHARM_EVAL_HW
+    want_bpp = np.mean([actual_bpp(i_encs[0]["strings"], pixels)] + [
+        actual_bpp(e["strings"], pixels, counts=e.get("counts"))
+        for e in encs])
+    vals = [v for k, v in res.items() if k != "ms_ssim"]
+    if not (all(np.isfinite(v) for v in vals) and res["frames"] == 3
+            and len(encs) == 2 and abs(res["bpp"] - want_bpp) <= 1e-12):
+        raise AssertionError(f"charm_eval: {res}, bpp with the counts "
+                             f"{want_bpp}, {len(encs)} P encodes")
+    log(f"  charm_eval: eval_sequence, 3 frames of {CHARM_EVAL_HW}², "
+        f"transports {[e['transport'] for e in encs]}: bpp {res['bpp']:.5f}"
+        f" (the counts included), bpp_est {res['bpp_est']:.5f}, PSNR "
+        f"{res['psnr']:.3f} dB, {wall:.2f} s; launches exact | card: {card}")
+    return {"charm_eval": snap}, dict(bpp=res["bpp"], psnr=res["psnr"],
+                                      bpp_est=res["bpp_est"], seconds=wall)
+
+
+def run_charm_train(torch, kernels, card, tmp):
+    """Two train_stem steps (per_sequence) with ``module=`` a charm module
+    (G 4, EB 256, M 192) at 4 × 3 × 256² behind the hero I checkpoint:
+    finite losses, and every parameter moved but the last group's LRP,
+    which the rate loss does not reach (its refinement feeds only the ŷ
+    carry, which the next frame takes detached; the same in the JAX
+    trainer); 3 gdn_fused launches (C = 128) per get_y call, two steps
+    and a validation. ms per step."""
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        ChannelARSTEMModule,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        train_stem as ts,
+    )
+    from spatiotemporalentropymodel_tpu_torch.utils.config import (
+        TrainStemConfig,
+    )
+
+    cfg = TrainStemConfig(i_checkpoint=HERO_I_CKPT, step_mode="per_sequence",
+                          cropsize=CHARM_EVAL_HW, batch_size=4,
+                          workdir=str(tmp / "train_charm"))
+    i_model = ts.build_i_model(cfg, torch.device("cuda"))
+    module = ChannelARSTEMModule(
+        CHARM_GROUPS, cfg.entropy_bottleneck_channels, cfg.in_channels,
+        generator=torch.Generator().manual_seed(3)).cuda()
+    before = {k: p.detach().clone() for k, p in module.named_parameters()}
+    times = []
+    restore = _timed_steps(torch, ts, "make_stem_train_step", times)
+    tag = "train_stem_charm"
+    try:
+        wall, (state, metrics), snap = _counted(
+            torch, kernels, tag, _file_want(False, 3, 0, 0),
+            lambda: ts.train_stem(cfg, max_steps=2, i_model=i_model,
+                                  module=module))
+    finally:
+        restore()
+    vals = _finite_metrics(tag, metrics)
+    last = f"LRP_{CHARM_GROUPS - 1}."
+    for k, p in module.named_parameters():
+        if torch.equal(p, before[k]) != k.startswith(last):
+            raise AssertionError(f"{tag}: {k} moved: "
+                                 f"{not torch.equal(p, before[k])}")
+    ms, sps = _rate(times)
+    log(f"  {tag}: {len(times)} steps {[round(t, 1) for t in times]} ms, "
+        f"{ms:.2f} ms/step (after the first), {wall:.1f} s with validation "
+        f"and checkpoint; loss {vals['loss']:.5f}, aux "
+        f"{vals['aux_loss']:.2f}; every parameter moved but {last}* "
+        f"| card: {card}")
+    return {tag: snap}, dict(ms=ms, steps_per_s=sps, updates=state.step)
+
+
+def run_charm(torch, kernels, card):
+    """charm: the channel-autoregressive STEM at full width from seeds —
+    its model API in f32 and bf16 on bench.py's run_charm workload, a
+    .stemv family-2 file, eval_sequence, train_stem with a charm module,
+    and the rans_interleaved and numpy coders. Returns ({path: launch
+    snapshot}, figures)."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    snaps, figures = {}, {}
+    for bf16 in (False, True):
+        tag = f"charm_{'bf16' if bf16 else 'f32'}"
+        snaps[tag], figures[tag], model, y_cur, y_cond, y_hat = \
+            run_charm_model_api(torch, kernels, card, bf16)
+        if not bf16:
+            figures["coders"] = run_charm_coders(torch, card, y_cur, y_cond,
+                                                 y_hat)
+    with tempfile.TemporaryDirectory() as d:
+        file_snaps, figures["file"] = run_charm_file(torch, kernels, card,
+                                                     model, Path(d))
+        snaps.update(file_snaps)
+        del model
+        torch.cuda.empty_cache()
+        eval_snaps, figures["eval"] = run_charm_eval(torch, kernels, card)
+        snaps.update(eval_snaps)
+        train_snaps, figures["train"] = run_charm_train(torch, kernels, card,
+                                                        Path(d))
+        snaps.update(train_snaps)
+    torch.cuda.empty_cache()
+    figures["seconds"] = time.perf_counter() - t0
+    log(f"  charm phase: {figures['seconds']:.1f} s | card: {card}")
+    return snaps, figures
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -3296,6 +3744,15 @@ def main() -> int:
         f"train_stem_roi in both modes; the video checkpoint loader")
     roi_snaps, roi = run_roi(torch, kernels, card)
     hero.update(roi_snaps)
+    torch.cuda.empty_cache()
+    log(f"[4/5] charm: the channel-autoregressive STEM (G {CHARM_GROUPS}, "
+        f"EB {EBC}, M {M}) from seeds: its model API on bench.py's "
+        f"run_charm workload at 1 × {M} × {H // 16} × {W // 16}, f32 and "
+        f"bf16, three decodes; a .stemv family-2 file at {H}×{W} (bf16); "
+        f"eval_sequence at {CHARM_EVAL_HW}²; train_stem with a charm "
+        f"module; the rans_interleaved and numpy coders")
+    charm_snaps, charm = run_charm(torch, kernels, card)
+    hero.update(charm_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -3341,6 +3798,7 @@ def main() -> int:
                                  if k != "gdn_backward"}}))
     log(json.dumps({"image_ar": image_ar}))
     log(json.dumps({"roi": roi}))
+    log(json.dumps({"charm": charm}))
     roi_shape = f"1x{ROI_N}x{H // 2}x{W // 2}"
     for key, res, suffix in (
             [(k, r, "") for k, r in hero_rows.items()]

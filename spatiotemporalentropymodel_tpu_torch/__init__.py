@@ -9,10 +9,12 @@ names mirror the JAX package's:
 - ``layers``  : GDN/IGDN, Conv/Deconv, Sequential, MaskedConv2d (NCHW)
 - ``entropy`` : EntropyBottleneck / GaussianConditional, CDF tables, host
                 compress/decompress, the sparse-grouped transport
-- ``coders``  : the native C++ rANS coder (ctypes)
+- ``coders``  : the entropy coders: the native C++ rANS (ctypes), its
+                interleaved 8-lane container, and a pure NumPy coder
 - ``models``  : FactorizedPrior, ScaleHyperprior, MeanScaleHyperprior, the
                 five STEM P-frame variants and the wavefront AR codec of the
-                SPM ones
+                SPM ones, the channel-autoregressive STEM (charm), the
+                autoregressive image models and the ROI family
 - ``zoo``     : the model registry and quality configurations
 - ``data``    : PNG files (no PIL) and GOP sequences
 - ``eval``    : the P-frame serving pipelines (parallel and wavefront), the
@@ -28,14 +30,14 @@ caller passes ``device="cpu"``, where the kernels' plain versions run.
 __version__ = "0.1.0"
 
 _entropy_coder = "rans"
-# the JAX package also has "rans_interleaved" and "numpy"
-_available_coders = ["rans"]
+_available_coders = ["rans", "rans_interleaved", "numpy"]
 
 
 def available_entropy_coders():
-    """Names of the entropy coders the port has (``__init__.py:56-82`` of
-    the JAX package): the native C++ rANS, bitstream-compatible with the
-    reference's ``compressai.ans``."""
+    """Names of the entropy coders (``__init__.py:56-82`` of the JAX
+    package): the native C++ rANS ("rans", bitstream-compatible with the
+    reference's ``compressai.ans``), its interleaved multi-lane container
+    ("rans_interleaved") and the pure NumPy coder ("numpy")."""
     return list(_available_coders)
 
 

@@ -1,10 +1,15 @@
 """ctypes bindings for the native rANS coder.
 
-The port's own copy of spatiotemporalentropymodel_tpu/coders/rans.py, cut to
-the functions the serving paths and the golden-bitstream tests use: the
-single-stream indexed coder, the run-based grouped container of the sparse
-transport, the acceleration tables, and the stateful stream decoder with the
-segmented run encoder of the autoregressive (wavefront and serial) codecs.
+The port's own copy of spatiotemporalentropymodel_tpu/coders/rans.py: the
+single-stream indexed coder, the interleaved multi-lane container, the
+run-based grouped container of the sparse transport, the acceleration
+tables, and the stateful stream decoder with the segmented run encoder of
+the autoregressive (wavefront and serial) codecs.
+
+The module itself is the ``"rans"`` coder of ``coders.get_coder``: its
+capability flags below are the ones the transport and the AR codecs branch
+on (the JAX package's ``NativeCoder``). The single-stream container is
+bitstream-compatible with the reference's ``compressai.ans``.
 """
 
 import ctypes
@@ -18,6 +23,16 @@ from .build import build
 _i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
 _u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
 _f64p = np.ctypeslib.ndpointer(dtype=np.float64, flags="C_CONTIGUOUS")
+
+# the coder surface (coders/__init__.py of the JAX package, NativeCoder)
+name = "rans"
+supports_lut = True
+# the run-based grouped container (counts-derived rows, chunked lanes, the
+# fused packed decode): the sparse transport's fast path
+supports_runs = True
+# segmented single-stream run coding (the wavefront v2 order)
+supports_stream_runs = True
+n_lanes = 1  # one stream
 
 
 @lru_cache(maxsize=1)
@@ -39,6 +54,18 @@ def _lib():
     lib.stem_decode_with_indexes.argtypes = [
         _u8p, ctypes.c_int64, _i32p, ctypes.c_int64, _i32p, ctypes.c_int32,
         ctypes.c_int32, _i32p, _i32p, _i32p,
+    ]
+
+    lib.stem_encode_interleaved.restype = ctypes.c_int64
+    lib.stem_encode_interleaved.argtypes = [
+        _i32p, _i32p, ctypes.c_int64, _i32p, ctypes.c_int32, ctypes.c_int32,
+        _i32p, _i32p, ctypes.c_int32, _u8p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+
+    lib.stem_decode_interleaved.restype = ctypes.c_int
+    lib.stem_decode_interleaved.argtypes = [
+        _u8p, ctypes.c_int64, _i32p, ctypes.c_int64, _i32p, ctypes.c_int32,
+        ctypes.c_int32, _i32p, _i32p, _i32p, ctypes.c_void_p, ctypes.c_void_p,
     ]
 
     lib.stem_build_enc_table.restype = None
@@ -225,6 +252,47 @@ def decode_with_indexes(data: bytes, indexes, cdfs, cdf_lengths, offsets,
     return out
 
 
+def encode_interleaved(symbols, indexes, cdfs, cdf_lengths, offsets,
+                       n_lanes: int = 8, esym=None) -> bytes:
+    """Encode into the interleaved container: symbol i goes to lane
+    i % n_lanes, one rANS stream per lane, so the lanes decode in parallel
+    (rans.cpp::stem_encode_interleaved). Not the reference's format."""
+    symbols, indexes, cdfs, lengths, offs = _prep(
+        symbols, indexes, cdfs, cdf_lengths, offsets
+    )
+    n = symbols.shape[0]
+    n_lanes = max(1, min(int(n_lanes), max(1, n)))
+    cap = 4 * n + 64 * n_lanes + 1024
+    while True:
+        out = np.empty(cap, dtype=np.uint8)
+        rc = _lib().stem_encode_interleaved(
+            symbols, indexes, n, cdfs, cdfs.shape[0], cdfs.shape[1],
+            lengths, offs, n_lanes, out, cap, _esym_ptr(esym),
+        )
+        if rc >= 0:
+            return out[:rc].tobytes()
+        cap = -rc
+
+
+def decode_interleaved(data: bytes, indexes, cdfs, cdf_lengths, offsets,
+                       lut=None):
+    """Decode an interleaved container (its lane count in its header)."""
+    indexes = _as_i32(indexes).reshape(-1)
+    cdfs = _as_i32(cdfs)
+    lengths, offs = _as_i32(cdf_lengths), _as_i32(offsets)
+    n = indexes.shape[0]
+    out = np.empty(n, dtype=np.int32)
+    buf = np.frombuffer(data, dtype=np.uint8)
+    lut_ptr, dom_ptr = _lut_ptrs(lut)
+    rc = _lib().stem_decode_interleaved(
+        buf, buf.shape[0], indexes, n, cdfs, cdfs.shape[0], cdfs.shape[1],
+        lengths, offs, out, lut_ptr, dom_ptr,
+    )
+    if rc != 0:
+        raise ValueError(f"interleaved rans decode failed (rc={rc})")
+    return out
+
+
 def encode_stream(symbols, indexes, cdfs, cdf_lengths, offsets,
                   esym=None) -> bytes:
     """Plain single-stream encode: the format a ``StreamDecoder`` reads, one
@@ -264,17 +332,18 @@ def encode_runs_segmented(symbols, seg_counts, cdfs, cdf_lengths, offsets,
 
 
 def encode_runs(symbols, counts, cdfs, cdf_lengths, offsets,
-                esym=None) -> bytes:
+                esym=None, n_lanes: int = 1) -> bytes:
     """Encode grouped-by-CDF-row symbols; rows derive from the run-length
-    `counts` (levels,) vector — no per-symbol index array. One lane: the
-    single-stream container of the JAX package's "rans" coder
-    (rans.cpp::stem_encode_runs)."""
+    `counts` (levels,) vector — no per-symbol index array. Contiguous-chunk
+    lane container (rans.cpp::stem_encode_runs): one lane for the "rans"
+    coder, eight for "rans_interleaved"; the decoder reads the count from
+    the header."""
     symbols = _as_i32(symbols).reshape(-1)
     counts = _as_i32(counts).reshape(-1)
     cdfs = _as_i32(cdfs)
     lengths, offs = _as_i32(cdf_lengths), _as_i32(offsets)
     n = symbols.shape[0]
-    n_lanes = 1
+    n_lanes = max(1, min(int(n_lanes), max(1, n // 8)))
     cap = 4 * n + 64 * n_lanes + 1024
     while True:
         out = np.empty(cap, dtype=np.uint8)

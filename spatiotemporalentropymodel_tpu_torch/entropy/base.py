@@ -2,10 +2,11 @@
 
 The port's copy of spatiotemporalentropymodel_tpu/entropy/base.py (NumPy
 only): EntropyModel.compress/decompress (entropy_models.py:201-279) over
-batched int32 planes in NHWC order, the native rANS coder per batch element.
+batched int32 planes in NHWC order, the coder per batch element, with the
+native coder's acceleration tables where the coder has them.
 """
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -42,11 +43,14 @@ def _flatten(plane: np.ndarray, order: str) -> np.ndarray:
     return np.ascontiguousarray(plane).reshape(-1)
 
 
-def get_enc_table(tables: CodecTables, coder) -> np.ndarray:
+def get_enc_table(tables: CodecTables, coder) -> Optional[np.ndarray]:
     """Cached reciprocal encoder-symbol table (native coder): replaces the
     per-symbol integer division with a multiply while emitting byte-identical
     streams (rans.cpp::enc_put_sym). Cached on the tables instance like the
-    decode LUT (see get_lut for the id()-reuse rationale)."""
+    decode LUT (see get_lut for the id()-reuse rationale). None for a coder
+    without the run-based path (the NumPy coder)."""
+    if not coder.supports_runs:
+        return None
     esym = getattr(tables, "_esym", None)
     if esym is None:
         esym = coder.build_enc_table(tables.cdf, tables.cdf_length)
@@ -71,6 +75,7 @@ def compress(
     if symbols.shape != indexes.shape:
         raise ValueError("`symbols` and `indexes` must have the same shape")
     esym = get_enc_table(tables, coder)
+    kw = {} if esym is None else {"esym": esym}
     return [
         coder.encode_with_indexes(
             _flatten(symbols[i], order),
@@ -78,20 +83,23 @@ def compress(
             tables.cdf,
             tables.cdf_length,
             tables.offset,
-            esym,
+            **kw,
         )
         for i in range(symbols.shape[0])
     ]
 
 
 def get_lut(tables: CodecTables, coder):
-    """Cached direct symbol-lookup table for O(1) decode (native coder).
+    """Cached direct symbol-lookup table for O(1) decode (native coder);
+    None for a coder without one (the NumPy coder).
 
     The LUT is cached ON the tables instance (object lifetime == cache
     lifetime). Never key such a cache by id(): after the old tables are
     garbage-collected a new array can reuse the same id and silently decode
     with a stale LUT.
     """
+    if not coder.supports_lut:
+        return None
     lut = getattr(tables, "_lut", None)
     if lut is None:
         lut = coder.build_lut(tables.cdf, tables.cdf_length)

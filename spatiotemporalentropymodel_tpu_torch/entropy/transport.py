@@ -1,12 +1,15 @@
 """Host side of the sparse-grouped symbol transport.
 
-The port's copy of spatiotemporalentropymodel_tpu/entropy/transport.py, for
-the native coder only. Counterpart of ``models/stem.py::fused_encode_sparse_expr`` /
-``fused_params_sparse_expr`` / ``fused_reconstruct_sparse_expr``: unpack the
-device's packed transport buffer, run the rANS coder in grouped-by-CDF-row
-order (per-symbol row ids rebuilt from the 64 counts — no index plane ever
-crosses the link), and pack decoded symbols back into (bitmask + compacted
-int8 values) for upload.
+The port's copy of spatiotemporalentropymodel_tpu/entropy/transport.py.
+Counterpart of ``models/stem.py::fused_encode_sparse_carry_expr`` /
+``fused_params_sparse_expr`` / ``fused_reconstruct_sparse_expr`` and of
+charm's per-group transport (models/charm.py): unpack the device's packed
+transport buffer, run the rANS coder in grouped-by-CDF-row order (per-symbol
+row ids rebuilt from the counts — no index plane ever crosses the link), and
+pack decoded symbols back into (bitmask + compacted int8 values) for upload.
+The native coders use their run-based container; a coder without one (the
+NumPy coder, ``supports_runs`` false) codes the same order through the
+indexed path, its rows from ``rows_from_counts``.
 
 Replaces the reference's per-tensor ``.tolist()`` boundary
 (entropy_models.py:201-233) with, per 1080p frame: ~0.5 MB down on encode and
@@ -16,7 +19,7 @@ vs ~10 MB dense.
 
 import struct
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -37,15 +40,20 @@ def sparse_capacity(n: int) -> int:
 
 @dataclass(frozen=True)
 class SparseLayout:
-    """Byte offsets of ``fused_encode_sparse_expr``'s buffer."""
+    """Byte offsets of a sparse encode expression's buffer."""
 
     b: int
     n: int  # y symbols per batch element
     zn: int  # z symbols per batch element
     levels: int
+    # explicit values-plane capacity for layouts whose encoder uses another
+    # formula (charm packs n // 4); default sparse_capacity(n)
+    cap_value: Optional[int] = None
 
     @property
     def cap(self) -> int:
+        if self.cap_value is not None:
+            return self.cap_value
         return sparse_capacity(self.n)
 
     @property
@@ -97,9 +105,16 @@ def unpack_encode(buf, layout: SparseLayout) -> SparseEncodePlanes:
         )
 
     coder = get_coder()
-    y_sorted = np.stack([
-        coder.expand_sparse(maskbits[i], values[i], n) for i in range(b)
-    ])
+    if coder.supports_runs:
+        y_sorted = np.stack([
+            coder.expand_sparse(maskbits[i], values[i], n) for i in range(b)
+        ])
+    else:
+        mask = np.unpackbits(maskbits, axis=-1, bitorder="little").astype(
+            bool)
+        y_sorted = np.zeros((b, n), np.int32)
+        for i in range(b):
+            y_sorted[i, mask[i]] = values[i, :int(meta[i, 0])]
     return SparseEncodePlanes(
         y_sorted=y_sorted,
         counts=counts,
@@ -108,17 +123,29 @@ def unpack_encode(buf, layout: SparseLayout) -> SparseEncodePlanes:
     )
 
 
+def rows_from_counts(counts: np.ndarray) -> np.ndarray:
+    """(b, levels) counts → (b, n) per-symbol CDF-row ids in grouped order."""
+    return np.stack([
+        np.repeat(np.arange(counts.shape[1], dtype=np.int32), counts[i])
+        for i in range(counts.shape[0])
+    ])
+
+
 def encode_grouped(
     y_sorted: np.ndarray,
     counts: np.ndarray,
     tables: CodecTables,
     coder=None,
 ) -> List[bytes]:
-    """rANS-encode grouped-order symbols (one stream per batch element) in
-    the run-based container: per-symbol rows derived from `counts` on both
-    sides — no index plane, row constants hoisted, reciprocal-multiply
-    division."""
+    """rANS-encode grouped-order symbols (one stream per batch element).
+
+    Native coders use the run-based container (per-symbol rows derived from
+    `counts` on both sides — no index plane, row constants hoisted,
+    reciprocal-multiply division); others the indexed path."""
     coder = coder or get_coder()
+    if not coder.supports_runs:
+        return entropy_base.compress(
+            y_sorted, rows_from_counts(counts), tables, coder, order="hwc")
     y_sorted = np.ascontiguousarray(y_sorted, np.int32)
     counts = np.ascontiguousarray(counts, np.int32)
     esym = entropy_base.get_enc_table(tables, coder)
@@ -140,6 +167,9 @@ def decode_grouped(
     """Decode grouped-order streams → (b, n) int32 sorted symbols."""
     coder = coder or get_coder()
     counts = np.ascontiguousarray(counts, np.int32)
+    if not coder.supports_runs:
+        return entropy_base.decompress(
+            strings, rows_from_counts(counts), tables, coder, order="hwc")
     lut = entropy_base.get_lut(tables, coder)
     n = int(counts[0].sum())
     return np.stack([
@@ -161,9 +191,12 @@ def decode_grouped_packed(
     (maskbits u8 (b, n/8), values i8 (b, cap)) — the rANS decoder emits the
     bitmask and compacted nonzeros as it goes, so the dense (b, n) int32
     plane never materializes and pack_decode_payload disappears. Returns
-    None when a values plane overflows `cap` (caller falls back to
-    decode_grouped + pack_decode_payload)."""
+    None when the coder lacks the run-based path or a values plane
+    overflows `cap` (caller falls back to decode_grouped +
+    pack_decode_payload)."""
     coder = coder or get_coder()
+    if not coder.supports_runs:
+        return None
     counts = np.ascontiguousarray(counts, np.int32)
     lut = entropy_base.get_lut(tables, coder)
     n = int(counts[0].sum())

@@ -7,14 +7,16 @@ big-endian u32, the latent shape and the string count, then length-prefixed
 strings (codec.py:92-117, 150-220). Images are centre-padded to ×64
 (codec.py:119-148). A model id is the model's position in
 ``zoo.model_architectures``. The port reads and writes PNG only
-(``data/png.py``).
+(``data/png.py``). ``--coder`` picks the entropy coder (``rans``, the
+default, ``rans_interleaved`` or ``numpy``); a file decodes with the coder
+that wrote it, which the header does not record.
 
 Usage:
   python -m spatiotemporalentropymodel_tpu_torch.eval.codec encode IMG \\
       -o OUT.bin --model bmshj2018-factorized --quality 1 \\
-      [--checkpoint CKPT] [--device cuda|cpu]
+      [--checkpoint CKPT] [--coder CODER] [--device cuda|cpu]
   python -m spatiotemporalentropymodel_tpu_torch.eval.codec decode OUT.bin \\
-      -o REC.png [--device cuda|cpu]
+      -o REC.png [--coder CODER] [--device cuda|cpu]
 """
 
 import argparse

@@ -256,13 +256,19 @@ class StemVideoPipeline:
         z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.stem.coder)
         counts = np.asarray(enc["counts"], np.int32)
         gc_tables = self.stem.tables["gaussian_conditional"]
+        coder = self.stem.coder
         packed = transport.decode_grouped_packed(
-            strings[0], counts, layout.cap, gc_tables, self.stem.coder
+            strings[0], counts, layout.cap, gc_tables, coder
         )
-        if packed is None:  # the encoder never ships more nonzeros than cap
+        if packed is not None:  # fused rANS → payload (native coders)
+            maskbits, values = packed
+        elif coder.supports_runs:  # the encoder never ships more than cap
             raise ValueError("corrupt sparse frame: more nonzero symbols "
                              "than the values capacity")
-        maskbits, values = packed
+        else:
+            maskbits, values = transport.pack_decode_payload(
+                transport.decode_grouped(strings[0], counts, gc_tables,
+                                         coder), layout.cap)
         payload = np.concatenate([
             maskbits.reshape(-1),
             values.view(np.uint8).reshape(-1),

@@ -2,7 +2,7 @@
 
 Counterpart of spatiotemporalentropymodel_tpu/eval/video_codec.py, writing
 and reading the same files byte for byte: PNG frames → ONE .stemv file →
-decoded PNGs, for the two P-frame families the port has:
+decoded PNGs, for the three P-frame families:
 
   family 0  parallel STEM (without_spm/without_spm_tpm) through the
             streaming sparse-transport pipeline (eval/pipeline.py); the
@@ -10,9 +10,8 @@ decoded PNGs, for the two P-frame families the port has:
   family 1  wavefront/tiled-wavefront SPM variants incl. the reference's
             headline SpatioTemporalPriorModel_Res — the tile shape rides the
             header so decode rebuilds the exact codec
-
-Family 2, the channel-autoregressive charm, is not ported: a family-2 file
-or ``--stem-family charm`` raises before any model is built.
+  family 2  the channel-autoregressive charm (models/charm.py) — the group
+            count and the lrp/residual flags ride the header
 
 Container format v5 (big-endian):
 
@@ -51,7 +50,8 @@ back as (H, W, 3) float32 NumPy arrays.
 
 Usage:
   python -m spatiotemporalentropymodel_tpu_torch.eval.video_codec encode \\
-      DIR -o OUT.stemv [--gop 12] [--stem-family parallel|wavefront] \\
+      DIR -o OUT.stemv [--gop 12] [--stem-family parallel|wavefront|charm] \\
+      [--charm-groups G] [--no-charm-lrp] \\
       [--i-model mbt2018-mean|mbt2018|cheng2020-anchor|cheng2020-attn] \\
       [--i-quality Q] [--i-checkpoint CKPT] [--stem-checkpoint CKPT] \\
       [--device cuda|cpu]
@@ -97,12 +97,9 @@ STEM_VARIANT_IDS = {
 PARALLEL_VARIANTS = ("without_spm_tpm", "without_spm")
 WAVEFRONT_VARIANTS = ("without_tpm", "full", "res")
 
-# 4 and 5, the charm records, are not ported
-FTYPE_I, FTYPE_P_SPARSE, FTYPE_P_DENSE, FTYPE_P_WAVEFRONT = 0, 1, 2, 3
-
-_CHARM = ("the charm family (family 2, SpatioTemporalPriorModelChannelAR) "
-          "is not ported to the PyTorch package yet (ROADMAP.md, Queue 1 "
-          "item 5)")
+FTYPE_I, FTYPE_P_SPARSE, FTYPE_P_DENSE = 0, 1, 2
+FTYPE_P_WAVEFRONT, FTYPE_P_CHARM, FTYPE_P_CHARM_DENSE = 3, 4, 5
+CHARM_FTYPES = (FTYPE_P_CHARM, FTYPE_P_CHARM_DENSE)
 
 
 def params_hash(model) -> int:
@@ -146,36 +143,48 @@ def read_header(f):
 
 
 def _write_frame(f, ftype, shape, strings, counts=None):
-    """One record of ftype 0-3 (the charm records 4-5 are not ported)."""
+    """One record: type and ẑ shape, a sparse record's counts, then the
+    strings (y then z; a charm record's y per group, then z)."""
     f.write(struct.pack(">B2H", ftype, *shape))
-    if ftype == FTYPE_P_SPARSE:
+    if ftype in (FTYPE_P_SPARSE, FTYPE_P_CHARM):
         # varint-packed used rows only (a trained model touches ~20-30 of
         # the 64 scale-table rows)
         c = np.asarray(counts)
         f.write(pack_counts(c.reshape(-1, c.shape[-1]) if c.ndim > 1
                             else c[None]))
-    for group in strings:  # y, then z
-        _write_uints(f, (len(group[0]),))
-        f.write(group[0])
+    if ftype in CHARM_FTYPES:
+        flat = list(strings[0][0]) + [strings[1][0]]
+    else:
+        flat = [group[0] for group in strings]
+    for s in flat:
+        _write_uints(f, (len(s),))
+        f.write(s)
 
 
-def _read_frame(f):
-    """(ftype, (zh, zw), flat row counts or None, [[y], [z]]) of one record
-    of ftype 0-3."""
+def _read_frame(f, groups: int = 0):
+    """(ftype, (zh, zw), flat row counts or None, [[y], [z]]) of one record;
+    a charm record's y entry is its ``groups`` strings."""
     ftype, zh, zw = struct.unpack(">B2H", f.read(5))
-    if ftype > FTYPE_P_WAVEFRONT:
-        raise NotImplementedError(f"record type {ftype}: {_CHARM}")
     counts = None
-    if ftype == FTYPE_P_SPARSE:
+    if ftype in (FTYPE_P_SPARSE, FTYPE_P_CHARM):
         counts = unpack_counts(f).reshape(-1)  # flat, caller reshapes
-    strings = []
-    for _ in range(2):
+    n_strings = groups + 1 if ftype in CHARM_FTYPES else 2
+    flat = []
+    for _ in range(n_strings):
         (length,) = _read_uints(f, 1)
-        strings.append([f.read(length)])
+        flat.append(f.read(length))
+    if ftype in CHARM_FTYPES:
+        strings = [[flat[:-1]], [flat[-1]]]
+    else:
+        strings = [[s] for s in flat]
     return ftype, (zh, zw), counts, strings
 
 
 def _stem_family(stem) -> int:
+    from ..models import SpatioTemporalPriorModelChannelAR
+
+    if isinstance(stem, SpatioTemporalPriorModelChannelAR):
+        return FAMILY_CHARM
     return FAMILY_WAVEFRONT if stem.use_spm else FAMILY_PARALLEL
 
 
@@ -187,23 +196,44 @@ def _wavefront_models(i_model, stem, family):
 
 
 class _LatentCodec:
-    """Family 1 file codec legs: the I-model's analysis and synthesis around
-    the STEM's own compress/decompress (the evalSTEM.py:93-153 inner loop,
-    with the decoder-consistent ŷ carry)."""
+    """Family 1 and 2 file codec legs: the I-model's analysis and synthesis
+    around the STEM's own compress/decompress (the evalSTEM.py:93-153 inner
+    loop, with the decoder-consistent ŷ carry)."""
 
-    def __init__(self, i_model, stem):
+    def __init__(self, i_model, stem, family: int):
         self.i_model = i_model
         self.stem = stem
+        self.family = family
 
     def encode(self, x_padded, y_cond):
+        """(ftype, ẑ shape, counts or None, strings, the decoder's ŷ)."""
         y_cur = self.i_model.analysis(x_padded)
         enc = self.stem.compress(y_cur, y_cond)
         shape = tuple(enc["shape"])
-        y_hat = self.stem.decompress(enc["strings"], shape, y_cond)["y_hat"]
-        return shape, enc["strings"], y_hat
+        if self.family == FAMILY_CHARM:
+            counts = enc.get("counts")
+            dec = self.stem.decompress(enc["strings"], shape, y_cond,
+                                       transport_mode=enc["transport"],
+                                       counts=counts)
+            ftype = (FTYPE_P_CHARM if enc["transport"] == "sparse"
+                     else FTYPE_P_CHARM_DENSE)
+        else:
+            dec = self.stem.decompress(enc["strings"], shape, y_cond)
+            ftype, counts = FTYPE_P_WAVEFRONT, None
+        return ftype, shape, counts, enc["strings"], dec["y_hat"]
 
-    def decode(self, shape, strings, y_cond):
-        y_hat = self.stem.decompress(strings, shape, y_cond)["y_hat"]
+    def decode(self, ftype, shape, counts, strings, y_cond):
+        if self.family == FAMILY_CHARM:
+            if counts is not None:  # the file holds them flat
+                counts = counts.reshape(1, self.stem.groups, -1)
+            dec = self.stem.decompress(
+                strings, shape, y_cond,
+                transport_mode=("sparse" if ftype == FTYPE_P_CHARM
+                                else "dense"),
+                counts=counts)
+        else:
+            dec = self.stem.decompress(strings, shape, y_cond)
+        y_hat = dec["y_hat"]
         return self.i_model.get_x(y_hat), y_hat
 
 
@@ -213,8 +243,8 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
 
     The conditioning carry is the decoder-consistent ŷ throughout — the
     parallel pipeline returns it from its fused encode (and its dense
-    fallback from a decode); the wavefront leg replicates the decoder
-    (evalSTEM.py:144-153 carries out_dec['y_hat']).
+    fallback from a decode); the wavefront and charm legs replicate the
+    decoder (evalSTEM.py:144-153 carries out_dec['y_hat']).
 
     meta: optional {"i_model", "i_quality"} recorded in the header so the
     decode CLI can rebuild the exact I-model; the STEM family/variant/config
@@ -228,7 +258,7 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
         pipe = pipeline or StemVideoPipeline(i_model, stem,
                                              transport_mode="sparse")
     else:
-        pipe = _LatentCodec(i_model, stem)
+        pipe = _LatentCodec(i_model, stem, family)
     y_cond = None
     n_frames = 0
     h = w = None
@@ -268,8 +298,9 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
                 body.append((FTYPE_P_DENSE, tuple(enc["shape"]), None,
                              enc["strings"]))
         else:
-            shape, strings, y_cond = pipe.encode(x_padded, y_cond)
-            body.append((FTYPE_P_WAVEFRONT, shape, None, strings))
+            ftype, shape, counts, strings, y_cond = pipe.encode(x_padded,
+                                                                y_cond)
+            body.append((ftype, shape, counts, strings))
         n_frames += 1
 
     meta = meta or {}
@@ -277,12 +308,15 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
     sv_id = STEM_VARIANT_IDS.get(getattr(stem, "variant", None), UNSPECIFIED)
     if family == FAMILY_WAVEFRONT and stem.wavefront_tile:
         cfg0, cfg1 = stem.wavefront_tile
+    elif family == FAMILY_CHARM:
+        cfg0 = stem.groups
+        cfg1 = int(stem.module.lrp) | (int(stem.residual) << 1)
     else:
         cfg0 = cfg1 = 0
     # bit0 covers every wavefront stream in the file: the family-1 STEM
     # streams and an AR I-model's y streams; one flag, so the two models
     # must agree at encode time (video_codec.py:302-320 of the JAX package)
-    fmts = {type(m).__name__: _wf.wire_format(m.wavefront_format)
+    fmts = {type(m).__name__: _wf.wire_format(m.wavefront_format, m.coder)
             for m in _wavefront_models(i_model, stem, family)}
     if len(set(fmts.values())) > 1:
         raise ValueError(
@@ -310,9 +344,7 @@ def encode_video(frames, i_model, stem, output, gop: int = 12,
 
 
 def _check_family(family: int):
-    if family == FAMILY_CHARM:
-        raise NotImplementedError(_CHARM)
-    if family not in (FAMILY_PARALLEL, FAMILY_WAVEFRONT):
+    if family not in (FAMILY_PARALLEL, FAMILY_WAVEFRONT, FAMILY_CHARM):
         raise ValueError(f"unknown .stemv STEM family {family}")
 
 
@@ -330,9 +362,10 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
         hdr = read_header(f)
         family = hdr["stem_family"]
         _check_family(family)
+        groups = hdr["cfg0"] if family == FAMILY_CHARM else 0
         gop, n_frames = hdr["gop"], hdr["n_frames"]
         h, w = hdr["h"], hdr["w"]
-        records = [_read_frame(f) for _ in range(n_frames)]
+        records = [_read_frame(f, groups) for _ in range(n_frames)]
 
     if verify_params:
         for name, model, key, flag in (
@@ -364,7 +397,7 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
         pipe = pipeline or StemVideoPipeline(i_model, stem,
                                              transport_mode="sparse")
     else:
-        pipe = _LatentCodec(i_model, stem)
+        pipe = _LatentCodec(i_model, stem, family)
     t0 = time.time()
     frames = []
     y_cond = None
@@ -388,7 +421,8 @@ def decode_video(input_path, i_model, stem, output_dir=None, pipeline=None,
                     enc["counts"] = counts[None]  # batch of one sequence
                 x_hat, y_cond = pipe.decode_frame(enc, y_cond=y_cond)
             else:
-                x_hat, y_cond = pipe.decode(shape, strings, y_cond)
+                x_hat, y_cond = pipe.decode(ftype, shape, counts, strings,
+                                            y_cond)
             x_np = x_hat[0].float().permute(1, 2, 0).cpu().numpy()
             ph, pw = x_np.shape[0], x_np.shape[1]
             top, left = (ph - h) // 2, (pw - w) // 2
@@ -421,26 +455,38 @@ def _build_models(args):
     """The I-model (zoo, optional checkpoint) and the STEM (optional
     checkpoint's ``"model"`` entry, else the seeded initialisation), both
     on ``args.device`` with their tables."""
-    from ..models import SpatioTemporalPriorModel
+    from ..models import (
+        SpatioTemporalPriorModel,
+        SpatioTemporalPriorModelChannelAR,
+    )
     from .codec import _build_model
 
     i_model = _build_model(args.i_model, args.i_quality, args.i_checkpoint,
                            args.device)
-    tile = tuple(args.wavefront_tile) if args.wavefront_tile else None
-    want = (WAVEFRONT_VARIANTS if args.stem_family == "wavefront"
-            else PARALLEL_VARIANTS)
-    if args.stem_variant not in want:
-        raise ValueError(
-            f"stem variant {args.stem_variant!r} is not in family "
-            f"{args.stem_family!r} (choose from {want})"
+    if args.stem_family == "charm":
+        stem = SpatioTemporalPriorModelChannelAR(
+            groups=args.charm_groups,
+            entropy_bottleneck_channels=args.stem_channels,
+            in_channels=i_model.M,
+            lrp=args.charm_lrp,
+            device=args.device,
         )
-    stem = SpatioTemporalPriorModel(
-        variant=args.stem_variant,
-        entropy_bottleneck_channels=args.stem_channels,
-        in_channels=i_model.M,
-        wavefront_tile=tile,
-        device=args.device,
-    )
+    else:
+        tile = tuple(args.wavefront_tile) if args.wavefront_tile else None
+        want = (WAVEFRONT_VARIANTS if args.stem_family == "wavefront"
+                else PARALLEL_VARIANTS)
+        if args.stem_variant not in want:
+            raise ValueError(
+                f"stem variant {args.stem_variant!r} is not in family "
+                f"{args.stem_family!r} (choose from {want})"
+            )
+        stem = SpatioTemporalPriorModel(
+            variant=args.stem_variant,
+            entropy_bottleneck_channels=args.stem_channels,
+            in_channels=i_model.M,
+            wavefront_tile=tile,
+            device=args.device,
+        )
     if args.stem_checkpoint:
         from ..training.checkpoints import load_checkpoint
 
@@ -473,6 +519,9 @@ def main(argv=None):
         p.add_argument("--stem-checkpoint")
         p.add_argument("--wavefront-tile", type=int, nargs=2,
                        metavar=("TH", "TW"))
+        p.add_argument("--charm-groups", type=int, default=4)
+        p.add_argument("--charm-lrp", action=argparse.BooleanOptionalAction,
+                       default=True)
         p.add_argument("--device", default="cuda",
                        help="torch device to run the models on")
 
@@ -497,8 +546,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.command == "encode":
-        if args.stem_family == "charm":
-            raise NotImplementedError(_CHARM)
         if args.stem_family == "wavefront" and args.stem_variant not in \
                 WAVEFRONT_VARIANTS:
             args.stem_variant = "res"
@@ -517,11 +564,16 @@ def main(argv=None):
         if hdr["i_model_id"] != UNSPECIFIED:
             args.i_model = _inverse(model_ids)[hdr["i_model_id"]]
             args.i_quality = hdr["i_quality"]
-        args.stem_family = ("parallel", "wavefront")[family]
+        args.stem_family = ("parallel", "wavefront", "charm")[family]
         args.stem_channels = hdr["stem_channels"]
-        args.stem_variant = _inverse(STEM_VARIANT_IDS)[hdr["stem_variant_id"]]
-        if family == FAMILY_WAVEFRONT and hdr["cfg0"]:
-            args.wavefront_tile = (hdr["cfg0"], hdr["cfg1"])
+        if family == FAMILY_CHARM:
+            args.charm_groups = hdr["cfg0"]
+            args.charm_lrp = bool(hdr["cfg1"] & 1)
+        else:
+            args.stem_variant = _inverse(STEM_VARIANT_IDS)[
+                hdr["stem_variant_id"]]
+            if family == FAMILY_WAVEFRONT and hdr["cfg0"]:
+                args.wavefront_tile = (hdr["cfg0"], hdr["cfg1"])
         i_model, stem = _build_models(args)
         decode_video(args.input, i_model, stem, args.output_dir,
                      verify_params=not args.no_verify_params)

@@ -23,6 +23,10 @@ initialisation (the JAX package's, which the port draws) x̂ overflows f32.
 conditioning latent plus 0.2·ε, with g_a run on the pixel frame for its cost
 and kept live, so the rate point is controlled.
 
+``charm_workload`` is bench.py::run_charm's (bench.py:999-1016): the
+channel-autoregressive STEM (G 4, EB 256, M 192) with its initial weights
+× 0.02 and the latents y_cond = 0.3·ε, y_cur = y_cond + 0.2·ε at 1080p.
+
 The trained hero models (``load_hero``): the checkpoints the JAX package
 trained and evaluated (tools/bakeoff.py::cmd_hero), read with no jax, and
 the frames of their recorded evaluation (``hero_gop_set``,
@@ -131,6 +135,33 @@ def wavefront_y_cur(i_model, x, y_cond, generator):
     noise = torch.randn(y_cond.shape, generator=generator,
                         device=y_cond.device, dtype=y_cond.dtype)
     return y_cond + 0.2 * noise + 1e-30 * y_ga.float().mean()
+
+
+CHARM_LATENT = (1, 192, 68, 120)  # bench.py's 1088×1920 frame, B = 1
+
+
+@torch.no_grad()
+def charm_workload(device="cuda", seed: int = 0, groups: int = 4,
+                   shape=CHARM_LATENT, entropy_coder=None):
+    """bench.py::run_charm's model and latents: a
+    SpatioTemporalPriorModelChannelAR(groups, EB 256, M 192) drawn from
+    ``seed`` with every parameter × 0.02, its tables built, coding with
+    ``entropy_coder`` (default: the package's), and (y_cur, y_cond) of
+    ``shape`` (NCHW) from a generator seeded 7 on ``device``: y_cond =
+    0.3·ε, y_cur = y_cond + 0.2·ε."""
+    from ..models import SpatioTemporalPriorModelChannelAR
+
+    model = SpatioTemporalPriorModelChannelAR(
+        groups=groups, entropy_bottleneck_channels=256,
+        in_channels=shape[1], device=device, seed=seed,
+        entropy_coder=entropy_coder)
+    for p in model.module.parameters():
+        p.mul_(0.02)
+    model.update()
+    gen = torch.Generator(device=device).manual_seed(7)
+    y_cond = 0.3 * torch.randn(shape, generator=gen, device=device)
+    y_cur = y_cond + 0.2 * torch.randn(shape, generator=gen, device=device)
+    return model, y_cur, y_cond
 
 
 # ---- the trained hero models ------------------------------------------------

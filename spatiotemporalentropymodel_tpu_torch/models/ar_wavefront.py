@@ -239,16 +239,21 @@ def untile_plane(x, b: int, h: int, w: int):
     return x.reshape(b, h, w, m)
 
 
-def wire_format(fmt: str) -> str:
-    """Resolve a model's ``wavefront_format`` ("auto"/"grouped"/"lane").
-    "auto" is "lane": the grouped (v2) order costs a host-side stable
-    permutation per frame that the JAX package measured at about 4× the
-    whole v1 coding cost (ar_wavefront.py::wire_format there). The port's
-    one coder reads both."""
+def wire_format(fmt: str, coder) -> str:
+    """Resolve a model's ``wavefront_format`` ("auto"/"grouped"/"lane")
+    against the coder's capabilities. "auto" is "lane": the grouped (v2)
+    order costs a host-side stable permutation per frame that the JAX
+    package measured at about 4× the whole v1 coding cost
+    (ar_wavefront.py::wire_format there). "grouped" needs a coder with
+    stream runs (the native ones)."""
     if fmt == "auto":
         return "lane"
     if fmt not in ("lane", "grouped"):
         raise ValueError(f"unknown wavefront_format {fmt!r}")
+    if fmt == "grouped" and not coder.supports_stream_runs:
+        raise ValueError(
+            "wavefront_format='grouped' needs a coder with stream-run "
+            f"support; {coder.name!r} has none")
     return fmt
 
 
@@ -321,27 +326,14 @@ class ARCodec:
     ``context_prediction`` masked conv, and its ``__init__`` sets
     ``_rounds_cache = {}`` (the device rounds by plane shape and mode).
     ``wavefront_format`` picks the stream order ("lane" v1, "grouped" v2;
-    not bitstream compatible with each other). ``_codec_stats``: set it to
-    a dict and the AR legs add the seconds of each stage (synchronising the
-    device at each boundary) and the decode rounds under "hyper_s",
-    "priors_s", "enc_device_s", "enc_fetch_bytes", "enc_host_s",
-    "device_s", "host_rans_s", "rounds".
+    not bitstream compatible with each other). ``_codec_stats`` (the
+    stage clock of models/base.py): the AR legs add the seconds of each
+    stage and the decode rounds under "hyper_s", "priors_s",
+    "enc_device_s", "enc_fetch_bytes", "enc_host_s", "device_s",
+    "host_rans_s", "rounds".
     """
 
     wavefront_format = "auto"
-    _codec_stats = None
-
-    def _lap(self, key: str, t0: float) -> float:
-        """With ``_codec_stats`` set: synchronise the device, add the
-        seconds since t0 under ``key`` and return the clock; else 0."""
-        st = self._codec_stats
-        if st is None:
-            return 0.0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        st[key] = st.get(key, 0.0) + (t - t0)
-        return t
 
     def _upload(self, plane_nhwc: np.ndarray):
         """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
@@ -349,7 +341,7 @@ class ARCodec:
         return _nchw(t.to(self.device).permute(0, 3, 1, 2))
 
     def _wf_format(self) -> str:
-        return wire_format(self.wavefront_format)
+        return wire_format(self.wavefront_format, self.coder)
 
     def _ar_step(self, taps, prior_vec, streams: int = 1):
         return self.module.ar_step(self._cast_in(taps),

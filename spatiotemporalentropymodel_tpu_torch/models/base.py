@@ -11,6 +11,7 @@ Counterpart of spatiotemporalentropymodel_tpu/models/base.py
     for the transform nets with f32 entropy math.
 """
 
+import time
 from typing import Any, Dict
 
 import numpy as np
@@ -54,6 +55,59 @@ def _common_dtype(*tensors):
     return tuple(t.float() for t in tensors)
 
 
+def _pack_sparse(y_flat, key_flat, n_keys: int, cap: int, z8, z_over):
+    """The sparse transport's buffer (models/stem.py:361 and charm.py:242
+    of the JAX package) from the NHWC-flat symbols y_flat (b, n) and their
+    sort keys key_flat (b, n) int64 in [0, n_keys), per batch element:
+
+      [bitmask n/8 u8][values cap i8][counts n_keys i32][z8]
+      [meta 2 i32: (nonzero count, overflow flag)]
+
+    The symbols sort stably by key and clamp to int8; the nonzeros are
+    compacted into ``cap`` values (those past it go to a dump slot); the
+    flag is set where a symbol leaves int8, the nonzeros pass ``cap`` or
+    ``z_over`` (the caller's ẑ left int8)."""
+    lim8 = 127
+    b, n = y_flat.shape
+    dev = y_flat.device
+    y_over = (y_flat.abs() > lim8).any(dim=1)
+    order = torch.argsort(key_flat, dim=1, stable=True)
+    y_sorted = torch.clamp(torch.gather(y_flat, 1, order), -lim8,
+                           lim8).to(torch.int8)
+    mask = y_sorted != 0
+    nz = mask.sum(dim=1, dtype=torch.int32)
+    pos = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
+    pos = torch.where(mask & (pos < cap), pos, cap).long()  # → dump slot
+    values = torch.zeros((b, cap + 1), dtype=torch.int8, device=dev)
+    values = values.scatter_(1, pos, y_sorted)[:, :cap]
+    counts = torch.zeros((b, n_keys), dtype=torch.int32, device=dev)
+    counts.scatter_add_(1, key_flat,
+                        torch.ones_like(key_flat, dtype=torch.int32))
+    weights = (1 << torch.arange(8, device=dev)).to(torch.int32)
+    maskbits = (mask.view(b, n // 8, 8).to(torch.int32) * weights).sum(
+        dim=-1).to(torch.uint8)
+    overflow = (y_over | (nz > cap) | z_over).to(torch.int32)
+    meta = torch.stack([nz, overflow], dim=-1)
+    return torch.cat([
+        maskbits.reshape(-1), _as_bytes(values), _as_bytes(counts),
+        _as_bytes(z8), _as_bytes(meta),
+    ])
+
+
+def _unpack_sparse(maskbits, values, order, b: int, n: int):
+    """(bitmask u8 (b, n/8), compacted values i8 (b, cap), order (b, n))
+    → (b, n) int32 symbols in NHWC-flat order: the mask's prefix sum
+    gathers the values, ``order`` scatters them back."""
+    cap = values.shape[1]
+    shifts = torch.arange(8, device=maskbits.device, dtype=torch.uint8)
+    mask = ((maskbits.view(b, n // 8, 1) >> shifts) & 1).view(b, n) != 0
+    cums = torch.cumsum(mask, dim=1)
+    gathered = torch.gather(values, 1, torch.clamp(cums - 1, 0, cap - 1))
+    y_sorted = torch.where(mask, gathered, torch.zeros_like(gathered))
+    flat = torch.zeros((b, n), dtype=torch.int32, device=values.device)
+    return flat.scatter_(1, order, y_sorted.to(torch.int32))
+
+
 def _to_nchw(plane_nhwc: np.ndarray, device):
     """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
     t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))
@@ -75,14 +129,34 @@ class CompressionModel:
     # whether the model owns a GaussianConditional (scale-table driven)
     has_gaussian = False
 
-    def __init__(self, module, device="cuda"):
+    def __init__(self, module, device="cuda", entropy_coder=None):
         self.device = torch.device(device)
         self.module = module.to(self.device).eval()
         self.tables: Dict[str, Any] = {}
+        self._coder_name = entropy_coder
 
     @property
     def coder(self):
-        return get_coder()
+        """The model's entropy coder: ``entropy_coder`` if one was given,
+        else the package's current default."""
+        return get_coder(self._coder_name)
+
+    # the stage clock: set it to a dict and the codec paths add the seconds
+    # of each stage under their names (synchronising the device at each
+    # boundary, so only for measurement)
+    _codec_stats = None
+
+    def _lap(self, key: str, t0: float) -> float:
+        """With ``_codec_stats`` set: synchronise the device, add the
+        seconds since t0 under ``key`` and return the clock; else 0."""
+        st = self._codec_stats
+        if st is None:
+            return 0.0
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        st[key] = st.get(key, 0.0) + (t - t0)
+        return t
 
     # serving compute dtype of the transform nets; None = float32. The
     # fused codec expressions cast back to f32 before quantization and CDF

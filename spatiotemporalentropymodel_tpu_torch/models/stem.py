@@ -51,7 +51,8 @@ from ..ops import kernels
 from ..ops.quantize import quantize_dequantize, quantize_noise
 from . import ar_wavefront as wf
 from .base import (
-    CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
+    CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat,
+    _pack_sparse, _to_nchw, _unpack_sparse,
 )
 
 STEM_VARIANTS = ("without_spm_tpm", "without_spm", "without_tpm", "full",
@@ -310,38 +311,10 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
         y_sym, idx, means = self._quantize(y_cur, z_sym, y_cond_c)
         # f32 + μ in the compute dtype adds in f32: the decoder's ŷ exactly
         y_hat = torch.clamp(y_sym, -int(lim16), int(lim16)).float() + means
-
         y_flat = _nhwc_flat(y_sym, b)
-        idx_flat = _nhwc_flat(idx, b).long()
-        n = y_flat.shape[1]
-        cap = sparse_capacity(n)
-        levels = self.levels
-        y_over = (y_flat.abs() > lim8).any(dim=1)
-
-        order = torch.argsort(idx_flat, dim=1, stable=True)
-        y_sorted = torch.gather(y_flat, 1, order)
-        y_sorted = torch.clamp(y_sorted, -lim8, lim8).to(torch.int8)
-        mask = y_sorted != 0
-        nz = mask.sum(dim=1, dtype=torch.int32)
-        pos = torch.cumsum(mask, dim=1, dtype=torch.int32) - 1
-        pos = torch.where(mask & (pos < cap), pos, cap).long()  # → dump slot
-        values = torch.zeros((b, cap + 1), dtype=torch.int8,
-                             device=y_cur.device)
-        values = values.scatter_(1, pos, y_sorted)[:, :cap]
-        counts = torch.zeros((b, levels), dtype=torch.int32,
-                             device=y_cur.device)
-        counts.scatter_add_(1, idx_flat, torch.ones_like(idx_flat,
-                                                         dtype=torch.int32))
-        weights = (1 << torch.arange(8, device=y_cur.device)).to(torch.int32)
-        maskbits = (mask.view(b, n // 8, 8).to(torch.int32) * weights).sum(
-            dim=-1).to(torch.uint8)
-        overflow = (y_over | (nz > cap) | z_over).to(torch.int32)
-        meta = torch.stack([nz, overflow], dim=-1)
         z8 = _nhwc_flat(torch.clamp(z_sym, -lim8, lim8).to(torch.int8), b)
-        packed = torch.cat([
-            maskbits.reshape(-1), _as_bytes(values), _as_bytes(counts),
-            _as_bytes(z8), _as_bytes(meta),
-        ])
+        packed = _pack_sparse(y_flat, _nhwc_flat(idx, b).long(), self.levels,
+                              sparse_capacity(y_flat.shape[1]), z8, z_over)
         return packed, y_hat
 
     @torch.no_grad()
@@ -361,15 +334,7 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
         Unpack bits → gather the compacted values through the mask's prefix
         sum → scatter back to spatial (NHWC-flat) order through ``order``."""
         b, m, h, w = means.shape
-        n = m * h * w
-        cap = values.shape[1]
-        shifts = torch.arange(8, device=maskbits.device, dtype=torch.uint8)
-        mask = ((maskbits.view(b, n // 8, 1) >> shifts) & 1).view(b, n) != 0
-        cums = torch.cumsum(mask, dim=1)
-        gathered = torch.gather(values, 1, torch.clamp(cums - 1, 0, cap - 1))
-        y_sorted = torch.where(mask, gathered, torch.zeros_like(gathered))
-        y_flat = torch.zeros((b, n), dtype=torch.int32, device=means.device)
-        y_flat.scatter_(1, order, y_sorted.to(torch.int32))
+        y_flat = _unpack_sparse(maskbits, values, order, b, m * h * w)
         # canonical NCHW, like the encoder's ŷ, which is the next frame's TPM
         # input and g_s's (see _nchw)
         target_hat = _nchw(y_flat.view(b, h, w, m).permute(0, 3, 1, 2)) + means

@@ -17,7 +17,7 @@ passed to each call.
 
 The JAX package's ``data_parallel_step`` (its batch sharded over a device
 mesh) waits for the port's DistributedDataParallel work (ROADMAP.md, Queue
-1 item 7).
+1, ``parallel/``).
 """
 
 from dataclasses import dataclass

@@ -34,7 +34,7 @@ from .optimizers import configure_optimizers
 def training_device(config) -> torch.device:
     """``config.device``; raises for a card that is not there (no quiet
     fallback to the CPU) and for ``data_parallel``, which waits for the
-    port's DistributedDataParallel work (ROADMAP.md, Queue 1 item 7)."""
+    port's DistributedDataParallel work (ROADMAP.md, Queue 1, `parallel/`)."""
     device = torch.device(config.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {config.device!r} asked for, but torch "
@@ -42,8 +42,8 @@ def training_device(config) -> torch.device:
                            f"on the CPU")
     if config.data_parallel:
         raise NotImplementedError(
-            "data_parallel training is not ported yet (ROADMAP.md, Queue 1 "
-            "item 7)")
+            "data_parallel training is not ported yet (ROADMAP.md, Queue 1, "
+            "parallel/)")
     return device
 
 

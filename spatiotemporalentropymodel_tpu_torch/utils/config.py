@@ -1,4 +1,4 @@
-"""Typed configuration of the training entry points.
+"""Typed configuration of the training and evaluation entry points.
 
 Counterpart of spatiotemporalentropymodel_tpu/utils/config.py: dataclasses
 bound to the command line by ``parse_config``, with the JAX package's
@@ -111,4 +111,22 @@ class TrainStemRoiConfig:
     workdir: str = "runs/train_stem_roi"
     data_parallel: bool = False
     resume: bool = False
+    device: str = "cuda"
+
+
+@dataclass
+class EvalStemConfig:
+    """GOP video evaluation (stem/evalSTEM.py parity)."""
+
+    dataset_root: Optional[str] = None
+    dataset: str = "uvg"  # uvg (GOP 12) | hevc (GOP 10)
+    n_gops: int = 3
+    variant: str = "res"
+    stem_checkpoint: Optional[str] = None
+    i_model: str = "mbt2018-mean"
+    i_quality: int = 4
+    i_checkpoint: Optional[str] = None
+    entropy_estimation: bool = False
+    out_json: Optional[str] = None
+    logfile: Optional[str] = None
     device: str = "cuda"

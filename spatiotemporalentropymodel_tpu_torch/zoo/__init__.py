@@ -6,8 +6,8 @@ name's position in ``model_architectures`` is the model id that the image
 and video containers record, so the six names stand here in the JAX
 package's order. ``load_torch_checkpoint`` fills a zoo image model from a
 CompressAI ``.pth.tar`` (zoo/convert.py), ``load_video_torch_checkpoint``
-a STEM variant or a model of the ROI family; ``stpm_charm`` waits for its
-port (ROADMAP.md, Queue 1 item 5).
+a STEM variant or a model of the ROI family. ``stpm_charm``, the
+channel-autoregressive STEM, has no CompressAI counterpart to load from.
 """
 
 from ..models import (
@@ -18,6 +18,7 @@ from ..models import (
     MeanScaleHyperprior,
     ScaleHyperprior,
     SpatioTemporalPriorModel,
+    SpatioTemporalPriorModelChannelAR,
     StemBaseline,
     StemBaselineV2,
     StemROI,
@@ -25,19 +26,6 @@ from ..models import (
     StemROI_I,
 )
 from .convert import KEY_MAPS, convert_state_dict, rename_key
-
-_LATER = "ROADMAP.md, Queue 1 item 5 (other models)"
-
-
-def _not_ported(name: str, module: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported to the PyTorch package yet: it needs "
-            f"{module} ({_LATER})")
-
-    build.__name__ = name
-    return build
-
 
 model_architectures = {
     "bmshj2018-factorized": FactorizedPrior,
@@ -77,8 +65,8 @@ stem_models = {
     ),
     "stpm": lambda **kw: SpatioTemporalPriorModel(variant="full", **kw),
     "stpm_res": lambda **kw: SpatioTemporalPriorModel(variant="res", **kw),
-    "stpm_charm": _not_ported(
-        "stpm_charm", "SpatioTemporalPriorModelChannelAR (models/charm.py)"),
+    # beyond the reference: the channel-autoregressive STEM (models/charm.py)
+    "stpm_charm": SpatioTemporalPriorModelChannelAR,
 }
 
 # the ROI / pixel-domain video family (stem_roi.py class names)

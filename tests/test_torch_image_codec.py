@@ -96,8 +96,10 @@ def test_zoo_ids_and_cfgs_equal_jax():
         model = zoo.create_model(name, 1, device="cpu")
         assert type(model).__name__ == type(
             jax_zoo.create_model(name, 1)).__name__
-    with pytest.raises(NotImplementedError, match="charm"):
-        zoo.stem_models["stpm_charm"](device="cpu")
+    charm = zoo.stem_models["stpm_charm"](
+        entropy_bottleneck_channels=16, in_channels=16, device="cpu")
+    assert type(charm).__name__ == type(jax_zoo.stem_models["stpm_charm"](
+        entropy_bottleneck_channels=16, in_channels=16)).__name__
 
 
 @pytest.mark.parametrize("estimation", [False, True])

@@ -56,6 +56,35 @@ def test_the_checks_cover_the_roi_modules():
             "zoo/__init__.py", "zoo/convert.py"} <= names
 
 
+def test_the_checks_cover_the_charm_modules():
+    """The modules charm, the coders and the GOP eval's CLI brought,
+    coders/_numpy_rans.py (copied rather than imported from the JAX
+    package) among them, are among those checked above and below."""
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if p.is_relative_to(PORT)}
+    assert {"models/charm.py", "coders/_numpy_rans.py", "coders/__init__.py",
+            "coders/rans.py", "entropy/transport.py", "eval/eval_stem.py",
+            "eval/video_codec.py", "utils/config.py"} <= names
+
+
+def test_charm_and_eval_stem_raise_without_card(tmp_path):
+    """The zoo's charm and eval_stem's CLI run on cuda unless told
+    device="cpu": with no card they raise rather than run on the CPU."""
+    if torch_cuda_available():
+        pytest.skip("a card is present; the model would be built on it")
+    from spatiotemporalentropymodel_tpu_torch import zoo
+    from spatiotemporalentropymodel_tpu_torch.eval import eval_stem
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.stem_models["stpm_charm"](entropy_bottleneck_channels=16,
+                                      in_channels=16)
+    with pytest.raises((RuntimeError, AssertionError)):
+        eval_stem.main(["--dataset-root", str(tmp_path)])
+    assert zoo.stem_models["stpm_charm"](
+        entropy_bottleneck_channels=16, in_channels=16,
+        device="cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("name", ["stem_baseline", "stem_baselinev2",
                                   "stem_roi", "stem_roi_wo_gsc",
                                   "stem_roi_i"])

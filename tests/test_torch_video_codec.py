@@ -3,12 +3,13 @@ package's, on the CPU.
 
 The port's copies of the tests/test_video_codec.py cases it can run (dense
 records, a round trip at 60×62, the weight-hash guard, the tiled res at
-(2, 4); charm raises a clear error); ``params_hash`` equal to the JAX
-package's for MSH and every STEM variant in f32 and bf16; each package
-decodes the other's files with the hash check on (within 1e-4); on a 64×64
-crop of the hero eval frames, f32, GOP 3, the port's file equals the JAX
-package's byte for byte in both families; and the CLI's ``main``
-round-trips a folder of PNGs.
+(2, 4)); ``params_hash`` equal to the JAX package's for MSH and every STEM
+variant in f32 and bf16; each package decodes the other's files with the
+hash check on (within 1e-4); on a 64×64 crop of the hero eval frames, f32,
+GOP 3, the port's file equals the JAX package's byte for byte in families
+0 and 1; family 2 (charm, records 4 and 5) byte for byte at 60×62 and
+decoded by each package from the other's file; and the CLI's ``main``
+round-trips a folder of PNGs, also with ``--stem-family charm``.
 """
 
 from pathlib import Path
@@ -23,11 +24,15 @@ from spatiotemporalentropymodel_tpu.eval import video_codec as jvc
 from spatiotemporalentropymodel_tpu.models import (
     MeanScaleHyperprior as JaxMSH,
     SpatioTemporalPriorModel as JaxStem,
+    SpatioTemporalPriorModelChannelAR as JaxCharm,
 )
 from spatiotemporalentropymodel_tpu.training.checkpoints import (
     load_checkpoint as jax_load_checkpoint,
 )
-from spatiotemporalentropymodel_tpu_torch.convert import load_jax_params
+from spatiotemporalentropymodel_tpu_torch.convert import (
+    jax_tree,
+    load_jax_params,
+)
 from spatiotemporalentropymodel_tpu_torch.data.png import read_png, write_png
 from spatiotemporalentropymodel_tpu_torch.eval import video_codec as vc
 from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
@@ -42,6 +47,7 @@ from spatiotemporalentropymodel_tpu_torch.eval.workload import (
 from spatiotemporalentropymodel_tpu_torch.models import (
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
+    SpatioTemporalPriorModelChannelAR,
 )
 from spatiotemporalentropymodel_tpu_torch.ops.padding import pad_centered
 
@@ -178,26 +184,6 @@ def test_stemv_wavefront_tiled_flagship(tmp_path):
         np.testing.assert_array_equal(got, want)
 
 
-def test_stemv_charm_raises_clearly(tmp_path):
-    """A family-2 file and ``--stem-family charm`` raise before any model
-    is built."""
-    i_model, stem = _models()
-    out = tmp_path / "seq.stemv"
-    vc.encode_video([np.zeros((64, 64, 3), np.float32)], i_model, stem, out,
-                    gop=1)
-    data = bytearray(out.read_bytes())
-    data[7] = vc.FAMILY_CHARM
-    (tmp_path / "charm.stemv").write_bytes(bytes(data))
-    with pytest.raises(NotImplementedError, match="charm"):
-        vc.decode_video(tmp_path / "charm.stemv", i_model, stem)
-    with pytest.raises(NotImplementedError, match="charm"):
-        vc.main(["decode", str(tmp_path / "charm.stemv"), "-o",
-                 str(tmp_path / "rec"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="charm"):
-        vc.main(["encode", str(tmp_path), "-o", str(out), "--stem-family",
-                 "charm", "--device", "cpu"])
-
-
 # ---- against the JAX package -----------------------------------------------
 
 def _jax_small(variant, tile=None):
@@ -264,6 +250,80 @@ def test_each_package_decodes_the_others_file(tmp_path, variant, tile, fmt):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w, np.float32), atol=1e-4)
+
+
+# ---- family 2: charm -------------------------------------------------------
+
+def _charm_pair(i_scale, scale):
+    """tests/test_video_codec.py's MSH (N 8, M 12), JAX-initialised, its
+    weights × i_scale, and a charm (G 4, EB 16) from the port's seed, its
+    weights × scale, in both packages with the same weights."""
+    j_i = JaxMSH(8, M)
+    j_i.init(jnp.zeros((1, 64, 64, 3)))
+    j_i.params = jax.tree_util.tree_map(lambda p: p * i_scale, j_i.params)
+    j_i.update()
+    p_i = MeanScaleHyperprior(8, M, device="cpu")
+    load_jax_params(p_i.module, jax_tree_numpy(j_i.params))
+    p_i.update()
+    p_s = SpatioTemporalPriorModelChannelAR(
+        groups=4, entropy_bottleneck_channels=16, in_channels=M,
+        device="cpu", seed=3)
+    _scale(p_s, scale)
+    p_s.update()
+    j_s = JaxCharm(groups=4, entropy_bottleneck_channels=16, in_channels=M)
+    j_s.params = jax.tree_util.tree_map(jnp.asarray, jax_tree(p_s.module))
+    j_s.update()
+    return (j_i, j_s), (p_i, p_s)
+
+
+@pytest.mark.parametrize("i_scale,scale,ftype", [
+    (0.05, 0.02, vc.FTYPE_P_CHARM), (1.0, 1.0, vc.FTYPE_P_CHARM_DENSE)])
+def test_stemv_charm_file_equals_jax_and_cross_decodes(tmp_path, i_scale,
+                                                       scale, ftype):
+    """At 60×62, GOP 3: the header's family 2, cfg0 the groups and cfg1
+    lrp | residual << 1; P records of type 4 (sparse, with the groups'
+    counts) for the scaled weights and 5 (dense) for unscaled ones, whose
+    latents overflow the sparse transport; the port's
+    file the JAX package's byte for byte; each package decodes the other's
+    file (within 1e-4), and the port's decode equals the model-API chain
+    with the carry the decoder's ŷ."""
+    (j_i, j_s), (p_i, p_s) = _charm_pair(i_scale, scale)
+    rng = np.random.default_rng(11)
+    base = rng.random((60, 62, 3)).astype(np.float32)
+    frames = [np.clip(base + 0.01 * t, 0, 1) for t in range(3)]
+    ours, theirs = tmp_path / "port.stemv", tmp_path / "jax.stemv"
+    vc.encode_video(frames, p_i, p_s, ours, gop=3)
+    jvc.encode_video(frames, j_i, j_s, theirs, gop=3)
+    with open(ours, "rb") as f:
+        hdr = vc.read_header(f)
+        records = [vc._read_frame(f, 4) for _ in range(3)]
+    assert (hdr["stem_family"], hdr["cfg0"], hdr["cfg1"]) == (2, 4, 3)
+    assert hdr["stem_variant_id"] == vc.UNSPECIFIED
+    assert [r[0] for r in records] == [0, ftype, ftype]
+    assert len(records[1][3][0][0]) == 4  # a y string per group
+    assert (records[1][2] is None) == (ftype == vc.FTYPE_P_CHARM_DENSE)
+    assert ours.read_bytes() == theirs.read_bytes()
+    got = vc.decode_video(theirs, p_i, p_s)
+    want = jvc.decode_video(ours, j_i, j_s)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, np.asarray(w, np.float32), atol=1e-4)
+    for g, w in zip(got, _api_chain_charm(p_i, p_s, frames)):
+        np.testing.assert_array_equal(g, w)
+
+
+def _api_chain_charm(i_model, stem, frames):
+    """The model-API chain of a charm: decompress with the encoder's
+    transport and counts, ŷ the carry; cropped as decode_video crops."""
+    enc0 = i_model.compress(_padded(frames[0]))
+    dec0 = i_model.decompress(enc0["strings"], enc0["shape"])
+    y_cond, out = dec0["y_hat"], [dec0["x_hat"]]
+    for fr in frames[1:]:
+        enc = stem.compress(i_model.analysis(_padded(fr)), y_cond)
+        y_cond = stem.decompress(enc["strings"], enc["shape"], y_cond,
+                                 transport_mode=enc["transport"],
+                                 counts=enc.get("counts"))["y_hat"]
+        out.append(i_model.get_x(y_cond))
+    return [x[0].float().permute(1, 2, 0).numpy()[2:62, 1:63] for x in out]
 
 
 # ---- the hero models, byte for byte ----------------------------------------
@@ -348,3 +408,44 @@ def test_cli_round_trips_a_folder_of_pngs(tmp_path):
             read_png(tmp_path / "rec" / f"frame_{t:04d}.png"),
             (np.clip(fr, 0, 1) * 255).astype(np.uint8))
     assert Path(out).stat().st_size > 45
+
+
+def test_cli_charm_round_trips_a_folder_of_pngs(tmp_path):
+    """``--stem-family charm --charm-groups 3 --no-charm-lrp``: the header
+    records the family and (groups, lrp | residual << 1) = (3, 2), the
+    decode rebuilds that charm from it, and its PNGs are decode_video's
+    frames of the same file."""
+    src = tmp_path / "frames"
+    src.mkdir()
+    rng = np.random.default_rng(4)
+    base = rng.integers(0, 256, (64, 64, 3))
+    for t in range(2):
+        write_png(src / f"f{t}.png",
+                  np.clip(base + 2 * t, 0, 255).astype(np.uint8))
+    out = tmp_path / "charm.stemv"
+    vc.main(["encode", str(src), "-o", str(out), "--gop", "2",
+             "--i-quality", "1", "--stem-channels", "16", "--stem-family",
+             "charm", "--charm-groups", "3", "--no-charm-lrp", "--device",
+             "cpu"])
+    vc.main(["decode", str(out), "-o", str(tmp_path / "rec"), "--device",
+             "cpu"])
+    with open(out, "rb") as f:
+        hdr = vc.read_header(f)
+        records = [vc._read_frame(f, hdr["cfg0"]) for _ in range(2)]
+    assert (hdr["stem_family"], hdr["cfg0"], hdr["cfg1"],
+            hdr["stem_channels"]) == (2, 3, 2, 16)
+    assert records[1][0] in vc.CHARM_FTYPES
+    assert len(records[1][3][0][0]) == 3
+
+    class Args:
+        i_model, i_quality, i_checkpoint = "mbt2018-mean", 1, None
+        stem_family, stem_channels, stem_checkpoint = "charm", 16, None
+        charm_groups, charm_lrp, device = 3, False, "cpu"
+
+    i_model, stem = vc._build_models(Args)
+    assert not stem.module.lrp and stem.groups == 3
+    want = vc.decode_video(out, i_model, stem)
+    for t, fr in enumerate(want):
+        np.testing.assert_array_equal(
+            read_png(tmp_path / "rec" / f"frame_{t:04d}.png"),
+            (np.clip(fr, 0, 1) * 255).astype(np.uint8))

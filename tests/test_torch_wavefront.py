@@ -130,11 +130,17 @@ def test_stream_decoder_reads_plain_stream_round_by_round(gc_tables):
 
 
 def test_wire_format_and_masks():
+    coder = get_coder("rans")
     with pytest.raises(ValueError, match="wavefront_format"):
-        twf.wire_format("runs")
-    assert twf.wire_format("auto") == "lane"
-    assert [twf.wire_format(f) for f in ("lane", "grouped")] == ["lane",
-                                                                "grouped"]
+        twf.wire_format("runs", coder)
+    assert twf.wire_format("auto", coder) == "lane"
+    assert [twf.wire_format(f, coder) for f in ("lane", "grouped")] == [
+        "lane", "grouped"]
+    # the NumPy coder has no stream runs: "grouped" raises as in the JAX
+    # package, "lane" and "auto" stay
+    assert twf.wire_format("auto", get_coder("numpy")) == "lane"
+    with pytest.raises(ValueError, match="stream-run"):
+        twf.wire_format("grouped", get_coder("numpy"))
     for kind in ("A", "B"):
         np.testing.assert_array_equal(make_causal_mask(5, 5, kind),
                                       jax_mask(5, 5, kind)[:, :, 0, 0])
