@@ -5,8 +5,10 @@ I-frame codec, the flagship STEM res through WavefrontVideoPipeline, the
 trained hero models (artifacts/trained/hero) read with jax blocked, the
 file codecs (.stemv video, .bin images) with their CLIs, training
 (train_image, train_stem), the autoregressive image models (mbt2018,
-Cheng2020) with their files and CompressAI checkpoints, the ROI family, and
-charm, the channel-autoregressive STEM, with the other two entropy coders.
+Cheng2020) with their files and CompressAI checkpoints, the ROI family,
+charm, the channel-autoregressive STEM, with the other two entropy coders,
+and the parallel slice: data-parallel training, update_model's export and
+the batch-split and W-split serving.
 
     python3 chip_smoke.py
 
@@ -194,9 +196,28 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 steps with a charm module at 4 × 3 × 256²: finite losses,
                 every parameter moved but the last group's LRP (the rate
                 loss does not reach it).
+                parallel: train_image (MSH(128, 192), 16×256²) and
+                train_stem res per_sequence (4 × 7 × 256², the hero I
+                checkpoint) with data_parallel=True on make_mesh() (the
+                card alone), each equal to the run without it exactly, and
+                on a mesh naming the card twice, one step with fed noise
+                within the training tolerances of the one-device step;
+                update_model's export of that train_image checkpoint,
+                loaded back, round-tripping the probe's first 1088×1920
+                frame in bf16 (encoder ŷ == decoder ŷ); the hero
+                gop_forward_sharded (f32, 3 P-frames × B 2 of 1088×1920)
+                on 2 entries against gop_forward (x̂ atol 1e-5, bpp rtol
+                1e-5, roundings that flip counted); W-split serving of the
+                192-wide models at 4×3×1088×1920 in bf16 on spatial meshes
+                of 2 and 4 entries against the unsplit pipeline: every
+                frame sparse, the carry Sharded, encoder ŷ == decoder ŷ,
+                the streams the unsplit ones or their flipped symbols
+                counted (at most 1e-4 of them), x̂ by the bf16 slice's
+                criteria; frames/s and ms/step beside the unsplit and
+                one-device figures.
                 On every path each kernel must have launched exactly as
                 often as the path calls it, and on the hero, image_ar,
-                roi and charm paths at the widths it runs at.
+                roi, charm and parallel paths at the widths it runs at.
   5. report   — one JSON line of kernels (a row per kernel, its launches
                 summed and by every path that launched it; then a row per
                 kernel at the hero widths and at 192→320, name@widths, its
@@ -206,6 +227,7 @@ Exits non-zero, printing no result line, on any failure.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1922,18 +1944,23 @@ TRAIN_SMALL = 64  # card vs CPU: MSH(64, 64) at 2×64×64
 HERO_I_CKPT = "artifacts/trained/hero/ckpt_i_0.012.pkl.gz"
 
 
-def _fed_noise(torch):
+def _fed_noise(torch, models=False):
     """The training tests' fed noise (tests/torch_port_util.py): the
     bottleneck's and the Gaussian conditional's quantize_noise replaced by
     x + 0.45·sin(7·x + k), the identity's gradient, so the card and the
-    CPU (and the kernel and the plain runs) see the same noise. Returns
-    the undo."""
+    CPU (and the kernel and the plain runs) see the same noise; with
+    ``models`` also getY's (models/priors.py) and the STEM context's
+    (models/stem.py). Returns the undo."""
     from spatiotemporalentropymodel_tpu_torch.entropy import (
         bottleneck, gaussian,
     )
+    from spatiotemporalentropymodel_tpu_torch.models import priors, stem
 
-    saved = [(m, m.quantize_noise) for m in (bottleneck, gaussian)]
-    for m, k in ((bottleneck, 0.1), (gaussian, 0.7)):
+    sites = [(bottleneck, 0.1), (gaussian, 0.7)]
+    if models:
+        sites += [(priors, 1.3), (stem, 2.9)]
+    saved = [(m, m.quantize_noise) for m, _ in sites]
+    for m, k in sites:
         m.quantize_noise = (lambda x, generator, k=k: x + (
             0.45 * torch.sin(7.0 * x + k)).detach())
 
@@ -1969,6 +1996,26 @@ def _check_grads(tag, got, ref, tol):
             raise AssertionError(f"{tag}: gradient of {name} off by "
                                  f"{err:.3g}·max|g| (limit {tol})")
     return worst
+
+
+def _check_first_step_params(tag, got, ref, g_got, g_ref):
+    """Parameters after one update from equal states: within
+    TRAIN_PARAM_ATOL where the two gradients give Adam steps under half of
+    it apart, else within 2·lr. Returns (entries not pinned, worst pinned
+    error)."""
+    unpinned = worst = 0
+    for k, r in ref.items():
+        err = np.abs(got[k] - r)
+        loose = TRAIN_LR * np.abs(_adam_first(g_got[k])
+                                  - _adam_first(g_ref[k])) > (
+            TRAIN_PARAM_ATOL / 2)
+        unpinned += int(loose.sum())
+        worst = max(worst, float(np.where(loose, 0, err).max()))
+        if worst > TRAIN_PARAM_ATOL or float(
+                np.where(loose, err, 0).max()) > 2 * TRAIN_LR:
+            raise AssertionError(f"{tag}: parameter {k} off by "
+                                 f"{float(err.max()):.3g}")
+    return unpinned, worst
 
 
 def run_train_card_vs_cpu(torch, kernels):
@@ -2015,18 +2062,8 @@ def run_train_card_vs_cpu(torch, kernels):
                 and abs(m_gpu[k] - v) <= TRAIN_LOSS_RTOL * abs(v)):
             raise AssertionError(f"train card vs CPU: {k} {m_gpu[k]} vs {v}")
     worst_g = _check_grads("train card vs CPU", g_gpu, g_cpu, TRAIN_GRAD_TOL)
-    unpinned = worst_p = 0
-    for k, ref in p_cpu.items():
-        err = np.abs(p_gpu[k] - ref)
-        loose = TRAIN_LR * np.abs(_adam_first(g_gpu[k])
-                                  - _adam_first(g_cpu[k])) > (
-            TRAIN_PARAM_ATOL / 2)
-        unpinned += int(loose.sum())
-        worst_p = max(worst_p, float(np.where(loose, 0, err).max()))
-        if worst_p > TRAIN_PARAM_ATOL or float(
-                np.where(loose, err, 0).max()) > 2 * TRAIN_LR:
-            raise AssertionError(f"train card vs CPU: parameter {k} off by "
-                                 f"{float(err.max()):.3g}")
+    unpinned, worst_p = _check_first_step_params(
+        "train card vs CPU", p_gpu, p_cpu, g_gpu, g_cpu)
     log(f"  card vs CPU, MSH({n}, {n}) one step, fed noise: loss "
         f"{m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f}, gradients within "
         f"{worst_g:.3g}·max|g|, parameters within {worst_p:.3g} "
@@ -3601,6 +3638,445 @@ def run_charm(torch, kernels, card):
     return snaps, figures
 
 
+# ---- the parallel slice: data-parallel training, update_model, sharded
+# serving --------------------------------------------------------------------
+
+CARD2 = ("cuda:0", "cuda:0")  # a mesh naming the card twice
+SPLIT_MESHES = (2, 4)  # the W-split serving's mesh sizes
+GOP_SHARD_B = 2
+# W-split serving against the unsplit pipeline (bf16): symbols that flip
+# (|Δŷ| ≥ 0.5) at most this share, else |Δŷ| ≤ 1e-4 (μ's bits); x̂ by the
+# bf16 slice's criteria (tests/test_torch_cuda.py: max 6e-2, mean 2e-3)
+SPLIT_FLIP_SHARE = 1e-4
+SPLIT_Y_ATOL = 1e-4
+SPLIT_X_MAX, SPLIT_X_MEAN = 6e-2, 2e-3
+# gop_forward_sharded against gop_forward (f32): every element of x̂ within
+# the f32 test tolerance (tests/test_torch_parallel.py), bpp rtol GOP_RTOL
+GOP_X_ATOL = 1e-5
+
+
+def _params_of(torch, module):
+    return {k: v.detach().double().cpu().numpy()
+            for k, v in module.named_parameters()}
+
+
+def _dp_run(torch, kernels, ns, maker, tag, run, want):
+    """run() (a trainer call) with the steps that ``ns.<maker>`` makes
+    timed, the launches counted and checked. Returns (s, run()'s result,
+    ms per step after the first or the one step's, launch snapshot)."""
+    times = []
+    restore = _timed_steps(torch, ns, maker, times)
+    try:
+        wall, out, snap = _counted(torch, kernels, tag, want, run)
+    finally:
+        restore()
+    return wall, out, float(np.median(times[1:] or times)), snap
+
+
+def _with_mesh(ns_list, mesh):
+    """Point the trainers' training_mesh at ``mesh``; returns the undo."""
+    saved = [(ns, ns.training_mesh) for ns in ns_list]
+    for ns in ns_list:
+        ns.training_mesh = lambda device: mesh
+
+    def undo():
+        for ns, f in saved:
+            ns.training_mesh = f
+
+    return undo
+
+
+def run_parallel_train(torch, kernels, card, tmp):
+    """Data-parallel training at the training phase's configurations:
+    train_image (MSH(128, 192), 16×256²) and train_stem res per_sequence
+    (4 × 7 × 256², the hero I checkpoint) with data_parallel=True. On
+    make_mesh() (the card alone) the run equals the data_parallel=False run
+    of the same seed exactly; on a mesh naming the card twice, one step
+    with fed noise equals the one-device step within the training
+    tolerances. Returns (launch snapshots, figures, the image checkpoint,
+    the trained image model)."""
+    from spatiotemporalentropymodel_tpu_torch.parallel import Mesh
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        train_image as ti, train_stem as ts,
+    )
+    from spatiotemporalentropymodel_tpu_torch.utils.config import (
+        TrainImageConfig, TrainStemConfig,
+    )
+    from spatiotemporalentropymodel_tpu_torch.zoo import create_model
+
+    mesh2 = Mesh(CARD2)
+    snaps, figs = {}, {}
+    i_model = ts.build_i_model(TrainStemConfig(i_checkpoint=HERO_I_CKPT),
+                               torch.device("cuda"))
+
+    def image(tag, dp, steps, n):
+        cfg = TrainImageConfig(workdir=str(tmp / tag), data_parallel=dp)
+        model = create_model(cfg.model, cfg.quality, device="cuda")
+        wall, (state, metrics), ms, snaps[tag] = _dp_run(
+            torch, kernels, ti,
+            "data_parallel_step" if dp else "make_image_train_step", tag,
+            lambda: ti.train_image(cfg, max_steps=steps, model=model),
+            _file_want(False, steps * n, steps * n, 0))
+        return state, _finite_metrics(tag, metrics), ms
+
+    def stem(tag, dp, steps=1):
+        cfg = TrainStemConfig(i_checkpoint=HERO_I_CKPT, data_parallel=dp,
+                              step_mode="per_sequence",
+                              workdir=str(tmp / tag))
+        # get_y of each step's batch and of the validation batch
+        wall, (state, metrics), ms, snaps[tag] = _dp_run(
+            torch, kernels, ts,
+            "data_parallel_step" if dp else "make_stem_train_step", tag,
+            lambda: ts.train_stem(cfg, max_steps=steps, i_model=i_model),
+            _file_want(False, steps + 1, 0, 0))
+        return state, _finite_metrics(tag, metrics), ms
+
+    # make_mesh(), one entry: equal to the plain run, exactly
+    runs = {"image": [image("train_image_dp_plain", False, 2, 1),
+                      image("train_image_dp_card", True, 2, 1)],
+            "stem": [stem("train_stem_dp_plain", False),
+                     stem("train_stem_dp_card", True)]}
+    for name, ((s0, m0, ms0), (s1, m1, ms1)) in runs.items():
+        if m0 != m1 or any(not torch.equal(a, b) for a, b in zip(
+                s0.module.parameters(), s1.module.parameters())):
+            raise AssertionError(f"{name}: data_parallel on make_mesh() "
+                                 f"differs from the plain run: {m0} {m1}")
+        figs[name] = {"plain_ms": ms0, "mesh1_ms": ms1, "loss": m0["loss"]}
+    trained = runs["image"][1][0].module
+    ckpt = tmp / "train_image_dp_card" / "ckpt" / "image_latest.pkl"
+
+    # two entries of the card: one step with fed noise against the plain
+    # step with the same noise; then, with real noise, steps timed after
+    # the first (cuDNN's choices for the half batch)
+    undo_mesh = _with_mesh((ti, ts), mesh2)
+    try:
+        undo = _fed_noise(torch, models=True)
+        try:
+            pairs = {"image": [image("train_image_fed", False, 1, 1),
+                               image("train_image_dp2", True, 1, 2)],
+                     "stem": [stem("train_stem_fed", False),
+                              stem("train_stem_dp2", True)]}
+        finally:
+            undo()
+        timed2 = {"image": image("train_image_dp2_timed", True, 3, 2)[2],
+                  "stem": stem("train_stem_dp2_timed", True, 3)[2]}
+    finally:
+        undo_mesh()
+    for name, ((s0, m0, _), (s1, m1, _)) in pairs.items():
+        for k, v in m0.items():
+            if not abs(m1[k] - v) <= TRAIN_LOSS_RTOL * abs(v):
+                raise AssertionError(f"{name} on 2 entries: {k} {m1[k]} vs "
+                                     f"{v}")
+        g0, g1 = _first_moments(s0), _first_moments(s1)
+        worst_g = _check_grads(f"{name} on 2 entries", g1, g0,
+                               TRAIN_GRAD_TOL)
+        unpinned, worst_p = _check_first_step_params(
+            f"{name} on 2 entries", _params_of(torch, s1.module),
+            _params_of(torch, s0.module), g1, g0)
+        figs[name].update(mesh2_ms=timed2[name], grad_err=worst_g,
+                          param_err=worst_p, unpinned=unpinned)
+    for name, f in figs.items():
+        log(f"  {name} data-parallel, ms/step after the first: plain "
+            f"{f['plain_ms']:.2f}, make_mesh() (1 entry) "
+            f"{f['mesh1_ms']:.2f} (an equal run), 2 entries of the card "
+            f"{f['mesh2_ms']:.2f}; one step on 2 entries with fed noise: "
+            f"gradients within {f['grad_err']:.3g}·max|g|, parameters "
+            f"within {f['param_err']:.3g} ({f['unpinned']} entries not "
+            f"pinned) | card: {card}")
+    return snaps, figs, ckpt, trained
+
+
+def run_update_model(torch, kernels, card, ckpt, trained, tmp):
+    """update_model on the checkpoint train_image wrote: export it, load it
+    back, and round-trip the probe's first 1088×1920 frame through the
+    exported model's compress/decompress in bf16, encoder ŷ == decoder ŷ,
+    the launches exact."""
+    from spatiotemporalentropymodel_tpu_torch.eval.update_model import (
+        update_checkpoint,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        load_checkpoint,
+    )
+    from spatiotemporalentropymodel_tpu_torch.zoo import create_model
+
+    tag = "update_model_bf16"
+    t0 = time.perf_counter()
+    out = update_checkpoint(create_model("mbt2018-mean", 4, device="cuda",
+                                         seed=5), str(ckpt),
+                            str(tmp / "export"), "mbt2018-mean")
+    export_s = time.perf_counter() - t0
+    model = create_model("mbt2018-mean", 4, device="cuda", seed=6)
+    model.load_state_leaves(load_checkpoint(out)["model"])
+    for (k, a), b in zip(model.module.named_parameters(),
+                         trained.parameters()):
+        if "quantiles" not in k and not torch.equal(a, b):
+            raise AssertionError(f"{tag}: exported {k} is not the trained")
+    model.set_compute_dtype(torch.bfloat16)
+    x = _hero_frames(torch)[0]
+    model.decompress(**_compressed(model, x))  # warm-up
+    kernels.reset_launch_counts()
+    ms_c, enc = timed_ms(torch, lambda: model.compress(x))
+    ms_d, dec = timed_ms(torch, lambda: model.decompress(enc["strings"],
+                                                         enc["shape"]))
+    counts, widths = _file_want(True, 1, 1, 1)
+    _check_launches(kernels, tag, counts)
+    _check_widths(kernels, tag, widths)
+    snap = _snap(kernels)
+    _, y_enc = model.fused_encode_expr(x)
+    if not torch.equal(y_enc, dec["y_hat"]):
+        raise AssertionError(f"{tag}: encoder ŷ != decoder ŷ")
+    if not bool(torch.isfinite(dec["x_hat"]).all()):
+        raise AssertionError(f"{tag}: x̂ not finite")
+    nbytes = sum(len(s) for g in enc["strings"] for s in g)
+    log(f"  {tag}: {os.path.basename(out)} written in {export_s:.2f} s, "
+        f"loaded back; 1×3×{H}×{W} compress {ms_c:.1f} ms, decompress "
+        f"{ms_d:.1f} ms, {nbytes * 8 / (H * W):.5f} bpp, encoder ŷ == "
+        f"decoder ŷ, launches exact | card: {card}")
+    return snap, {"compress_ms": ms_c, "decompress_ms": ms_d,
+                  "export_s": export_s}
+
+
+def _compressed(model, x):
+    enc = model.compress(x)
+    return {"strings": enc["strings"], "shape": enc["shape"]}
+
+
+def _flips(torch, tag, got, ref, share):
+    """Elements of got off ref by ≥ 0.5 (flipped roundings): raise past
+    ``share`` of the elements; returns (count, first positions)."""
+    off = (got - ref).abs() >= 0.5
+    n = int(off.sum())
+    if n > share * off.numel():
+        raise AssertionError(f"{tag}: {n} flipped of {off.numel()}")
+    return n, off.nonzero()[:4].tolist()
+
+
+def run_gop_sharded(torch, kernels, card):
+    """gop_forward_sharded: the hero I-model and without_spm (f32), the
+    probe's 4 frames of 1088×1920 at B = 2 (each frame and its mirror
+    image): the I-frame's ŷ, then the 3 P-frames through gop_forward and
+    through gop_forward_sharded on a mesh naming the card twice."""
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import load_hero
+    from spatiotemporalentropymodel_tpu_torch.parallel import Mesh
+
+    models = load_hero(device="cuda", variants=("without_spm",))
+    i_model, stem = models["i"], models["without_spm"]
+    frames = [torch.cat([f, f.flip(-1)]) for f in _hero_frames(torch)]
+    y0 = _hero_iframe(torch, i_model, frames[0], "gop_forward_sharded")
+    gop = torch.stack(frames[1:])  # (3, 2, 3, H, W)
+    pipe = StemVideoPipeline(i_model, stem)
+    mesh = Mesh(CARD2)
+    pipe.gop_forward_sharded(gop[:1], y0, mesh)  # warm-up, both shapes
+    pipe.gop_forward(gop[:1], y0)
+    out, snaps = {}, {}
+    t = gop.shape[0]
+    for tag, fn, n in (("gop_forward_b2", lambda: pipe.gop_forward(gop, y0),
+                        1),
+                       ("gop_forward_sharded",
+                        lambda: pipe.gop_forward_sharded(gop, y0, mesh), 2)):
+        kernels.reset_launch_counts()
+        ms, out[tag] = timed_ms(torch, fn)
+        _check_launches(kernels, tag, _want(gdn_fused=6 * t * n))
+        _check_widths(kernels, tag, {("gdn_fused", HERO_N): 6 * t * n})
+        snaps[tag] = _snap(kernels)
+        out[tag + "_fps"] = t * GOP_SHARD_B / (ms / 1e3)
+    (x_ref, bpp_ref), (x_sh, bpp_sh) = out["gop_forward_b2"], out[
+        "gop_forward_sharded"]
+    err = float((x_sh - x_ref).abs().max())
+    if not err <= GOP_X_ATOL:
+        off = (x_sh - x_ref).abs() > GOP_X_ATOL
+        raise AssertionError(f"gop_forward_sharded: x̂ off by up to {err:.3g} "
+                             f"at {int(off.sum())} elements, first "
+                             f"{off.nonzero()[:4].tolist()}")
+    rel = float(((bpp_sh - bpp_ref).abs() / bpp_ref).max())
+    if not rel <= GOP_RTOL:
+        raise AssertionError(f"gop_forward_sharded: bpp rel diff {rel}")
+    log(f"  gop_forward_sharded: {t} P-frames × B {GOP_SHARD_B} of "
+        f"{H}×{W} (f32, hero) on 2 entries of the card "
+        f"{out['gop_forward_sharded_fps']:.3f} frames/s beside gop_forward's "
+        f"{out['gop_forward_b2_fps']:.3f}; max|Δx̂| {err:.3g} (limit "
+        f"{GOP_X_ATOL:g}), bpp max rel diff {rel:.2e} (limit "
+        f"{GOP_RTOL:.0e}), launches exact | card: {card}")
+    return snaps, {"fps": out["gop_forward_sharded_fps"],
+                   "unsharded_fps": out["gop_forward_b2_fps"],
+                   "max_abs_x": err, "bpp_rel": rel}
+
+
+def _split_want(n):
+    """Launches of 3 bf16 P-frames encoded and decoded W-split over n
+    entries: g_a's three gdn_conv_fused and g_s's gdn_fused_bf16 and packed
+    pair once per shard, the quantizer once on the whole latent."""
+    counts = _want(gdn_conv_fused=3 * P_FRAMES * n,
+                   gdn_fused_bf16=P_FRAMES * n,
+                   igdn_deconv_wide_packed=P_FRAMES * n,
+                   igdn_deconv_tail_packed=P_FRAMES * n,
+                   quantize_and_index_bf16=P_FRAMES)
+    widths = {("gdn_conv_fused", N, N): 3 * P_FRAMES * n,
+              ("gdn_fused_bf16", N): P_FRAMES * n,
+              ("igdn_deconv_wide_packed", N, N): P_FRAMES * n,
+              ("igdn_deconv_tail_packed", N, 3): P_FRAMES * n,
+              ("quantize_and_index_bf16",): P_FRAMES}
+    return counts, widths
+
+
+def run_split_serving(torch, kernels, card):
+    """W-split serving: the 192-wide headline models (MSH(192, 192), STEM
+    without_spm, EB 256, the bench's surgery) at 4×3×1088×1920 in bf16,
+    3 P-frames through StemVideoPipeline unsplit and with spatial meshes
+    of 2 and 4 entries of the card: every frame sparse, the carry Sharded,
+    encoder ŷ == decoder ŷ, the split streams decoded by the unsplit
+    pipeline and the unsplit ones by the split pipeline to the encoder's ŷ
+    exactly, the streams the unsplit pipeline's (or the flipped symbols
+    counted), x̂ within the bf16 slice's criteria, the launches exact."""
+    from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
+        StemVideoPipeline,
+    )
+    from spatiotemporalentropymodel_tpu_torch.eval.workload import (
+        match_latent_to_prior, realistic_stem,
+    )
+    from spatiotemporalentropymodel_tpu_torch.models import (
+        MeanScaleHyperprior, SpatioTemporalPriorModel,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        SP_AXIS, Mesh, Sharded,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel.spatial import whole
+
+    imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=EBC,
+                                    in_channels=M, device="cuda", seed=1)
+    realistic_stem(stem)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    frames = [torch.rand((B, 3, H, W), generator=gen, device="cuda")
+              for _ in range(P_FRAMES)]
+    y_cond = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
+                               device="cuda")
+    match_latent_to_prior(imodel, stem, frames[0], y_cond)
+    imodel.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+
+    def serve(pipe, tag, want):
+        enc, _ = pipe.encode_frame(frames[0], y_cond)  # warm-up
+        pipe.decode_frame(enc, y_cond=y_cond)
+
+        def run():
+            encs = list(pipe.encode_frames(frames, y_cond))
+            return encs, list(pipe.decode_frames(encs, y_cond))
+
+        wall, (encs, dec), snap = _counted(torch, kernels, tag, want, run)
+        y = pipe.analysis(frames[0])
+        stages = {"g_a_ms": lambda: pipe.analysis(frames[0]),
+                  "g_s_ms": lambda: pipe._apply("get_x", y)}
+        ms = {k: sorted(timed_ms(torch, f)[0] for _ in range(3))[1]
+              for k, f in stages.items()}
+        return wall, encs, dec, snap, ms
+
+    snaps, figs = {}, {}
+    ref_pipe = StemVideoPipeline(imodel, stem)
+    wall, ref_encs, ref_dec, snaps["split_serving_1"], ms = serve(
+        ref_pipe, "split_serving_1", _split_want(1))
+    figs["unsplit"] = {"fps": P_FRAMES * B / wall, **ms}
+    for n in SPLIT_MESHES:
+        tag = f"split_serving_{n}"
+        pipe = StemVideoPipeline(imodel, stem,
+                                 spatial_mesh=Mesh(("cuda:0",) * n, SP_AXIS))
+        wall, encs, dec, snaps[tag], ms = serve(pipe, tag, _split_want(n))
+        # each pipeline decodes the other's streams to the encoder's ŷ
+        for name, other, mine in (
+                ("the unsplit pipeline of the split streams",
+                 ref_pipe.decode_frames(encs, y_cond), dec),
+                ("the split pipeline of the unsplit streams",
+                 pipe.decode_frames(ref_encs, y_cond), ref_dec)):
+            for i, ((_, y_o), (_, y_m)) in enumerate(zip(other, mine)):
+                if not torch.equal(whole(y_o), whole(y_m)):
+                    raise AssertionError(f"{tag} frame {i}: ŷ decoded by "
+                                         f"{name} differs")
+        same, flips, y_err, x_max, x_mean = 0, [], 0.0, 0.0, 0.0
+        y_enc = y_cond
+        for i, (enc, ref, (x_hat, y_hat), (x_ref, y_ref)) in enumerate(
+                zip(encs, ref_encs, dec, ref_dec)):
+            if enc["transport"] != "sparse":
+                raise AssertionError(f"{tag} frame {i}: dense transport")
+            if not (isinstance(y_hat, Sharded) and isinstance(x_hat, Sharded)
+                    and len(y_hat.shards) == n):
+                raise AssertionError(f"{tag} frame {i}: ŷ or x̂ not split")
+            _, y_enc = pipe.encode_frame(frames[i], y_enc)
+            yd = y_hat.gather()
+            if not torch.equal(y_enc.gather(), yd):
+                raise AssertionError(f"{tag} frame {i}: encoder ŷ != "
+                                     f"decoder ŷ")
+            same += enc["strings"] == ref["strings"]
+            count, where = _flips(torch, f"{tag} frame {i}", yd, y_ref,
+                                  SPLIT_FLIP_SHARE)
+            flips.append((count, where))
+            keep = (yd - y_ref).abs() < 0.5
+            y_err = max(y_err, float((yd - y_ref).abs()[keep].max()))
+            dx = (x_hat.gather().float() - x_ref.float()).abs()
+            x_max, x_mean = max(x_max, float(dx.max())), max(
+                x_mean, float(dx.mean()))
+        if y_err > SPLIT_Y_ATOL or x_max > SPLIT_X_MAX or \
+                x_mean > SPLIT_X_MEAN:
+            raise AssertionError(f"{tag}: |Δŷ| {y_err}, x̂ max {x_max} mean "
+                                 f"{x_mean}")
+        if same < P_FRAMES and not any(c for c, _ in flips):
+            raise AssertionError(f"{tag}: streams differ with no flipped "
+                                 f"symbol")
+        fps = P_FRAMES * B / wall
+        figs[tag] = {"fps": fps, **ms, "streams_equal": same,
+                     "flips": [c for c, _ in flips],
+                     "flips_at": [w for _, w in flips], "y_err": y_err,
+                     "x_max": x_max, "x_mean": x_mean}
+        un = figs["unsplit"]
+        log(f"  {tag}: {P_FRAMES} P-frames × {B} of {H}×{W} (bf16) W-split "
+            f"over {n} entries of the card {fps:.3f} frames/s beside the "
+            f"unsplit {un['fps']:.3f}; g_a {ms['g_a_ms']:.2f} ms (unsplit "
+            f"{un['g_a_ms']:.2f}), g_s {ms['g_s_ms']:.2f} "
+            f"({un['g_s_ms']:.2f}); streams equal on {same} of "
+            f"{P_FRAMES} frames, flipped symbols per frame "
+            f"{[c for c, _ in flips]} (first at {[w for _, w in flips]}), "
+            f"|Δŷ| elsewhere ≤ {y_err:.3g}, x̂ max {x_max:.3g} mean "
+            f"{x_mean:.3g}; all sparse, carry Sharded, encoder ŷ == decoder "
+            f"ŷ, each pipeline decodes the other's streams to the same ŷ, "
+            f"launches exact | card: {card}")
+    return snaps, figs
+
+
+def run_parallel(torch, kernels, card):
+    """parallel: data-parallel training, update_model's export,
+    gop_forward_sharded and W-split serving. Returns ({path: launch
+    snapshot}, figures)."""
+    import tempfile
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    snaps, figures = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        train_snaps, figures["train"], ckpt, trained = run_parallel_train(
+            torch, kernels, card, tmp)
+        snaps.update(train_snaps)
+        torch.cuda.empty_cache()
+        snaps["update_model_bf16"], figures["update_model"] = \
+            run_update_model(torch, kernels, card, ckpt, trained, tmp)
+    del trained
+    torch.cuda.empty_cache()
+    gop_snaps, figures["gop_forward_sharded"] = run_gop_sharded(
+        torch, kernels, card)
+    snaps.update(gop_snaps)
+    torch.cuda.empty_cache()
+    split_snaps, figures["split_serving"] = run_split_serving(
+        torch, kernels, card)
+    snaps.update(split_snaps)
+    torch.cuda.empty_cache()
+    figures["seconds"] = time.perf_counter() - t0
+    log(f"  parallel phase: {figures['seconds']:.1f} s | card: {card}")
+    return snaps, figures
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -3753,6 +4229,14 @@ def main() -> int:
         f"module; the rans_interleaved and numpy coders")
     charm_snaps, charm = run_charm(torch, kernels, card)
     hero.update(charm_snaps)
+    torch.cuda.empty_cache()
+    log(f"[4/5] parallel: train_image and train_stem data-parallel on "
+        f"make_mesh() and on 2 entries of the card; update_model's export "
+        f"round-tripping a {H}×{W} picture in bf16; gop_forward_sharded (hero,"
+        f" B {GOP_SHARD_B}); W-split serving of the 192-wide models at "
+        f"{B}×3×{H}×{W} (bf16) on {SPLIT_MESHES} entries")
+    par_snaps, parallel = run_parallel(torch, kernels, card)
+    hero.update(par_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -3799,6 +4283,7 @@ def main() -> int:
     log(json.dumps({"image_ar": image_ar}))
     log(json.dumps({"roi": roi}))
     log(json.dumps({"charm": charm}))
+    log(json.dumps({"parallel": parallel}))
     roi_shape = f"1x{ROI_N}x{H // 2}x{W // 2}"
     for key, res, suffix in (
             [(k, r, "") for k, r in hero_rows.items()]

@@ -15,8 +15,18 @@ Frames and latents are NCHW tensors on the models' device; the conditioning
 latent stays there across frames (GOP recurrence, stem/evalSTEM.py:93-153).
 After ``set_compute_dtype(torch.bfloat16)`` on both models the transforms run
 in bf16: the frame is cast at ``analysis``, x̂ comes back in bf16, and the ŷ
-carry and the codec math stay f32. The JAX package's spatial-mesh serving
-waits for the ``parallel`` slice.
+carry and the codec math stay f32.
+
+With a ``spatial_mesh`` (parallel/spatial.py) StemVideoPipeline serves each
+frame W-split over the mesh: g_a, g_s and the encoder's HE run per shard
+with their halos (``_SplitHyperAnalysis``); the nets the decoder also runs
+(TPM, HD, EPM), the quantizer, the sparse pack and the host coder see the
+whole latent on the mesh's first device. So every decoder, split or not,
+computes the encoder's (σ, μ) bit for bit and decodes the stream; the
+stream itself is the unsplit pipeline's where the split g_a and HE give
+the unsplit ones' y and z, which a card's convolution algorithms for the
+narrower shapes need not (their sums run in another order).
+``gop_forward_sharded`` splits a GOP's batch over a mesh instead.
 """
 
 from typing import Tuple
@@ -27,6 +37,13 @@ import torch
 from ..entropy import base as entropy_base
 from ..entropy import transport
 from ..models.base import _to_nchw
+from ..parallel.mesh import (
+    DATA_AXIS, canonical_device, check_axis, on_device, replica_on,
+)
+from ..parallel.spatial import (
+    SP_AXIS, Sharded, halo_map, receptive_field, shard_frame, spatial_apply,
+    stack_halo, whole,
+)
 
 
 def _shape4(y):
@@ -46,8 +63,8 @@ def _require_deterministic(stem):
 
 class _Download:
     """A device→host copy of a packed buffer in flight: the copy is queued on
-    the current stream into pinned memory, so the host can code the previous
-    frame while the device works on this one."""
+    the buffer's card's current stream into pinned memory, so the host can
+    code the previous frame while the device works on this one."""
 
     def __init__(self, packed):
         if packed.device.type == "cuda":
@@ -55,7 +72,7 @@ class _Download:
                                      pin_memory=True)
             self._host.copy_(packed, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(torch.cuda.current_stream(packed.device))
         else:
             self._host, self._event = packed, None
 
@@ -63,6 +80,35 @@ class _Download:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+class _SplitHyperAnalysis:
+    """The encoder's HE (``models/stem.py::HyperAnalysis``'s methods) on
+    latents W-split over a mesh: per shard with the halo of its layers where
+    the latent's W divides into shards of whole z columns (W divisible by
+    the mesh size times HE's stride, 4), else whole on the mesh's first
+    device. z comes back whole there, for the quantizer and the pack."""
+
+    def __init__(self, stem, mesh):
+        self.stem, self.mesh = stem, mesh
+        self._halo = stack_halo(stem.module.HE)
+        self._stride = max(1, int(receptive_field([stem.module.HE])[1]))
+
+    def cast(self, t):
+        if isinstance(t, Sharded):
+            return t.map(self.stem._cast)
+        return self.stem._cast(t)
+
+    def whole(self, t):
+        return whole(t)
+
+    def hyper_encode(self, y_cur_c, y_cond_c):
+        if y_cur_c.shape[3] % (self.mesh.size * self._stride) == 0:
+            return whole(halo_map(
+                lambda *a: replica_on(self.stem, a[0].device)
+                .module.hyper_encode(*a),
+                (y_cur_c, y_cond_c), self.mesh, self._halo))
+        return self.stem.module.hyper_encode(whole(y_cur_c), whole(y_cond_c))
 
 
 class StemVideoPipeline:
@@ -76,9 +122,21 @@ class StemVideoPipeline:
     frame overflows int8 or the values capacity, as the JAX package does;
     each enc dict records the transport it took. ``"dense"`` keeps the
     dense format whose y/z streams are byte-identical to the model API's.
+
+    ``spatial_mesh`` (a parallel/spatial.py mesh): serve every frame
+    W-split over it, frame W divisible by the mesh size × 16 (g_a's
+    stride). g_a (``analysis``) and g_s run per shard, and so does the
+    encoder's HE where the latent's W divides at its stride (else whole on
+    the first device, ``_SplitHyperAnalysis``). y and z are gathered on
+    the first device, where TPM, HD, EPM, the quantizer and the pack run on
+    the whole latent, as the unsplit pipeline runs them: a stream encoded
+    split decodes through any pipeline, split or not, to the same ŷ. The
+    ŷ carry and x̂ come back ``Sharded``; ``spatial_axis`` must be the
+    mesh's axis.
     """
 
-    def __init__(self, i_model, stem, transport_mode: str = "sparse"):
+    def __init__(self, i_model, stem, transport_mode: str = "sparse",
+                 spatial_mesh=None, spatial_axis: str = SP_AXIS):
         if stem.use_spm:
             raise ValueError(
                 "StemVideoPipeline drives the parallel (non-SPM) codec path; "
@@ -91,28 +149,53 @@ class StemVideoPipeline:
         self.i_model = i_model
         self.stem = stem
         self.transport_mode = transport_mode
+        if spatial_mesh is not None:
+            check_axis(spatial_mesh, spatial_axis)
+            if spatial_mesh.devices[0] != canonical_device(stem.device):
+                raise ValueError(f"the spatial mesh starts at "
+                                 f"{spatial_mesh.devices[0]}, the models "
+                                 f"are on {stem.device}")
+        self._sp_mesh = spatial_mesh
+        self._sp_axis = spatial_axis
+        self._he = (None if spatial_mesh is None
+                    else _SplitHyperAnalysis(stem, spatial_mesh))
 
     # -- device stages ---------------------------------------------------------
 
+    def _sp_place(self, t):
+        """t W-split over the spatial mesh (as it is without one)."""
+        if self._sp_mesh is None:
+            return t
+        return shard_frame(t, self._sp_mesh, self._sp_axis)
+
+    def _apply(self, method, t):
+        """An I-model transform, W-split over the spatial mesh if any."""
+        if self._sp_mesh is None:
+            return getattr(self.i_model, method)(t)
+        return spatial_apply(self.i_model, method, t, self._sp_mesh,
+                             axis_name=self._sp_axis)
+
     def analysis(self, x):
         """g_a only, in the I-model's compute dtype."""
-        return self.i_model.analysis(x)
+        return self._apply("analysis", x)
 
     @torch.no_grad()
     def _encode(self, x, y_cond):
         y_cur = self.analysis(x)
-        return y_cur, self.stem.fused_encode_expr(y_cur, y_cond)
+        return y_cur, self.stem.fused_encode_expr(y_cur, y_cond, self._he)
 
     @torch.no_grad()
     def _encode_sparse(self, x, y_cond):
         y_cur = self.analysis(x)
-        packed, y_hat = self.stem.fused_encode_sparse_carry_expr(y_cur, y_cond)
-        return y_cur, y_hat, packed
+        packed, y_hat = self.stem.fused_encode_sparse_carry_expr(
+            y_cur, y_cond, self._he)
+        return y_cur, self._sp_place(y_hat), packed
 
     @torch.no_grad()
     def _finish(self, y_sym, means, y_cond):
-        y_hat = self.stem.fused_reconstruct_expr(y_sym, means, y_cond)
-        return y_hat, self.i_model.get_x(y_hat)
+        y_hat = self._sp_place(
+            self.stem.fused_reconstruct_expr(y_sym, means, y_cond))
+        return y_hat, self._apply("get_x", y_hat)
 
     # -- encoder side ---------------------------------------------------------
 
@@ -291,11 +374,12 @@ class StemVideoPipeline:
         values = dev[nbm:nbm + nval].view(torch.int8).view(b, cap)
         z_sym = (dev[nbm + nval:nbm + nval + nz].view(torch.int8)
                  .view(b, zh, zw, zc).permute(0, 3, 1, 2))
+        y_cond = whole(y_cond)
         order, means = self.stem.fused_params_sparse_expr(z_sym, y_cond)
-        y_hat = self.stem.fused_reconstruct_sparse_expr(
+        y_hat = self._sp_place(self.stem.fused_reconstruct_sparse_expr(
             maskbits, values, order, means, y_cond
-        )
-        return self.i_model.get_x(y_hat), y_hat
+        ))
+        return self._apply("get_x", y_hat), y_hat
 
     def decode_frame(self, enc_or_strings, shape=None, y_cond=None):
         """decode_frame(enc, y_cond=...) or decode_frame(strings, shape,
@@ -320,6 +404,7 @@ class StemVideoPipeline:
         z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.stem.coder)
         z_dev = _to_nchw(z_sym, self.stem.device)
         gc_tables = self.stem.tables["gaussian_conditional"]
+        y_cond = whole(y_cond)
         means, idx = self.stem.fused_params_expr(z_dev, y_cond)
         idx_np = idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
         y_sym = entropy_base.decompress(strings[0], idx_np, gc_tables,
@@ -350,6 +435,39 @@ class StemVideoPipeline:
                 torch.log(lk.float()).sum(dim=(1, 2, 3), dtype=torch.float64)
                 for lk in out["likelihoods"].values()) * scale)
         return torch.stack(x_hats), torch.stack(bpps)
+
+    def _replica(self, device):
+        """This pipeline with its models on ``device`` (itself where they
+        are there already), for a shard of ``gop_forward_sharded``."""
+        if device == canonical_device(self.stem.device):
+            return self
+        return StemVideoPipeline(replica_on(self.i_model, device),
+                                 replica_on(self.stem, device),
+                                 self.transport_mode)
+
+    def gop_forward_sharded(self, frames, y_cond, mesh,
+                            axis_name: str = DATA_AXIS):
+        """``gop_forward`` batch-split over a mesh (eval/pipeline.py:445-460
+        of the JAX package): frames (T, B, 3, H, W) and the carry
+        (B, M, h, w) split along B into equal shards, each shard's
+        ``gop_forward`` on its device (through a copy of the models where
+        that is not theirs) with its card current, the results concatenated
+        along B on the first device. Raises where B does not divide the mesh
+        size."""
+        check_axis(mesh, axis_name)
+        n = mesh.size
+        if frames.shape[1] % n or y_cond.shape[0] % n:
+            raise ValueError(f"batch {frames.shape[1]} does not split into "
+                             f"{n} equal shards")
+        outs = []
+        for d, f, y in zip(mesh.devices, frames.chunk(n, dim=1),
+                           y_cond.chunk(n, dim=0)):
+            pipe = self._replica(d)
+            with on_device(d):
+                outs.append(pipe.gop_forward(f.to(d), y.to(d)))
+        first = mesh.devices[0]
+        return (torch.cat([o[0].to(first) for o in outs], dim=1),
+                torch.cat([o[1].to(first) for o in outs], dim=1))
 
 
 class WavefrontVideoPipeline:

@@ -15,13 +15,18 @@ from .conv import (
     ReLU,
     Sequential,
     SubpelConv3x3,
+    conv,
+    conv1x1,
+    conv3x3,
+    deconv,
     pixel_shuffle,
 )
-from .gdn import GDN
+from .gdn import GDN, GDN1
 from .masked_conv import MaskedConv2d, make_causal_mask
 
 __all__ = ["AttentionBlock", "ResidualBlock", "ResidualBlockUpsample",
            "ResidualBlockWithStride", "SFT", "SFTResblk",
            "adaptive_avg_pool", "leaky_relu", "Conv", "Deconv",
-           "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3",
-           "pixel_shuffle", "GDN", "MaskedConv2d", "make_causal_mask"]
+           "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3", "conv",
+           "conv1x1", "conv3x3", "deconv",
+           "pixel_shuffle", "GDN", "GDN1", "MaskedConv2d", "make_causal_mask"]

@@ -75,6 +75,28 @@ class Deconv(nn.Module):
         return _add_bias(out, self.bias)
 
 
+def conv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2,
+         generator=None) -> Conv:
+    """The reference's ``conv`` (compressai/models/utils.py:112-121). The
+    JAX package's factories infer ``in_ch``; torch's layers need it."""
+    return Conv(in_ch, out_ch, kernel_size, stride, generator)
+
+
+def deconv(in_ch: int, out_ch: int, kernel_size: int = 5, stride: int = 2,
+           generator=None) -> Deconv:
+    return Deconv(in_ch, out_ch, kernel_size, stride, generator)
+
+
+def conv3x3(in_ch: int, out_ch: int, stride: int = 1,
+            generator=None) -> Conv:
+    return Conv(in_ch, out_ch, 3, stride, generator)
+
+
+def conv1x1(in_ch: int, out_ch: int, stride: int = 1,
+            generator=None) -> Conv:
+    return Conv(in_ch, out_ch, 1, stride, generator)
+
+
 class LeakyReLU(nn.Module):
     """leaky_relu with the slope rounded to the input's dtype: at bf16 the
     JAX package multiplies by bf16(0.01), the weakly typed constant of

@@ -7,6 +7,9 @@ Counterpart of spatiotemporalentropymodel_tpu/layers/gdn.py
 non-negative reparametrization), γ as (out, in) like the torch conv weight.
 At bf16 (``set_compute_dtype``) the reparametrization runs in bf16, as in the
 JAX package, and the kernel takes γᵀ and β in f32 (x in and out stays bf16).
+
+``GDN1`` is the simplified form (|x| for x², no square root), plain torch
+operations as in the JAX package, which has no kernel for it.
 """
 
 import torch
@@ -44,3 +47,20 @@ class GDN(nn.Module):
     def forward(self, x):
         gamma_t, beta_v = self.kernel_weights()
         return kernels.gdn_fused(x, gamma_t, beta_v, self.inverse)
+
+
+class GDN1(GDN):
+    """Simplified GDN (compressai/layers/gdn.py:70-96): y = x / norm with
+    norm[o] = beta[o] + sum_i gamma[o,i] * |x[i]| (inverse: y = x · norm),
+    computed in f32 and cast back to x's dtype. The parameters and their
+    reparametrizations are GDN's."""
+
+    def forward(self, x):
+        beta_v = self.beta_reparam(self.beta).float()
+        gamma_v = self.gamma_reparam(self.gamma).float()
+        x32 = x.float()
+        norm = torch.einsum("bihw,oi->bohw", x32.abs(), gamma_v)
+        norm = norm + beta_v.view(1, -1, 1, 1)
+        if not self.inverse:
+            norm = 1.0 / norm
+        return (x32 * norm).to(x.dtype)

@@ -169,6 +169,27 @@ class STEMModule(nn.Module):
         return scales, means
 
 
+class HyperAnalysis:
+    """The encoder's hyper-analysis (HE) on whole tensors of ``model``'s
+    device: ``hyper_encode`` on inputs already in the compute dtype
+    (``cast``), and ``whole``, the identity here. eval/pipeline.py's W-split
+    HE has the same methods, on tensors split over a mesh. Only the encoder
+    runs HE (the decoder reads ẑ from the stream), so how it is computed
+    moves no decoder's (σ, μ)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def cast(self, t):
+        return self.model._cast(t)
+
+    def hyper_encode(self, y_cur_c, y_cond_c):
+        return self.model.module.hyper_encode(y_cur_c, y_cond_c)
+
+    def whole(self, t):
+        return t
+
+
 class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
     """Host wrapper with the reference's compress/decompress API:
 
@@ -245,17 +266,26 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
             *_common_dtype(y_cur, means, scales), self._scale_table)
         return y_sym, idx, means
 
+    @property
+    def hyper_analysis(self):
+        """The encoder's HE on whole tensors (``HyperAnalysis``); the encode
+        expressions take another with the same methods as ``he=``
+        (eval/pipeline.py's W-split one)."""
+        return HyperAnalysis(self)
+
     # ---- dense transport ---------------------------------------------------
 
     @torch.no_grad()
-    def fused_encode_expr(self, y_cur, y_cond):
+    def fused_encode_expr(self, y_cur, y_cond, he=None):
         """(y_cur, y_cond) → packed u8 buffer [y int16][z int16][idx u8],
         NHWC order (stem.py:291)."""
         lim = self._I16_LIM
-        y_cond_c = self._cast(y_cond)
-        z = self.module.hyper_encode(self._cast(y_cur), y_cond_c)
+        he = he or self.hyper_analysis
+        y_cond_c = he.cast(y_cond)
+        z = he.hyper_encode(he.cast(y_cur), y_cond_c)
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim, lim)
-        y_sym, idx, _ = self._quantize(y_cur, z_sym, y_cond_c)
+        y_sym, idx, _ = self._quantize(he.whole(y_cur), z_sym,
+                                       he.whole(y_cond_c))
         b = y_cur.shape[0]
         y_sym = torch.clamp(y_sym, -int(lim), int(lim)).to(torch.int16)
         return torch.cat([
@@ -285,7 +315,7 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
     # Wire order: grouped-by-row over the NHWC-flattened plane.
 
     @torch.no_grad()
-    def fused_encode_sparse_carry_expr(self, y_cur, y_cond):
+    def fused_encode_sparse_carry_expr(self, y_cur, y_cond, he=None):
         """(y_cur, y_cond) → (packed u8 transport buffer, decoder-consistent ŷ).
 
         Buffer layout per batch (b elements, n = h·w·M symbols and
@@ -303,12 +333,14 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
         """
         lim16, lim8 = self._I16_LIM, self._I8_LIM
         b = y_cur.shape[0]
-        y_cond_c = self._cast(y_cond)
-        z = self.module.hyper_encode(self._cast(y_cur), y_cond_c)
+        he = he or self.hyper_analysis
+        y_cond_c = he.cast(y_cond)
+        z = he.hyper_encode(he.cast(y_cur), y_cond_c)
         z_sym = torch.clamp(torch.round(z.float() - self._medians), -lim16,
                             lim16)
         z_over = (z_sym.abs() > lim8).any()
-        y_sym, idx, means = self._quantize(y_cur, z_sym, y_cond_c)
+        y_sym, idx, means = self._quantize(he.whole(y_cur), z_sym,
+                                           he.whole(y_cond_c))
         # f32 + μ in the compute dtype adds in f32: the decoder's ŷ exactly
         y_hat = torch.clamp(y_sym, -int(lim16), int(lim16)).float() + means
         y_flat = _nhwc_flat(y_sym, b)

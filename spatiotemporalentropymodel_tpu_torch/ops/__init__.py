@@ -1,5 +1,6 @@
-from .bound import lower_bound
+from .bound import lower_bound, upper_bound
 from .parametrizers import NonNegativeParametrizer
+from .padding import crop_to, pad_to_multiple
 from .quantize import (
     dequantize,
     quantize,
@@ -11,6 +12,7 @@ from .quantize import (
 
 __all__ = [
     "lower_bound",
+    "upper_bound",
     "NonNegativeParametrizer",
     "ste_round",
     "quantize",
@@ -18,4 +20,6 @@ __all__ = [
     "quantize_noise",
     "quantize_symbols",
     "dequantize",
+    "pad_to_multiple",
+    "crop_to",
 ]

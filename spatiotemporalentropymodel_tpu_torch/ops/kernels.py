@@ -167,6 +167,18 @@ def _stream(device):
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
+def _on_card(device, launch, *args):
+    """launch(*args) with ``device`` the current card. The kernels launch
+    through the CUDA runtime, which sends a launch to the current card
+    whatever card its tensors and stream are on, so a tensor on another card
+    than the current one (a mesh's shard on cuda:1) makes its card current
+    for the launch and restores the previous one after."""
+    if device.index == torch.cuda.current_device():
+        return launch(*args)
+    with torch.cuda.device(device):
+        return launch(*args)
+
+
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
@@ -189,7 +201,7 @@ class _KernelFn(torch.autograd.Function):
             return plain(*inputs)
         if x.device.type != "cuda":
             raise ValueError(f"{name}: unsupported device {x.device}")
-        return launch(*inputs)
+        return _on_card(x.device, launch, *inputs)
 
     @staticmethod
     def backward(ctx, grad):
@@ -373,7 +385,8 @@ def quantize_and_index(y, means, scales, table, scale_bound: float = 0.11):
     if not isinstance(table, torch.Tensor):
         table = scale_table_tensor(table, y.device)
     if y.is_cuda:
-        return _qidx_launch(y, means, scales, table, scale_bound)
+        return _on_card(y.device, _qidx_launch, y, means, scales, table,
+                        scale_bound)
     if y.device.type == "cpu":
         return _qidx_plain(y, means, scales, table, scale_bound)
     raise ValueError(f"quantize_and_index: unsupported device {y.device}")

@@ -15,9 +15,10 @@ and optimizer states in place and returns it with the step's metrics
 (0-dim tensors on the device). Noise comes from the ``torch.Generator``
 passed to each call.
 
-The JAX package's ``data_parallel_step`` (its batch sharded over a device
-mesh) waits for the port's DistributedDataParallel work (ROADMAP.md, Queue
-1, ``parallel/``).
+``data_parallel_step`` shards the image and sequence steps' batch over a
+``parallel/mesh.py::Mesh`` from one process: each shard's losses and
+gradients on its device, the gradients averaged onto the first, one update
+there.
 """
 
 from dataclasses import dataclass
@@ -32,6 +33,7 @@ from ..training.optimizers import (
     OptimizerPair, clip_by_global_norm, main_parameters,
     quantiles_parameters,
 )
+from .mesh import Mesh, on_device, replica_on, shard_batch
 
 
 @dataclass
@@ -121,23 +123,35 @@ def _detached(metrics):
     return {k: v.detach() for k, v in metrics.items()}
 
 
+def _batch_step(module, optimizers: OptimizerPair, losses):
+    """step(state, batch, generator) → (state, metrics) of the losses
+    ``losses(module, batch, generator)`` (a dict with "loss"): their main
+    gradient, the aux gradient, then both updates. ``data_parallel_step``
+    reads ``losses`` and the stepper off the step."""
+    s = _Stepper(module, optimizers)
+
+    def step(state: TrainState, batch, generator):
+        s.check(state)
+        metrics = losses(module, batch, generator)
+        g_main = _grads(metrics["loss"], s.main_params)
+        aux, g_aux = s.aux_grads()
+        metrics = dict(_detached(metrics), aux_loss=aux)
+        return s.apply_both(state, g_main, g_aux), metrics
+
+    step.losses, step.stepper = losses, s
+    return step
+
+
 def make_image_train_step(module, optimizers: OptimizerPair,
                           lmbda: float = 1e-2):
     """Train step of an image codec: λ·255²·MSE + bpp, plus the aux loss
     (compressai_examples/train.py:119-156). step(state, x, generator) with
     x (B, 3, H, W) in [0, 1]."""
-    s = _Stepper(module, optimizers)
+    def losses(net, x, generator):
+        out = net(x, train=True, generator=generator)
+        return rate_distortion_loss(out, x, lmbda)
 
-    def step(state: TrainState, x, generator):
-        s.check(state)
-        out = module(x, train=True, generator=generator)
-        losses = rate_distortion_loss(out, x, lmbda)
-        g_main = _grads(losses["loss"], s.main_params)
-        aux, g_aux = s.aux_grads()
-        metrics = dict(_detached(losses), aux_loss=aux)
-        return s.apply_both(state, g_main, g_aux), metrics
-
-    return step
+    return _batch_step(module, optimizers, losses)
 
 
 def frame_loss(module, y_cur, y_cond, generator):
@@ -171,17 +185,7 @@ def make_stem_train_step(module, optimizers: OptimizerPair):
     the previous ŷ detached; the loss is the mean of the per-frame EM
     losses and one update is taken on it (the deferred recipe of
     train_stem_roi.py:628-631)."""
-    s = _Stepper(module, optimizers)
-
-    def step(state: TrainState, batch, generator):
-        s.check(state)
-        metrics = sequence_loss(module, batch, generator)
-        g_main = _grads(metrics["loss"], s.main_params)
-        aux, g_aux = s.aux_grads()
-        metrics = dict(_detached(metrics), aux_loss=aux)
-        return s.apply_both(state, g_main, g_aux), metrics
-
-    return step
+    return _batch_step(module, optimizers, sequence_loss)
 
 
 def make_stem_frame_step(module, optimizers: OptimizerPair):
@@ -217,5 +221,72 @@ def make_stem_eval_step(module):
             losses.append(em_loss(out, frames[:, t])["loss"])
             y_cond = out["y_hat"]
         return torch.stack(losses).mean()
+
+    return step
+
+
+def _shard_generators(generator, mesh: Mesh):
+    """One generator per shard on its device, seeded from ``generator`` in
+    shard order."""
+    seeds = torch.randint(0, 2**62, (mesh.size,), generator=generator,
+                          device=generator.device).tolist()
+    return [torch.Generator(device=d).manual_seed(seed)
+            for d, seed in zip(mesh.devices, seeds)]
+
+
+def data_parallel_step(step_fn, mesh: Mesh):
+    """Shard a (state, batch, generator) → (state, metrics) step
+    (``make_image_train_step``, ``make_stem_train_step``) over ``mesh``:
+    dim 0 of the batch split into equal shards, one per entry.
+
+    Each shard runs the step's losses and their main gradient on its device,
+    with its card current (``mesh.on_device``), through a replica of the
+    module there (``mesh.replica_on``: made once, its values copied from the
+    module's before each step) or the module itself where the entry is the
+    module's device; each shard's gradients come from an ``autograd.grad``
+    call of their own. The gradients and metrics are
+    averaged onto the first device (the JAX package's psum), and there the
+    aux gradient, the clip and both updates run once. Every loss of these
+    steps is a mean over equal shards, so the step is the one-device step
+    on the whole batch.
+
+    Each shard draws its noise from its own generator, seeded from the
+    caller's in shard order, so the draws differ from the one-device
+    step's; only noise that is a function of its input (the tests' fed
+    noise) makes the two steps equal. On a mesh of one entry the shard
+    draws from the caller's generator and the step is ``step_fn``'s
+    exactly.
+    """
+    losses, s = step_fn.losses, step_fn.stepper
+    primary = mesh.devices[0]
+    on = next(s.module.parameters()).device
+    if on != primary:
+        raise ValueError(f"the module is on {on}, the mesh's first device "
+                         f"is {primary}")
+
+    def step(state: TrainState, batch, generator):
+        s.check(state)
+        shards = shard_batch(batch, mesh)
+        gens = ([generator] if mesh.size == 1
+                else _shard_generators(generator, mesh))
+        g_main = totals = None
+        for device, shard, gen in zip(mesh.devices, shards, gens):
+            net = replica_on(s.module, device)
+            with on_device(device):
+                metrics = losses(net, shard, gen)
+                grads = _grads(metrics["loss"], main_parameters(net))
+            grads = [g.to(primary) for g in grads]
+            metrics = {k: v.detach().to(primary) for k, v in metrics.items()}
+            if g_main is None:
+                g_main, totals = grads, metrics
+            else:
+                g_main = [a + b for a, b in zip(g_main, grads)]
+                totals = {k: totals[k] + v for k, v in metrics.items()}
+        if mesh.size > 1:
+            g_main = [g / mesh.size for g in g_main]
+            totals = {k: v / mesh.size for k, v in totals.items()}
+        aux, g_aux = s.aux_grads()
+        metrics = dict(totals, aux_loss=aux)
+        return s.apply_both(state, g_main, g_aux), metrics
 
     return step

@@ -7,7 +7,9 @@ checkpoint at the end. Synthetic batches from a NumPy seed when
 test_train.py), the JAX package's batches for the same seed.
 
 Runs on ``config.device`` (``cuda`` unless ``device="cpu"``); with no card
-and no ``device="cpu"`` it raises. ``resume`` restores the latest
+and no ``device="cpu"`` it raises. ``data_parallel`` shards each batch over
+every visible card (``parallel/train_step.py::data_parallel_step``); the
+checkpoint holds the first card's state. ``resume`` restores the latest
 checkpoint of ``workdir`` with the noise generator's state and the batch
 position, so a resumed run continues as an uninterrupted one would (the
 JAX package's loop ignores ``resume``).
@@ -23,7 +25,10 @@ import numpy as np
 import torch
 
 from ..data import ImageFolder, batch_iterator, to_device
-from ..parallel import init_train_state, make_image_train_step
+from ..parallel import (
+    Mesh, data_parallel_step, init_train_state, make_image_train_step,
+    make_mesh,
+)
 from ..utils.config import TrainImageConfig
 from ..zoo import create_model
 from .checkpoints import CheckpointManager
@@ -33,18 +38,22 @@ from .optimizers import configure_optimizers
 
 def training_device(config) -> torch.device:
     """``config.device``; raises for a card that is not there (no quiet
-    fallback to the CPU) and for ``data_parallel``, which waits for the
-    port's DistributedDataParallel work (ROADMAP.md, Queue 1, `parallel/`)."""
+    fallback to the CPU)."""
     device = torch.device(config.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {config.device!r} asked for, but torch "
                            f"finds no CUDA card; pass device='cpu' to train "
                            f"on the CPU")
-    if config.data_parallel:
-        raise NotImplementedError(
-            "data_parallel training is not ported yet (ROADMAP.md, Queue 1, "
-            "parallel/)")
     return device
+
+
+def training_mesh(device) -> Mesh:
+    """The data-parallel mesh of a run on ``device``: every visible card
+    (``make_mesh()``, the JAX package's choice) for a card, the CPU alone
+    for the CPU."""
+    if device.type == "cuda":
+        return make_mesh()
+    return Mesh((device,))
 
 
 def check_on(module, device) -> None:
@@ -108,6 +117,8 @@ def train_image(config: TrainImageConfig, max_steps: Optional[int] = None,
         config.clip_max_norm)
     state = init_train_state(module, optimizers)
     step = make_image_train_step(module, optimizers, config.lmbda)
+    if config.data_parallel:
+        step = data_parallel_step(step, training_mesh(device))
 
     logger = MetricsLogger(config.workdir)
     ckpt = CheckpointManager(os.path.join(config.workdir, "ckpt"), "image")

@@ -10,6 +10,9 @@ validation and a checkpoint every ``eval_every`` iterations and at the end.
 ``step_mode="per_frame"`` takes one update per P-frame, the reference's
 recipe; ``"per_sequence"`` takes one update on the mean loss of the
 sequence (the deferred recipe of train_stem_roi.py:628-631).
+``data_parallel`` shards each batch of ``per_sequence`` steps over every
+visible card (``parallel/train_step.py::data_parallel_step``), as the JAX
+package does; ``per_frame`` steps ignore it, as they do there.
 
 Runs on ``config.device`` (``cuda`` unless ``device="cpu"``); with no card
 and no ``device="cpu"`` it raises. Synthetic batches from a NumPy seed when
@@ -33,6 +36,7 @@ import torch
 from ..data import VimeoSepTuplet, batch_iterator, subsample_frames
 from ..models import STEMModule
 from ..parallel import (
+    data_parallel_step,
     init_train_state,
     make_stem_eval_step,
     make_stem_frame_step,
@@ -50,6 +54,7 @@ from .optimizers import (
 from .train_image import (
     check_on, load_rng_tree, nchw, rng_tree, synthetic_batches,
     training_device,
+    training_mesh,
 )
 
 STEP_MODES = ("per_frame", "per_sequence")
@@ -116,7 +121,9 @@ def train_stem(config: TrainStemConfig, max_steps: Optional[int] = None,
     state = init_train_state(module, optimizers)
     if config.step_mode == "per_sequence":
         seq_step = make_stem_train_step(module, optimizers)
-    else:
+        if config.data_parallel:
+            seq_step = data_parallel_step(seq_step, training_mesh(device))
+    else:  # per_frame ignores data_parallel, as the JAX package's does
         frame_step = make_stem_frame_step(module, optimizers)
     eval_step = make_stem_eval_step(module)
 

@@ -26,7 +26,8 @@ Runs on ``config.device`` (``cuda`` unless ``device="cpu"``); with no card
 and no ``device="cpu"`` it raises. Synthetic batches of 3 frames from a
 NumPy seed when ``data_root`` is None (the JAX package's for the same
 seed), Vimeo-90k septuplets otherwise. As in the JAX package, ``resume``
-is not read, and a checkpoint is written at the end.
+and ``data_parallel`` are not read, and a checkpoint is written at the
+end.
 
     python -m spatiotemporalentropymodel_tpu_torch.training.train_stem_roi \\
         --device cuda --mode roi --workdir runs/train_stem_roi

@@ -3,8 +3,10 @@
 Counterpart of spatiotemporalentropymodel_tpu/utils/config.py: dataclasses
 bound to the command line by ``parse_config``, with the JAX package's
 defaults, plus ``device`` (the port's entry points run on ``cuda`` unless
-the caller asks for ``cpu``). ``data_parallel`` waits for the port's
-DistributedDataParallel work and raises when set.
+the caller asks for ``cpu``). ``data_parallel`` shards the batch over the
+visible cards where the JAX package does (``train_image``, ``train_stem``
+per_sequence) and is read nowhere else, as there: ``TrainStemRoiConfig``'s
+is unused in both packages.
 """
 
 import argparse

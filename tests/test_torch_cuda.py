@@ -946,3 +946,257 @@ def test_cuda_image_ar_round_trip(cuda, name, quality):
         assert by_width[("igdn_deconv_tail_packed", 192, 3)] == 1
     else:
         assert by_width == {("gdn_fused_bf16", 192): 6}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["analysis", "get_x"])
+def test_cuda_spatial_apply_bf16_matches_unsplit(cuda, monkeypatch, method):
+    """bf16 g_a (gdn_conv_fused) and g_s (gdn_fused_bf16, then the packed
+    pair) of MeanScaleHyperprior(192, 192), W-split over a mesh naming the
+    card twice, against the unsplit call: within 2⁻⁶·max|unsplit| (the
+    fused kernels' tolerance against their plain versions), each kernel
+    launched twice as often."""
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        SP_AXIS, Mesh, spatial_apply,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = MeanScaleHyperprior(192, 192, device=cuda, seed=0)
+    model.set_compute_dtype(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((1, 3, 128, 512), generator=gen, device=cuda)
+    inp = x if method == "analysis" else model.analysis(x)
+    kernels.reset_launch_counts()
+    ref = getattr(model, method)(inp)
+    once = dict(kernels.LAUNCHES)
+    kernels.reset_launch_counts()
+    got = spatial_apply(model, method, inp, Mesh((cuda, cuda), SP_AXIS),
+                        gather=True)
+    assert sum(once.values()) > 0
+    assert dict(kernels.LAUNCHES) == {k: 2 * v for k, v in once.items()}
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 2**-6 * float(ref.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_data_parallel_one_entry_is_the_step(cuda, monkeypatch):
+    """data_parallel_step on a mesh of the card alone is the plain image
+    step exactly (the shard draws from the caller's generator), with
+    cuDNN deterministic as the pipelines run it."""
+    import copy
+
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        Mesh, data_parallel_step, init_train_state, make_image_train_step,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        configure_optimizers,
+    )
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    base = MeanScaleHyperprior(64, 64, device=cuda, seed=5).module
+    x = torch.rand((2, 3, 64, 64), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(5))
+    runs = []
+    for dp in (False, True):
+        module = copy.deepcopy(base)
+        opt = configure_optimizers(module, 1e-4)
+        step = make_image_train_step(module, opt)
+        if dp:
+            step = data_parallel_step(step, Mesh((cuda,)))
+        state = init_train_state(module, opt)
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        metrics = [step(state, x, gen)[1] for _ in range(2)]
+        runs.append((metrics, [p.detach().clone()
+                               for p in module.parameters()]))
+    (m0, p0), (m1, p1) = runs
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(m0, m1) for k in a)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
+
+
+def _port_fed_noise(monkeypatch):
+    """The training tests' fed noise, the port's side
+    (tests/torch_port_util.py::fed_noise): quantize_noise replaced by
+    x + 0.45·sin(7·x + k), the identity's gradient, so every shard's noise
+    is a function of its input, whichever device draws it."""
+    from spatiotemporalentropymodel_tpu_torch.entropy import (
+        bottleneck, gaussian,
+    )
+    from spatiotemporalentropymodel_tpu_torch.models import priors, stem
+
+    for mod, k in ((bottleneck, 0.1), (gaussian, 0.7), (priors, 1.3),
+                   (stem, 2.9)):
+        monkeypatch.setattr(mod, "quantize_noise",
+                            lambda x, generator, k=k: x + (
+                                0.45 * torch.sin(7.0 * x + k)).detach())
+
+
+def _cards(n=2):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} or more cards")
+    return torch.cuda.device_count()
+
+
+def _meshes(cuda, kind):
+    from spatiotemporalentropymodel_tpu_torch.parallel import Mesh, make_mesh
+
+    if kind == "card_and_cpu":
+        return Mesh((cuda, "cpu"))
+    _cards()
+    return make_mesh()
+
+
+def check_replicas(monkeypatch, mesh):
+    """Two image steps of MSH(64, 64) through data_parallel_step over
+    ``mesh``, with fed noise: the gradient each step applies must be, bit
+    for bit, the mean of each shard's gradient computed by hand on its
+    device from a fresh copy of the module's current parameters, so every
+    replica took the new parameters before the second step. Returns (the
+    first step's applied gradient, the plain step's on the first device)."""
+    import copy
+
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        data_parallel_step, init_train_state, make_image_train_step,
+        shard_batch,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel.mesh import on_device
+    from spatiotemporalentropymodel_tpu_torch.training import (
+        configure_optimizers,
+    )
+    from spatiotemporalentropymodel_tpu_torch.training.optimizers import (
+        main_parameters,
+    )
+
+    _port_fed_noise(monkeypatch)
+    first = mesh.devices[0]
+    x = torch.rand((2 * mesh.size, 3, 64, 64), device=first,
+                   generator=torch.Generator(device=first).manual_seed(5))
+    module = MeanScaleHyperprior(64, 64, device=first, seed=5).module
+    opt = configure_optimizers(module, 1e-2)
+    base = make_image_train_step(module, opt)
+    applied, apply_both = [], base.stepper.apply_both
+
+    def record(state, g_main, g_aux):
+        applied.append([g.clone() for g in g_main])
+        return apply_both(state, g_main, g_aux)
+
+    monkeypatch.setattr(base.stepper, "apply_both", record)
+    step = data_parallel_step(base, mesh)
+    state = init_train_state(module, opt)
+
+    def by_hand(batch, devices):
+        total = None
+        for device, shard in zip(devices, batch):
+            net = copy.deepcopy(module).to(device)
+            params = main_parameters(net)
+            with on_device(device):
+                loss = base.losses(net, shard,
+                                   torch.Generator(device=device))["loss"]
+                got = torch.autograd.grad(loss, params, allow_unused=True)
+            g = [(torch.zeros_like(p) if v is None else v).to(first)
+                 for p, v in zip(params, got)]
+            total = g if total is None else [a + b for a, b in zip(total, g)]
+        return [v / len(devices) for v in total]
+
+    plain = by_hand([x], [first])
+    for t in range(2):
+        want = by_hand(shard_batch(x, mesh), mesh.devices)
+        step(state, x, torch.Generator(device=first))
+        assert all(torch.equal(a, b) for a, b in zip(applied[t], want)), t
+    return applied[0], plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["card_and_cpu", "every_card"])
+def test_cuda_data_parallel_replicas(cuda, monkeypatch, kind):
+    """data_parallel_step with shards on other devices than the module's:
+    the card and the CPU (the CPU shard through a replica and the plain
+    versions), or every card (each shard through a replica with its card
+    current), held by ``check_replicas``. On every card the first step's
+    gradient is also the plain step's on the first card, within
+    1e-4·max|g| of each leaf."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    applied, plain = check_replicas(monkeypatch, _meshes(cuda, kind))
+    if kind == "every_card":
+        for a, b in zip(applied, plain):
+            assert float((a - b).abs().max()) <= \
+                1e-4 * (float(b.abs().max()) or 1e-30)
+
+
+def _split_slice(device, width=512):
+    """The bf16 slice (N = M = 64, EB 32) at 1 × 3 × 64 × ``width``."""
+    rng = np.random.default_rng(3)
+    frames = [torch.from_numpy(rng.random((1, 3, 64, width),
+                                          dtype=np.float32)).to(device)
+              for _ in range(2)]
+    y_cond = torch.from_numpy((0.5 * rng.standard_normal(
+        (1, 64, 4, width // 16))).astype(np.float32)).to(device)
+    imodel = MeanScaleHyperprior(64, 64, device=device, seed=0)
+    stem = SpatioTemporalPriorModel(variant="without_spm",
+                                    entropy_bottleneck_channels=32,
+                                    in_channels=64, device=device, seed=1)
+    realistic_stem(stem)
+    match_latent_to_prior(imodel, stem, frames[0], y_cond)
+    imodel.update()
+    return imodel, stem, frames, y_cond
+
+
+@pytest.mark.cuda
+def test_cuda_every_card_serving(cuda, monkeypatch):
+    """The split paths over every card, each shard on its own card:
+    gop_forward_sharded (f32, B one per card) against gop_forward, x̂ atol
+    1e-5 and bpp rtol 1e-5; spatial_apply of the bf16 g_a and g_s against
+    the unsplit calls within 2⁻⁶·max|unsplit|, each kernel launched once
+    per card; the W-split StemVideoPipeline's streams decoded by the
+    unsplit pipeline to the split decoder's ŷ exactly, and x̂ by the bf16
+    slice's criteria."""
+    from spatiotemporalentropymodel_tpu_torch.parallel import (
+        Sharded, make_mesh, make_spatial_mesh, spatial_apply,
+    )
+    from spatiotemporalentropymodel_tpu_torch.parallel.spatial import whole
+
+    n = _cards()
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    first = torch.device("cuda", 0)
+    imodel, stem, frames, y_cond = _split_slice(first)
+    pipe = StemVideoPipeline(imodel, stem)
+    gop = torch.stack([f.expand(n, -1, -1, -1) * (1 - 0.1 * i)
+                       for i, f in enumerate(frames)])
+    y0 = y_cond.expand(n, -1, -1, -1).contiguous()
+    x_ref, bpp_ref = pipe.gop_forward(gop, y0)
+    x_sh, bpp_sh = pipe.gop_forward_sharded(gop, y0, make_mesh())
+    assert float((x_sh - x_ref).abs().max()) <= 1e-5
+    torch.testing.assert_close(bpp_sh, bpp_ref, rtol=1e-5, atol=0)
+
+    imodel.set_compute_dtype(torch.bfloat16)
+    stem.set_compute_dtype(torch.bfloat16)
+    mesh = make_spatial_mesh()
+    y = imodel.analysis(frames[0])
+    for method, inp in (("analysis", frames[0]), ("get_x", y)):
+        kernels.reset_launch_counts()
+        ref = getattr(imodel, method)(inp)
+        once = dict(kernels.LAUNCHES)
+        kernels.reset_launch_counts()
+        got = spatial_apply(imodel, method, inp, mesh)
+        assert [s.device for s in got.shards] == list(mesh.devices)
+        assert sum(once.values()) > 0
+        assert dict(kernels.LAUNCHES) == {k: n * v for k, v in once.items()}
+        err = float((got.gather().float() - ref.float()).abs().max())
+        assert err <= 2**-6 * float(ref.float().abs().max())
+
+    split = StemVideoPipeline(imodel, stem, spatial_mesh=mesh)
+    encs = list(split.encode_frames(frames, y_cond))
+    dec = list(split.decode_frames(encs, y_cond))
+    cross = list(pipe.decode_frames(encs, y_cond))
+    unsplit = list(pipe.decode_frames(list(pipe.encode_frames(frames,
+                                                              y_cond)),
+                                      y_cond))
+    for (x_s, y_s), (_, y_c), (x_u, _) in zip(dec, cross, unsplit):
+        assert isinstance(y_s, Sharded)
+        assert [s.device for s in y_s.shards] == list(mesh.devices)
+        assert torch.equal(whole(y_s), y_c)
+        dx = (whole(x_s).float() - x_u.float()).abs()
+        assert float(dx.max()) <= 6e-2 and float(dx.mean()) <= 2e-3
