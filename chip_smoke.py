@@ -7,8 +7,9 @@ file codecs (.stemv video, .bin images) with their CLIs, training
 (train_image, train_stem), the autoregressive image models (mbt2018,
 Cheng2020) with their files and CompressAI checkpoints, the ROI family,
 charm, the channel-autoregressive STEM, with the other two entropy coders,
-and the parallel slice: data-parallel training, update_model's export and
-the batch-split and W-split serving.
+the parallel slice: data-parallel training, update_model's export and
+the batch-split and W-split serving, and the GDN kernels past 192 channels
+on MeanScaleHyperprior(256, 320).
 
     python3 chip_smoke.py
 
@@ -47,6 +48,7 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 igdn_deconv_wide_packed at 128 and igdn_deconv_tail_packed
                 at 128→3; and gdn_conv_fused 192→320 at 1×192×136×240
                 (mbt2018's last g_a stage at quality 5-8), its own row.
+                (The widths past 192 are checked in phase 4's n256.)
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
                 then StemVideoPipeline(sparse) encodes 3 P-frames of
@@ -215,13 +217,27 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 counted (at most 1e-4 of them), x̂ by the bf16 slice's
                 criteria; frames/s and ms/step beside the unsplit and
                 one-device figures.
+                n256: the kernels past 192 channels against their plain
+                versions with phase 3's tolerances, gdn_fused at C = 200,
+                256, 320, 384 and 512 (f32 and bf16, forward and inverse;
+                timed rows at 256, 320 and 512), gdn_conv_fused at
+                (256, 256) and (256, 320), the packed g_s pair and the
+                lone wide and narrow kernels at 256, all on the N = 256
+                path's shapes; then MeanScaleHyperprior(256, 320) and a
+                without_spm STEM (EB 256, in_channels 320) from seeds with
+                the workload's surgery through StemVideoPipeline(sparse),
+                3 P-frames of 4×3×1088×1920 in f32 and bf16 (every frame
+                sparse, encoder ŷ == decoder ŷ, x̂ finite, bpp printed),
+                and its bf16 I-frame codec under both knob sets.
                 On every path each kernel must have launched exactly as
                 often as the path calls it, and on the hero, image_ar,
-                roi, charm and parallel paths at the widths it runs at.
+                roi, charm, parallel and n256 paths at the widths it runs
+                at.
   5. report   — one JSON line of kernels (a row per kernel, its launches
                 summed and by every path that launched it; then a row per
-                kernel at the hero widths and at 192→320, name@widths, its
-                launches at them), then the card, then the result line.
+                kernel at the hero widths, at 192→320 and past 192,
+                name@widths, its launches at them), then the card, then
+                the result line.
 
 Exits non-zero, printing no result line, on any failure.
 """
@@ -717,17 +733,17 @@ def check_gs_pair(torch, F, kernels, b=B, c=N):
     return wide, tail
 
 
-def check_gs_lone(torch, F, kernels):
+def check_gs_lone(torch, F, kernels, c=N):
     """The wide chain's kernels at their first and last shapes:
-    igdn_deconv_wide at 136×240 → 272×480 (N→N; 240 columns leave a
+    igdn_deconv_wide at 136×240 → 272×480 (C→C; 240 columns leave a
     partial 32-column tile) and igdn_deconv_fused at 544×960 → 1088×1920
-    (N→3)."""
+    (C→3)."""
     gen = torch.Generator(device="cuda").manual_seed(16)
-    x = torch.randn((B, N, H // 8, W // 8), generator=gen,
+    x = torch.randn((B, c, H // 8, W // 8), generator=gen,
                     device="cuda").to(torch.bfloat16)
     wide, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_wide",
-                               kernels.igdn_deconv_wide, x, N, gen)
-    x = torch.randn((B, N, H // 2, W // 2), generator=gen,
+                               kernels.igdn_deconv_wide, x, c, gen)
+    x = torch.randn((B, c, H // 2, W // 2), generator=gen,
                     device="cuda").to(torch.bfloat16)
     fused, _ = _igdn_deconv_row(torch, F, kernels, "igdn_deconv_fused",
                                 kernels.igdn_deconv_fused, x, 3, gen)
@@ -753,7 +769,13 @@ def expected_launches(bf16: bool):
     return want
 
 
-def run_slice(torch, kernels, card, bf16: bool):
+def run_slice(torch, kernels, card, bf16: bool, n=N, m=M, want_widths=None):
+    """MeanScaleHyperprior(n, m) and a without_spm STEM (EB 256, in_channels
+    m) through StemVideoPipeline(sparse), P_FRAMES P-frames of B×3×H×W:
+    launches exact (and, where ``want_widths`` is given, exact by width),
+    every frame sparse, encoder ŷ == decoder ŷ, x̂ finite; bpp below 1 for
+    the 192-wide models, printed only for other widths (seeded weights
+    give no rate to hold them to)."""
     from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
         StemVideoPipeline,
     )
@@ -764,17 +786,17 @@ def run_slice(torch, kernels, card, bf16: bool):
         MeanScaleHyperprior, SpatioTemporalPriorModel,
     )
 
-    tag = "bf16" if bf16 else "f32"
+    tag = ("bf16" if bf16 else "f32") + ("" if n == N else f"_n{n}")
     t0 = time.perf_counter()
-    imodel = MeanScaleHyperprior(N, M, device="cuda", seed=0)
+    imodel = MeanScaleHyperprior(n, m, device="cuda", seed=0)
     stem = SpatioTemporalPriorModel(variant="without_spm",
                                     entropy_bottleneck_channels=EBC,
-                                    in_channels=M, device="cuda", seed=1)
+                                    in_channels=m, device="cuda", seed=1)
     realistic_stem(stem)
     gen = torch.Generator(device="cuda").manual_seed(0)
     frames = [torch.rand((B, 3, H, W), generator=gen, device="cuda")
               for _ in range(P_FRAMES)]
-    y_cond = 0.5 * torch.randn((B, M, H // 16, W // 16), generator=gen,
+    y_cond = 0.5 * torch.randn((B, m, H // 16, W // 16), generator=gen,
                                device="cuda")
     factor = match_latent_to_prior(imodel, stem, frames[0], y_cond)
     imodel.update()  # the I-frame codec's tables (the bf16_wide phase)
@@ -798,7 +820,7 @@ def run_slice(torch, kernels, card, bf16: bool):
     decoded = list(pipe.decode_frames(encs, y_cond))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches, by_width = _snap(kernels)
     log(f"  {tag} main path: {P_FRAMES} P-frames × {B} in {wall:.3f} s, "
         f"launches {launches}")
 
@@ -810,6 +832,9 @@ def run_slice(torch, kernels, card, bf16: bool):
     want = expected_launches(bf16)
     if launches != want:
         raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    if want_widths is not None and by_width != want_widths:
+        raise AssertionError(f"{tag}: launches by width {by_width}, "
+                             f"expected {want_widths}")
     # the encoder's carry, recomputed frame by frame through encode_frame
     # (same device expressions as encode_frames), against the decoder's ŷ;
     # the streams must also repeat byte for byte
@@ -835,7 +860,7 @@ def run_slice(torch, kernels, card, bf16: bool):
         n_bytes += enc["counts"].nbytes
         bpps.append(n_bytes * 8 / (B * H * W))
     bpp = sum(bpps) / len(bpps)
-    if not (all(b == b for b in bpps) and max(bpps) < 1.0):
+    if not (all(b == b for b in bpps) and (n != N or max(bpps) < 1.0)):
         raise AssertionError(f"{tag}: bpp out of range: {bpps}")
     log(f"  {tag} checks: all sparse, launches exact, encoder ŷ == decoder ŷ "
         f"exactly on {P_FRAMES} frames, x̂ finite, bpp per frame {bpps}")
@@ -848,7 +873,8 @@ def run_slice(torch, kernels, card, bf16: bool):
         + f" | card: {card}")
     return launches, dict(imodel=imodel, pipe=pipe, frames=frames,
                           y_cond=y_cond, encs=encs, decoded=decoded,
-                          dec_dispatch_ms=med["dec_dispatch"])
+                          dec_dispatch_ms=med["dec_dispatch"],
+                          by_width=by_width)
 
 
 def parallel_stages(torch, pipe, x, y_cond):
@@ -946,10 +972,12 @@ def run_wide_decode(torch, kernels, card, ctx):
     return launches
 
 
-def run_iframe(torch, kernels, card, ctx, wide: bool):
+def run_iframe(torch, kernels, card, ctx, wide: bool, prefix="",
+               want_widths=None):
     """The I-frame codec on frames[0] in bf16: compress, decompress, under
-    the default or the wide knobs."""
-    tag = "iframe_bf16_wide" if wide else "iframe_bf16"
+    the default or the wide knobs; the launches exact, and by width where
+    ``want_widths`` is given. Returns (launches, by width)."""
+    tag = prefix + ("iframe_bf16_wide" if wide else "iframe_bf16")
     imodel, x = ctx["imodel"], ctx["frames"][0]
     with kernels.knobs(**(kernels.WIDE_KNOBS if wide else {})):
         imodel.decompress(**imodel.compress(x))  # warm-up (cuDNN set-up)
@@ -961,6 +989,9 @@ def run_iframe(torch, kernels, card, ctx, wide: bool):
                    igdn_deconv_tail_packed=1))
         launches = _check_launches(kernels, tag, _want(
             gdn_conv_fused=3, quantize_and_index_bf16=1, **gs))
+        by_width = dict(kernels.LAUNCHES_BY_WIDTH)
+        if want_widths is not None:
+            _check_widths(kernels, tag, want_widths)
         _, y_enc = imodel.fused_encode_expr(x)
         if imodel.compress(x)["strings"] != enc["strings"]:
             raise AssertionError(f"{tag}: streams differ between two "
@@ -980,7 +1011,7 @@ def run_iframe(torch, kernels, card, ctx, wide: bool):
     log(f"  {tag}: compress {ms_c:.2f} ms, decompress {ms_d:.2f} ms "
         f"({B}×3×{H}×{W}), bpp {bpp:.5f}, encoder ŷ == decoder ŷ, streams "
         f"repeat, launches {launches} | card: {card}")
-    return launches
+    return launches, by_width
 
 
 def _encoder_pass(torch, stem, enc, y_cur, y_cond):
@@ -4077,6 +4108,100 @@ def run_parallel(torch, kernels, card):
     return snaps, figures
 
 
+# MeanScaleHyperprior(256, 320): the GDN kernels past 192 channels
+WIDE_N, WIDE_M = 256, 320
+# gdn_fused past 192 channels (200 runs zero-padded to 256), and those of
+# them with a row of their own
+GDN_WIDTHS, GDN_ROWS = (200, 256, 320, 384, 512), (256, 320, 512)
+
+
+def _n256_widths(bf16: bool, frames: int, wide_knobs: bool = False):
+    """LAUNCHES_BY_WIDTH of MeanScaleHyperprior(256, 320) coding ``frames``
+    frames (g_a then g_s each, one quantizer): in bf16 each g_a fuses its
+    three GDN stages into gdn_conv_fused, twice at (256, 256) and once at
+    (256, 320), and g_s runs gdn_fused at 256 then the packed pair (under
+    the wide knobs the lone wide kernel twice and the narrow one); in f32
+    every GDN is a gdn_fused at 256."""
+    if not bf16:
+        return {("gdn_fused", WIDE_N): 6 * frames,
+                ("quantize_and_index",): frames}
+    n = WIDE_N
+    gs = ({("igdn_deconv_wide", n, n): 2 * frames,
+           ("igdn_deconv_fused", n, 3): frames} if wide_knobs else
+          {("gdn_fused_bf16", n): frames,
+           ("igdn_deconv_wide_packed", n, n): frames,
+           ("igdn_deconv_tail_packed", n, 3): frames})
+    return {("gdn_conv_fused", n, n): 2 * frames,
+            ("gdn_conv_fused", n, WIDE_M): frames,
+            ("quantize_and_index_bf16",): frames, **gs}
+
+
+def check_n256_kernels(torch, F, kernels):
+    """Phase 3 past 192 channels, with its tolerances: gdn_fused at every
+    C of GDN_WIDTHS, f32 and bf16, forward and inverse (rows at 256 on
+    the path's shapes, at 320 and 512 on 1×C×544×960), then the four fused
+    kernels at N = 256 on the path's shapes. Returns {key: result}."""
+    rows = {}
+    n = WIDE_N
+    for c in GDN_WIDTHS:
+        for name, dtype in (("gdn_fused", torch.float32),
+                            ("gdn_fused_bf16", torch.bfloat16)):
+            bf16 = dtype == torch.bfloat16
+            if c == n:  # g_s's first IGDN (bf16) and g_a's first GDN (f32)
+                b, size = B, ((H // 8, W // 8) if bf16 else (H // 2, W // 2))
+            else:
+                b, size = 1, ((H // 2, W // 2) if c in GDN_ROWS
+                              else (H // 8, W // 8))
+            res = check_gdn_entry(torch, kernels, b, c, size, dtype,
+                                  timed_inverse=bf16, seed=c)
+            if c in GDN_ROWS:
+                rows[(name, c)] = res
+    rows[("gdn_conv_fused", n, n)] = check_gdn_conv(
+        torch, F, kernels, B, n, n, ((H // 2, W // 2), (H // 4, W // 4)))
+    rows[("gdn_conv_fused", n, WIDE_M)] = check_gdn_conv(
+        torch, F, kernels, B, n, WIDE_M, ((H // 8, W // 8),))
+    wide, tail = check_gs_pair(torch, F, kernels, B, n)
+    rows[("igdn_deconv_wide_packed", n, n)] = wide
+    rows[("igdn_deconv_tail_packed", n, 3)] = tail
+    fused, wide = check_gs_lone(torch, F, kernels, n)
+    rows[("igdn_deconv_fused", n, 3)] = fused
+    rows[("igdn_deconv_wide", n, n)] = wide
+    return rows
+
+
+def run_n256(torch, F, kernels, card):
+    """n256: the kernels past 192 channels against their plain versions,
+    then MeanScaleHyperprior(256, 320) with a without_spm STEM (EB 256,
+    in_channels 320) from seeds with the workload's surgery through
+    StemVideoPipeline(sparse), P_FRAMES P-frames of B×3×H×W in f32 and
+    bf16, launches exact by width; then the bf16 I-frame codec on frame 0
+    under the default and the wide knobs. Returns (rows, {tag: (launches,
+    by width)})."""
+    t0 = time.perf_counter()
+    rows = check_n256_kernels(torch, F, kernels)
+    t_kernels = time.perf_counter() - t0
+    snaps = {}
+    for bf16 in (False, True):
+        tag = ("bf16" if bf16 else "f32") + f"_n{WIDE_N}"
+        launches, ctx = run_slice(torch, kernels, card, bf16, WIDE_N, WIDE_M,
+                                  _n256_widths(bf16, P_FRAMES))
+        snaps[tag] = (launches, ctx["by_width"])
+        if not bf16:
+            del ctx
+            torch.cuda.empty_cache()
+    for wide in (False, True):
+        launches, by_width = run_iframe(
+            torch, kernels, card, ctx, wide, f"n{WIDE_N}_",
+            _n256_widths(True, 1, wide))
+        snaps[f"n{WIDE_N}_iframe_bf16" + ("_wide" if wide else "")] = (
+            launches, by_width)
+    del ctx
+    torch.cuda.empty_cache()
+    log(f"  n{WIDE_N}: {time.perf_counter() - t0:.1f} s ({t_kernels:.1f} s "
+        f"the kernels vs plain) | card: {card}")
+    return rows, snaps
+
+
 def main() -> int:
     # the port and this script never import jax: block it, so an import of
     # it anywhere below fails (the hero checkpoints are read without it)
@@ -4184,7 +4309,7 @@ def main() -> int:
     by_path["bf16_wide"] = run_wide_decode(torch, kernels, card, ctx)
     for wide in (False, True):
         tag = "iframe_bf16_wide" if wide else "iframe_bf16"
-        by_path[tag] = run_iframe(torch, kernels, card, ctx, wide)
+        by_path[tag] = run_iframe(torch, kernels, card, ctx, wide)[0]
     if (kernels.FUSE_GS_PACKED, kernels.FUSE_IGDN_DECONV_WIDE) != (True,
                                                                    False):
         raise AssertionError("the default knobs were not restored")
@@ -4237,6 +4362,14 @@ def main() -> int:
         f"{B}×3×{H}×{W} (bf16) on {SPLIT_MESHES} entries")
     par_snaps, parallel = run_parallel(torch, kernels, card)
     hero.update(par_snaps)
+    torch.cuda.empty_cache()
+    log(f"[4/5] n{WIDE_N}: the kernels past 192 channels (gdn_fused at "
+        f"{GDN_WIDTHS}, the fused kernels at {WIDE_N}) vs plain; "
+        f"MeanScaleHyperprior({WIDE_N}, {WIDE_M}) with a without_spm STEM "
+        f"through StemVideoPipeline(sparse), {P_FRAMES} P-frames of "
+        f"{B}×3×{H}×{W}, f32 and bf16; its bf16 I-frame codec")
+    n256_rows, n256_snaps = run_n256(torch, F, kernels, card)
+    hero.update(n256_snaps)
     by_width = {}
     for tag, (counts, widths) in hero.items():
         by_path[tag] = counts
@@ -4292,6 +4425,17 @@ def main() -> int:
                     for tag, widths in by_width.items()}
         if not sum(per_path.values()):
             raise AssertionError(f"{key}: never launched on the hero paths")
+        rows.append(row(f"{key[0]}@{'x'.join(map(str, key[1:]))}{suffix}",
+                        key[0], res, per_path))
+    # the widths past 192: gdn_fused at 320 and 512 is on no path (its
+    # launches 0, its shape in the name); every other row launched on n256
+    for key, res in n256_rows.items():
+        per_path = {tag: widths.get(key, 0)
+                    for tag, widths in by_width.items()}
+        on_path = key[1] == WIDE_N
+        if on_path and not sum(per_path.values()):
+            raise AssertionError(f"{key}: never launched on the n256 paths")
+        suffix = "" if on_path else ":" + "x".join(map(str, res["shape"]))
         rows.append(row(f"{key[0]}@{'x'.join(map(str, key[1:]))}{suffix}",
                         key[0], res, per_path))
     log(json.dumps({"kernels": rows}))

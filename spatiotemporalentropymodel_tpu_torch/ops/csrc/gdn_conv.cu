@@ -41,9 +41,19 @@
 // 385 × 272 B = 104,720 B + 73,728 B + 1,024 B = 179,472 B. At (192, 320)
 // a block's ring holds max(C, OB) = 192 rows, so it takes the 228,752 B of
 // (192, 192); unsplit it would take 154,000 B + 3 × 320 × 128 B = 122,880 B
-// + 1,024 B = 277,904 B. Registers (nvcc -Xptxas -v, sm_90a):
-// 149 at (192, 192) and at (192, 320), 111 at (128, 192), 109 at
-// (128, 128), 93 at (64, 64), no spills.
+// + 1,024 B = 277,904 B.
+// C = 256: a window slot is 264 bf16 (528 B), so the 4 × 16 tile's 385
+// slots (203,280 B) leave the ring no room. A 4 × 14 tile (11 × 31 = 341
+// slots, 180,048 B) leaves room for 128-row slots (49,152 B): 230,224 B
+// at (256, 256), O in two groups of 128 (wgmma N 64 per warpgroup) over
+// one normalised window; a 4 × 13 tile (319 slots, 168,432 B) for 160-row
+// slots (61,440 B): 230,896 B at (256, 320), two groups of 160 (N 80).
+// The norm runs in two chunks of 128 rows. A warp's A rows past the tile's
+// columns read neighbouring slots (up to 3 past the window, still inside
+// the block's shared memory) and are never stored.
+// Registers (nvcc -Xptxas -v, sm_90a): 158 at (192, 192) and at
+// (192, 320), 115 at (128, 192), 114 at (128, 128), 92 at (64, 64), 147 at
+// (256, 256), 149 at (256, 320), no spills.
 //
 // Bound on the H100 at g_a's first stage (4 × 192 × 544 × 960 → 272 × 480):
 // 9.6e11 conv operations (0.97 ms at the bf16 tensor-core peak) and 1.5e11
@@ -55,7 +65,9 @@
 // bound by its weight reads from L2 (ops/phase_probe.py; PERF.md §5-6).
 // At (192, 320), mbt2018's 1 × 192 × 136 × 240 stage, on the same card:
 // 0.224 ms alone (ops/kernel_ab.py), 0.402 ms through the wrapper, against
-// a bound of 0.027 ms by operations and the unfused pair's 0.181 ms.
+// a bound of 0.027 ms by operations and the unfused pair's 0.181 ms. At
+// (256, 256): 10.89 / 3.05 ms at 4 × 256 × 544 × 960 / 272 × 480 (bounds
+// 2.13 / 0.53 ms), at (256, 320) 1.25 ms at 4 × 256 × 136 × 240.
 
 #include "gdn_window_tc.cuh"
 
@@ -64,48 +76,59 @@ namespace {
 
 using tc::bf16;
 
-constexpr int kTileH = 4, kTileW = 16;           // output pixels per block
-constexpr int kWinH = 2 * kTileH + 3;            // 11 input rows
-constexpr int kWinW = 2 * kTileW + 3;            // 35 input columns
-constexpr int kHalf = (kWinW + 1) / 2;           // 18 even columns
-constexpr int kSlots = kWinH * kWinW;            // 385
+// The block's tile: kTileH × TW output pixels, its input window of
+// kWinH × kWinW pixels, even columns first, then odd ones.
+template <int TW>
+struct Tile {
+  static constexpr int kTileH = 4;                  // output rows
+  static constexpr int kWinH = 2 * kTileH + 3;      // 11 input rows
+  static constexpr int kWinW = 2 * TW + 3;          // input columns
+  static constexpr int kHalf = (kWinW + 1) / 2;     // even columns
+  static constexpr int kSlots = kWinH * kWinW;
+  __device__ __forceinline__ static int slot(int r, int c) {
+    return r * kWinW + (c & 1) * kHalf + (c >> 1);
+  }
+};
 
-__device__ __forceinline__ int conv_slot(int r, int c) {
-  return r * kWinW + (c & 1) * kHalf + (c >> 1);
-}
-
-// Ring rows a slot: γ's stages have C rows, the weights' OB (the output
-// channels of one block).
-template <int C, int OB>
+// Ring rows a slot: γ's stages have a norm chunk's rows, the weights' OB/G
+// (the output channels of one group of one block).
+template <int C, int OBG>
 __host__ __device__ constexpr int ring_rows() {
-  return C > OB ? C : OB;
+  return tc::norm_chunk<C>() > OBG ? tc::norm_chunk<C>() : OBG;
 }
 
-template <int C, int OB>
+template <int C, int OBG, int TW>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return tc::Layout<C>::window_bytes(kSlots) + 1024 +
-         static_cast<size_t>(tc::kStages) * ring_rows<C, OB>() *
+  return tc::Layout<C>::window_bytes(Tile<TW>::kSlots) + 1024 +
+         static_cast<size_t>(tc::kStages) * ring_rows<C, OBG>() *
              tc::kRowBytes;
 }
 
 // gamma_s: (C/32, C, 64) bf16, γ's hi/lo split (ops/kernels.py::
 // split_gamma); w: (25, C/64, O, 64) bf16, [ky·5 + kx][c / 64][o][c % 64]
 // (pack_conv_weight). The O output channels are split across S blocks of
-// OB = O / S (blockIdx.z), each of which normalises the window itself.
-template <int C, int O, int S>
+// OB = O / S (blockIdx.z), each of which normalises the window itself, and
+// within a block into G groups of OB / G, one after another over the same
+// normalised window. TW: output columns of the tile (16, or fewer where the
+// window must leave the ring more room).
+template <int C, int O, int S, int TW, int G>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
                 const float* __restrict__ beta, const bf16* __restrict__ w,
                 const float* __restrict__ bias, bf16* __restrict__ out, int H,
                 int W, int Ho, int Wo, int tiles_w) {
-  constexpr int OB = O / S;  // output channels of this block
-  static_assert(O % S == 0 && OB % 32 == 0,
-                "two warpgroups of OB/2 output channels");
-  static_assert(smem_bytes<C, OB>() <= 232448, "shared memory of a block");
+  using T = Tile<TW>;
+  constexpr int OB = O / S;     // output channels of this block
+  constexpr int OBG = OB / G;   // output channels of one group
+  static_assert(O % S == 0 && OB % G == 0 && OBG % 32 == 0,
+                "two warpgroups of OB/(2G) output channels");
+  static_assert(TW <= 16, "a warp's 16 A rows cover a tile row");
+  static_assert(smem_bytes<C, OBG, TW>() <= 232448,
+                "shared memory of a block");
   constexpr int KC = C / 64;   // ring stages per tap
-  constexpr int KN = C / 32;   // ring stages per norm round
-  constexpr int kNorm = tc::norm_stages<C>(kSlots);
-  constexpr int kStagesAll = kNorm + 25 * KC;
+  constexpr int kNorm = tc::norm_stages<C>(T::kSlots);
+  constexpr int kGroupStages = 25 * KC;
+  constexpr int kStagesAll = kNorm + G * kGroupStages;
   using L = tc::Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* win = reinterpret_cast<bf16*>(smem);
@@ -115,82 +138,95 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
   // the block's first output channel; its rows of each weight stage
   const int o0 = S > 1 ? static_cast<int>(blockIdx.z) * OB : 0;
   const bf16* wb = w + o0 * 64;
-  const auto ring = tc::make_ring_fn<ring_rows<C, OB>()>(
-      tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
-        if (q < kNorm)
-          tc::load_stage<C>(dst, gamma_s + (q % KN) * (C * 64));
-        else
-          tc::load_stage<OB>(dst, wb + (q - kNorm) * (O * 64));
+  const auto ring = tc::make_ring_fn<ring_rows<C, OBG>()>(
+      tc::ring_base<C>(smem, T::kSlots), kStagesAll,
+      [=](uint32_t dst, int q) {
+        if (q < kNorm) {
+          tc::load_stage<tc::norm_chunk<C>()>(dst,
+                                              tc::norm_src<C>(gamma_s, q));
+        } else {
+          const int s = q - kNorm;  // group s / 25·KC, stage s % 25·KC
+          tc::load_stage<OBG>(dst, wb + ((s % kGroupStages) * O +
+                                         (s / kGroupStages) * OBG) * 64);
+        }
       });
   ring.prefetch();
 
   const int b = blockIdx.y;
-  const int oy0 = (blockIdx.x / tiles_w) * kTileH;
-  const int ox0 = (blockIdx.x % tiles_w) * kTileW;
+  const int oy0 = (blockIdx.x / tiles_w) * T::kTileH;
+  const int ox0 = (blockIdx.x % tiles_w) * TW;
   tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
-                        2 * oy0 - 2, 2 * ox0 - 2, kWinH, kWinW, conv_slot);
+                        2 * oy0 - 2, 2 * ox0 - 2, T::kWinH, T::kWinW,
+                        T::slot);
   STEM_PHASE(1);
-  const int q0 = tc::gdn_window_tc<C, false>(win, kSlots, ring, 0, beta);
+  const int q0 = tc::gdn_window_tc<C, false>(win, T::kSlots, ring, 0, beta);
   STEM_PHASE(2);
 
-  // warpgroup wg: output channels o0 + [wg·OB/2, (wg + 1)·OB/2) of all 64
-  // pixels;
-  // its warp w: output row w of the tile, as the A rows 0..15
+  // warpgroup wg: output channels o0 + gi·OBG + [wg·N, (wg + 1)·N) of all
+  // the tile's pixels, group gi after group; its warp w: output row w of
+  // the tile, as the A rows 0..15 (columns past TW are computed from
+  // neighbouring slots and never stored)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wg = warp >> 2, w4 = warp & 3;
-  constexpr int N = OB / 2;
-  const uint32_t apix = tc::a_row<C>(win_u32, 2 * w4 * kWinW, kSlots);
+  constexpr int N = OBG / 2;
+  const uint32_t apix = tc::a_row<C>(win_u32, 2 * w4 * T::kWinW, T::kSlots);
   const uint32_t half = wg * N * tc::kRowBytes;  // the warpgroup's B rows
-
-  float acc[N / 8][4];
-  tc::init_bias<N>(acc, bias, o0 + wg * N);
-#pragma unroll 1
-  for (int s = 0; s < 25 * KC; ++s) {
-    const uint32_t wslot = ring.next(q0 + s);
-    const int tap = s / KC, kc = s - tap * KC;
-    const int ky = tap / 5, kx = tap - ky * 5;
-    const int off = ky * kWinW + (kx & 1) * kHalf + (kx >> 1);
-    tc::conv_stage_wg<N>(acc, wslot + half, apix,
-                         off * (L::kStride * 2) + kc * 128);
-  }
-
-  // acc[j][e]: output row w4, column g + 8·(e / 2), channel
-  // o0 + wg·N + 8j + 2t + e % 2
   const int oy = oy0 + w4;
   bf16* ob = out + static_cast<long long>(b) * O * Ho * Wo;
-  if (oy < Ho) {
-    const long long plane8 = 8LL * Ho * Wo;  // 8 output channels
+
+#pragma unroll 1
+  for (int gi = 0; gi < G; ++gi) {
+    const int oc = o0 + gi * OBG + wg * N;  // the warpgroup's first channel
+    float acc[N / 8][4];
+    tc::init_bias<N>(acc, bias, oc);
+#pragma unroll 1
+    for (int s = 0; s < kGroupStages; ++s) {
+      const uint32_t wslot = ring.next(q0 + gi * kGroupStages + s);
+      const int tap = s / KC, kc = s - tap * KC;
+      const int ky = tap / 5, kx = tap - ky * 5;
+      const int off = ky * T::kWinW + (kx & 1) * T::kHalf + (kx >> 1);
+      tc::conv_stage_wg<N>(acc, wslot + half, apix,
+                           off * (L::kStride * 2) + kc * 128);
+    }
+
+    // acc[j][e]: output row w4, column g + 8·(e / 2), channel
+    // oc + 8j + 2t + e % 2
+    if (oy < Ho) {
+      const long long plane8 = 8LL * Ho * Wo;  // 8 output channels
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int ox = ox0 + g + 8 * (e >> 1);
-      if (ox >= Wo) continue;
-      const int o = o0 + wg * N + 2 * t + (e & 1);
-      bf16* dst = ob + (static_cast<long long>(o) * Ho + oy) * Wo + ox;
+      for (int e = 0; e < 4; ++e) {
+        const int col = g + 8 * (e >> 1), ox = ox0 + col;
+        if (col >= TW || ox >= Wo) continue;
+        const int o = oc + 2 * t + (e & 1);
+        bf16* dst = ob + (static_cast<long long>(o) * Ho + oy) * Wo + ox;
 #pragma unroll
-      for (int j = 0; j < N / 8; ++j, dst += plane8)
-        *dst = __float2bfloat16_rn(acc[j][e]);
+        for (int j = 0; j < N / 8; ++j, dst += plane8)
+          *dst = __float2bfloat16_rn(acc[j][e]);
+      }
     }
   }
   STEM_PHASE(3);
 }
 
-template <int C, int O, int S = 1>
+template <int C, int O, int S = 1, int TW = 16, int G = 1>
 int launch(const bf16* x, const bf16* gamma_s, const float* beta,
            const bf16* w, const float* bias, bf16* out, long long batch,
            int H, int W, cudaStream_t stream) {
   const int Ho = (H + 1) / 2, Wo = (W + 1) / 2;
-  const int tiles_w = (Wo + kTileW - 1) / kTileW;
+  const int tiles_w = (Wo + TW - 1) / TW;
   const long long tiles =
-      static_cast<long long>((Ho + kTileH - 1) / kTileH) * tiles_w;
+      static_cast<long long>((Ho + Tile<TW>::kTileH - 1) / Tile<TW>::kTileH) *
+      tiles_w;
   if (batch > 65535 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<C, O / S>();
-  cudaError_t err = tc::allow_smem(gdn_conv_kernel<C, O, S>, smem);
+  const size_t smem = smem_bytes<C, O / S / G, TW>();
+  const auto kernel = gdn_conv_kernel<C, O, S, TW, G>;
+  cudaError_t err = tc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  gdn_conv_kernel<C, O, S>
-      <<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch), S),
-         tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias, out, H, W,
-                                       Ho, Wo, tiles_w);
+  kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(batch),
+                S),
+           tc::kThreads, smem, stream>>>(x, gamma_s, beta, w, bias, out, H,
+                                         W, Ho, Wo, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,7 +239,7 @@ extern "C" {
 // (ops/kernels.py::split_gamma); beta (C,) f32; w (25, C/64, O, 64) bf16 =
 // the conv weight as [ky·5 + kx][c / 64][o][c % 64] (pack_conv_weight);
 // bias (O,) f32; out (B, O, ⌈H/2⌉, ⌈W/2⌉) bf16. (C, O) ∈ {(64, 64),
-// (128, 128), (192, 192), (128, 192), (192, 320)}
+// (128, 128), (192, 192), (256, 256), (128, 192), (192, 320), (256, 320)}
 // (ops/kernels.py::GDN_CONV_PAIRS).
 int stem_gdn_conv_fused_bf16(const void* x, const void* gamma_s,
                              const float* beta, const void* w,
@@ -230,6 +266,15 @@ int stem_gdn_conv_fused_bf16(const void* x, const void* gamma_s,
   if (C == 192 && O == 320)
     return stem::launch<192, 320, 2>(xb, gs, beta, wb, bias, ob, batch, H,
                                      W, s);
+  // C = 256: a window of 264-bf16 slots leaves the ring room for 128 or
+  // 160 rows only at tiles of 4 × 14 and 4 × 13 output pixels, so O runs
+  // in two groups of 128 and of 160 over one normalised window
+  if (C == 256 && O == 256)
+    return stem::launch<256, 256, 1, 14, 2>(xb, gs, beta, wb, bias, ob,
+                                            batch, H, W, s);
+  if (C == 256 && O == 320)
+    return stem::launch<256, 320, 1, 13, 2>(xb, gs, beta, wb, bias, ob,
+                                            batch, H, W, s);
   return cudaErrorInvalidValue;
 }
 

@@ -16,9 +16,12 @@
 //      by the wrapper), with norm = s_hi·g_hi + s_hi·g_lo + s_lo·g_hi summed
 //      in f32 (the dropped s_lo·g_lo is below 2⁻¹⁶ of the norm). A
 //      warpgroup takes 64 window pixels at a time over all C output
-//      channels (wgmma m64nCk16; C/2 f32 accumulators per thread), so each
-//      warp rescales its own 16 pixels, x·rsqrt(β + norm) (IGDN:
-//      x·sqrt(β + norm)) rounded to bf16, with no barrier between warps.
+//      channels, in chunks of NC ≤ 192 (norm_chunk: C itself up to 192, two
+//      of 128 at 256; wgmma m64nNCk16, NC/2 f32 accumulators per thread),
+//      so each warp rescales its own 16 pixels, x·rsqrt(β + norm) (IGDN:
+//      x·sqrt(β + norm)) rounded to bf16, with no barrier between warps. A
+//      chunk's results wait in registers as bf16 until the last chunk's
+//      norm is done, since every chunk reads the squares of all C channels.
 //   3. conv_stage_wg: the convolution as an implicit GEMM on wgmma (bf16
 //      operands, f32 accumulators) with the pixels as rows: A = 16 window
 //      pixels per warp in registers, loaded with ldmatrix from any slots
@@ -30,8 +33,9 @@
 // thread) kStages − 1 stages ahead of the MMAs: one barrier per stage, and
 // each tile is fetched from L2 once per block and read by every warpgroup.
 // A stage is 64 input channels of one conv tap (or of several, for the
-// narrow g_s kernel), or 32 input channels of γ as [o][hi 0..31 |
-// lo 0..31]; the wrappers lay them out stage after stage
+// narrow g_s kernel) for one group of output channels, or 32 input channels
+// of γ as [o][hi 0..31 | lo 0..31] for one chunk of the norm's output
+// channels; the wrappers lay them out stage after stage
 // (ops/kernels.py::split_gamma, pack_conv_weight, pack_wide_weight,
 // pack_narrow_weight). A ring slot is wgmma's K-major operand with the
 // 128-byte swizzle: 16-byte chunk j of row r lives at chunk j ^ (r & 7),
@@ -84,24 +88,40 @@ template <int C>
 struct Layout {
   static_assert(C % 64 == 0, "channels must be a multiple of 64");
   static constexpr int kStride = C + 8;  // bf16 elements per window slot
-  static constexpr int kSlotBytes = C * kRowBytes;  // one ring slot
+  // the window; the ring follows at the next 1024-byte boundary of the
+  // shared address space (the 128-byte swizzle repeats every 8 rows of 128
+  // bytes; ring_base rounds up, so a kernel allots 1024 bytes of slack)
   __host__ __device__ static constexpr size_t window_bytes(int n_slots) {
     return static_cast<size_t>(n_slots) * kStride * sizeof(bf16);
   }
-  // the window, then the ring at the next 1024-byte boundary of the shared
-  // address space (the 128-byte swizzle repeats every 8 rows of 128 bytes;
-  // ring_base rounds up, so up to 1024 bytes of slack)
-  __host__ __device__ static constexpr size_t bytes(int n_slots) {
-    return window_bytes(n_slots) + 1024 +
-           static_cast<size_t>(kStages) * kSlotBytes;
-  }
 };
 
+// Output channels of one chunk of the norm (gdn_window_tc): all C up to
+// 192, else C split into the fewest equal chunks of at most 192 (two of 128
+// at C = 256), each one wgmma of NC columns. A γ stage of the ring holds a
+// chunk's NC rows.
+template <int C>
+__host__ __device__ constexpr int norm_chunk() {
+  return C / ((C + 191) / 192);
+}
+
 // Ring stages of the norm over n_slots window slots (gdn_window_tc): one
-// round per 64 slots of each of the two warpgroups, C/32 stages a round.
+// round per 64 slots of each of the two warpgroups, C/32 stages per chunk
+// of output channels.
 template <int C>
 __host__ __device__ constexpr int norm_stages(int n_slots) {
-  return ((n_slots + 63) / 64 + 1) / 2 * (C / 32);
+  return ((n_slots + 63) / 64 + 1) / 2 * (C / 32) * (C / norm_chunk<C>());
+}
+
+// Device address of the norm's ring stage q in γ's split (C/32, C, 64):
+// within a round, chunk by chunk, 32 input channels a stage; a chunk's NC
+// rows of a stage are contiguous.
+template <int C>
+__device__ __forceinline__ const bf16* norm_src(const bf16* gamma_s,
+                                                int q) {
+  constexpr int KN = C / 32, NC = norm_chunk<C>();
+  const int i = q % (KN * (C / NC));
+  return gamma_s + ((i % KN) * C + (i / KN) * NC) * 64;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -401,6 +421,16 @@ __device__ __forceinline__ void load_stage(uint32_t dst, const bf16* src) {
   }
 }
 
+// load_stage of `rows` rows, a number known at run time.
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src,
+                                          int rows) {
+  const char* s = reinterpret_cast<const char*>(src);
+  for (int i = threadIdx.x; i < rows * (kRowBytes / 16); i += kThreads) {
+    const int r = i >> 3, j = i & 7;
+    cp_async16(dst + r * kRowBytes + ((j ^ (r & 7)) << 4), s + i * 16);
+  }
+}
+
 // The ring: stage q of n lives in slot q % kStages, slots SLOT_ROWS rows
 // of 128 bytes apart. prefetch issues stages 0 .. kStages − 2; next(q)
 // waits for stage q, makes it visible to every warp (the barrier also
@@ -572,13 +602,13 @@ __device__ __forceinline__ uint32_t a_row(uint32_t win, int m0, int n_slots) {
 }
 
 // acc[nt] += Σ over the 32 input channels [32·kc, 32·kc + 32) of x² · γ for
-// the warpgroup's 64 slots (rows; this warp's 16 at a) and all C output
-// channels (8 per n-tile), on wgmma: A = the squares' hi and lo from
-// registers, B = the stage of γ's split in the ring slot gslot (hi at bytes
-// 0-63 of each row, lo at 64-127). Waits for its wgmmas before returning,
-// so the slot may be refilled after the next barrier.
-template <int C>
-__device__ __forceinline__ void norm_stage(float (&acc)[C / 8][4],
+// the warpgroup's 64 slots (rows; this warp's 16 at a) and the NC output
+// channels of one chunk (8 per n-tile), on wgmma: A = the squares' hi and
+// lo from registers, B = the stage of γ's split in the ring slot gslot (hi
+// at bytes 0-63 of each row, lo at 64-127). Waits for its wgmmas before
+// returning, so the slot may be refilled after the next barrier.
+template <int NC>
+__device__ __forceinline__ void norm_stage(float (&acc)[NC / 8][4],
                                            uint32_t gslot, uint32_t a,
                                            int kc) {
   uint32_t hi[2][4], lo[2][4];
@@ -593,22 +623,51 @@ __device__ __forceinline__ void norm_stage(float (&acc)[C / 8][4],
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     const uint64_t dh = d + ((kk * 32) >> 4), dl = d + ((64 + kk * 32) >> 4);
-    wgmma<C>(acc, lo[kk], dh);
-    wgmma<C>(acc, hi[kk], dl);
-    wgmma<C>(acc, hi[kk], dh);
+    wgmma<NC>(acc, lo[kk], dh);
+    wgmma<NC>(acc, hi[kk], dl);
+    wgmma<NC>(acc, hi[kk], dh);
   }
   wgmma_commit();
   wgmma_wait_all();
 }
 
-// win[slot][o] ← x · rsqrt(β[o] + norm) (IGDN: x · sqrt(β[o] + norm)) in
-// bf16, for the warp's slots m0 .. m0 + 15 below n_slots; acc as norm_stage
-// leaves it (entries 0, 1: slot m0 + g, channels 8·nt + 2t, +1; 2, 3: slot
-// m0 + g + 8).
-template <int C, bool INVERSE>
-__device__ __forceinline__ void scale_rows(bf16* win, int m0, int n_slots,
-                                           const float (&acc)[C / 8][4],
-                                           const float* __restrict__ beta) {
+// The rescaled values x · rsqrt(β[o] + norm) (IGDN: x · sqrt(β[o] + norm))
+// in bf16 pairs, for the warp's slots m0 + g + 8·rh below n_slots and the
+// chunk's channels o0 + 8·nt + 2t, +1; acc as norm_stage leaves it (entries
+// 0, 1: slot m0 + g; 2, 3: slot m0 + g + 8). x is read from the window,
+// which this leaves as it is.
+template <int C, int NC, bool INVERSE>
+__device__ __forceinline__ void scale_pairs(
+    const bf16* win, int m0, int n_slots, const float (&acc)[NC / 8][4],
+    const float* __restrict__ beta, int o0, uint32_t (&y)[NC / 8][2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int slot = m0 + g + 8 * rh;
+    const bf16* row = win + (slot < n_slots ? slot : n_slots - 1) *
+                                Layout<C>::kStride;
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt) {
+      const int o = o0 + 8 * nt + 2 * t;
+      const float2 xv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(row + o));
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + o));
+      const float n0 = acc[nt][2 * rh] + bb.x;
+      const float n1 = acc[nt][2 * rh + 1] + bb.y;
+      const float y0 = INVERSE ? xv.x * sqrtf(n0) : xv.x * rsqrtf(n0);
+      const float y1 = INVERSE ? xv.y * sqrtf(n1) : xv.y * rsqrtf(n1);
+      const __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);
+      y[nt][rh] = *reinterpret_cast<const uint32_t*>(&v);
+    }
+  }
+}
+
+// win[slot][o0 + 8·nt + 2t, +1] ← y[nt][rh] for the warp's slots
+// m0 + g + 8·rh below n_slots (scale_pairs' layout).
+template <int C, int NC>
+__device__ __forceinline__ void store_pairs(bf16* win, int m0, int n_slots,
+                                            const uint32_t (&y)[NC / 8][2],
+                                            int o0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
@@ -616,36 +675,31 @@ __device__ __forceinline__ void scale_rows(bf16* win, int m0, int n_slots,
     if (slot >= n_slots) continue;
     bf16* row = win + slot * Layout<C>::kStride;
 #pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt) {
-      const int o = 8 * nt + 2 * t;
-      __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(row + o);
-      const float2 xv = __bfloat1622float2(*px);
-      const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + o));
-      const float n0 = acc[nt][2 * rh] + bb.x;
-      const float n1 = acc[nt][2 * rh + 1] + bb.y;
-      const float y0 = INVERSE ? xv.x * sqrtf(n0) : xv.x * rsqrtf(n0);
-      const float y1 = INVERSE ? xv.y * sqrtf(n1) : xv.y * rsqrtf(n1);
-      *px = __floats2bfloat162_rn(y0, y1);
-    }
+    for (int nt = 0; nt < NC / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(row + o0 + 8 * nt + 2 * t) = y[nt][rh];
   }
 }
 
 // The norm of slots [0, n_slots): in each round, warpgroup wg takes the 64
 // slots of unit round·2 + wg (its warp w the 16 from 64·unit + 16·w) and
-// runs over the C/32 stages of γ's split, ring stages q0 .. q0 +
-// rounds·C/32 − 1. A warp owns its 16 slots over all C output channels, so
-// it rescales them in place once its wgmmas are done: no other warp reads
+// runs, chunk by chunk of NC output channels, over the C/32 stages of γ's
+// split, ring stages q0 .. q0 + rounds·chunks·C/32 − 1. A warp owns its 16
+// slots over all C channels, so it rescales them in place once its last
+// chunk's wgmmas are done (the earlier chunks' results wait in registers,
+// since each chunk reads the squares of every channel): no other warp reads
 // them before the next phase's barrier. Returns the next stage index.
 template <int C, bool INVERSE, typename RingT>
 __device__ __forceinline__ int gdn_window_tc(bf16* win, int n_slots,
                                              const RingT& ring, int q0,
                                              const float* __restrict__ beta) {
   constexpr int KN = C / 32;
+  constexpr int NC = norm_chunk<C>(), kChunks = C / NC;
   constexpr int kGroups = kWarps / 4;  // warpgroups
   static_assert(kGroups == 2, "norm_stages counts two warpgroups");
+  static_assert(C % NC == 0 && NC % 32 == 0, "chunks of the norm");
   const int warp = threadIdx.x >> 5;
   const int units = (n_slots + 63) / 64;
-  const int rounds = norm_stages<C>(n_slots) / KN;
+  const int rounds = norm_stages<C>(n_slots) / (KN * kChunks);
   const uint32_t wbase = smem_u32(win);
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
@@ -653,18 +707,28 @@ __device__ __forceinline__ int gdn_window_tc(bf16* win, int n_slots,
     const bool live = unit < units;  // the same for the whole warpgroup
     const int m0 = unit * 64 + 16 * (warp & 3);
     const uint32_t a = a_row<C>(wbase, live ? m0 : 0, n_slots);
-    float acc[C / 8][4];
+    uint32_t y[kChunks][NC / 8][2];
 #pragma unroll
-    for (int nt = 0; nt < C / 8; ++nt)
-      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    for (int ch = 0; ch < kChunks; ++ch) {
+      float acc[NC / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < NC / 8; ++nt)
+        acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 #pragma unroll 1
-    for (int kc = 0; kc < KN; ++kc) {
-      const uint32_t gslot = ring.next(q0 + r * KN + kc);
-      if (live) norm_stage<C>(acc, gslot, a, kc);
+      for (int kc = 0; kc < KN; ++kc) {
+        const uint32_t gslot = ring.next(q0 + (r * kChunks + ch) * KN + kc);
+        if (live) norm_stage<NC>(acc, gslot, a, kc);
+      }
+      if (live) scale_pairs<C, NC, INVERSE>(win, m0, n_slots, acc, beta,
+                                            ch * NC, y[ch]);
     }
-    if (live) scale_rows<C, INVERSE>(win, m0, n_slots, acc, beta);
+    if (live) {
+#pragma unroll
+      for (int ch = 0; ch < kChunks; ++ch)
+        store_pairs<C, NC>(win, m0, n_slots, y[ch], ch * NC);
+    }
   }
-  return q0 + rounds * KN;
+  return q0 + rounds * KN * kChunks;
 }
 
 // One stage of an implicit GEMM on wgmma, pixels as rows: 64 input

@@ -47,11 +47,16 @@
 // serves 128 pixels: 3.7 MB of L2 traffic per block at C = 192. Shared
 // memory at C = 192: window 340 × 400 B = 136,000 B + ring 73,728 B + up
 // to 1,024 B of alignment = 210,752 B.
-// Registers (nvcc -Xptxas -v): 192 / 142 / 103 at C = 192 / 128 / 64, no
-// spills. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W:
-// 4.11 ms at 272 × 480 and 1.54 ms at 136 × 240; a block at 272 × 480
-// takes about 423k cycles, 6 % window load, 16 % norm, 78 % conv
-// (ops/phase_probe.py; PERF.md §5-6).
+// At C = 256 the ring of 3 × 256 rows would not fit beside the window
+// (340 × 528 B = 179,520 B), so O runs in two groups of 128 (wgmma N 128,
+// 64 accumulators per thread) over one window, the norm in two chunks of
+// 128, and the ring holds 128 rows: 229,696 B.
+// Registers (nvcc -Xptxas -v): 198 / 146 / 103 at C = 192 / 128 / 64, 167
+// at 256, no spills. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3
+// at 700 W: 4.11 ms at 272 × 480 and 1.54 ms at 136 × 240; a block at 272
+// × 480 takes about 423k cycles, 6 % window load, 16 % norm, 78 % conv
+// (ops/phase_probe.py; PERF.md §5-6). At C = 256: 6.65 ms at 272 × 480,
+// 2.08 ms at 136 × 240.
 //
 // igdn_deconv_narrow_kernel (C → F ≤ 32): bound on the H100 by its norm,
 // 1.5e11 f32 operations at F = 3 and 544 × 960 × 192 against 1.2e10 of
@@ -66,15 +71,18 @@
 // once where N ≤ 64 (one sweep over the weights), else one at a time in two
 // sweeps, so the accumulators stay at ≤ 64 per thread. A ring stage holds
 // KS = C/64 chunks of 64 channels (a whole tap) where the slot has room
-// (KS·rows ≤ C), else one: 9 stages a sweep at F ≤ 4 and C = 192, each
-// issuing all its wgmmas before one wait. Shared memory at C = 192: window
-// 136,000 B + ring 3 × 192 rows × 128 B = 73,728 B + up to 1,024 B =
-// 210,752 B. Registers (nvcc -Xptxas -v) at C = 192 / 128 / 64: 143 / 110
-// / 93 (rows 16), 154 / 122 / 91 (32), 190 / 154 / 123 (64), 145 / 135 /
-// 157 (96), 168 / 164 / 182 (128), no spills.
+// (KS·rows ≤ the norm's chunk of rows: C up to 192, 128 at 256), else one:
+// 9 stages a sweep at F ≤ 4 and C = 192, each issuing all its wgmmas
+// before one wait. Shared memory at C = 192: window 136,000 B + ring 3 ×
+// 192 rows × 128 B = 73,728 B + up to 1,024 B = 210,752 B; at C = 256
+// 179,520 B + 3 × 128 rows × 128 B + 1,024 B = 229,696 B. Registers (nvcc
+// -Xptxas -v) at C = 256 / 192 / 128 / 64: 170 / 143 / 110 / 93 (rows
+// 16), 190 / 154 / 122 / 91 (32), 143 / 190 / 154 / 123 (64), 147 / 145 /
+// 135 / 157 (96), 163 / 168 / 164 / 182 (128), no spills.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 3.75-3.93
-// ms at 544 × 960 → 3; a block takes about 98k cycles, 18 % window load,
-// 66 % norm, 16 % conv (ops/phase_probe.py; PERF.md §5-6).
+// ms at 544 × 960 → 3 (5.85-5.91 at C = 256); a block takes about 98k
+// cycles, 18 % window load, 66 % norm, 16 % conv (ops/phase_probe.py;
+// PERF.md §5-6).
 
 #include "gdn_window_tc.cuh"
 
@@ -100,9 +108,26 @@ __device__ __forceinline__ long long out_index(int o, int iy, int ix, int a,
          2 * ix + b;
 }
 
+// The wide kernel's shape at C = O channels: G groups of OG = O / G output
+// channels, one after another over the same window (a warpgroup's wgmma N
+// = OG), and ring slots of the larger of a norm chunk's rows and OG. Up to
+// 192 one group; at 256 two of 128, so that the ring of 3 × 128 rows fits
+// beside the window of 264-bf16 slots.
+template <int C>
+struct Wide {
+  static constexpr int G = C <= 192 ? 1 : 2;
+  static constexpr int OG = C / G;
+  static constexpr int kSlotRows =
+      tc::norm_chunk<C>() > OG ? tc::norm_chunk<C>() : OG;
+  __host__ __device__ static constexpr size_t smem() {
+    return tc::Layout<C>::window_bytes(kSlots) + 1024 +
+           static_cast<size_t>(tc::kStages) * kSlotRows * tc::kRowBytes;
+  }
+};
+
 // Warpgroups: 2 along the 128 pixels of a pass (two input rows × 32
-// columns each), every O channel; warp w of a warpgroup owns 16 pixels
-// (row w / 2, columns (w % 2)·16 + 0..15).
+// columns each), every channel of one output group; warp w of a warpgroup
+// owns 16 pixels (row w / 2, columns (w % 2)·16 + 0..15).
 // gamma_s: (C/32, C, 64) bf16 (ops/kernels.py::split_gamma); w: (25, C/64,
 // O, 64) bf16, the 25 taps of the sub-pixel form in phase order (phase
 // a·2 + b, then dy, then dx; ops/kernels.py::pack_wide_weight).
@@ -114,12 +139,14 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
                         const bf16* __restrict__ w,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         int H, int W, int tiles_w) {
-  constexpr int O = C;
+  using S = Wide<C>;
+  constexpr int O = C, G = S::G, OG = S::OG;
+  static_assert(S::smem() <= 232448, "shared memory of a block");
   constexpr int KC = C / 64;   // ring stages per tap
-  constexpr int KN = C / 32;   // ring stages per norm round
   constexpr int kPassRows = 4;
   constexpr int kNorm = tc::norm_stages<C>(kSlots);
-  constexpr int kPassStages = 25 * KC;
+  constexpr int kGroupStages = 25 * KC;
+  constexpr int kPassStages = G * kGroupStages;
   constexpr int kStagesAll = kNorm + (kTileH / kPassRows) * kPassStages;
   using L = tc::Layout<C>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -127,12 +154,17 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
   const uint32_t win_u32 = tc::smem_u32(smem);
 
   STEM_PHASE(0);
-  auto src = [=](int q) -> const bf16* {
-    return q < kNorm ? gamma_s + (q % KN) * (C * 64)
-                     : w + ((q - kNorm) % kPassStages) * (O * 64);
-  };
-  const auto ring =
-      tc::make_ring<C>(tc::ring_base<C>(smem, kSlots), kStagesAll, src);
+  const auto ring = tc::make_ring_fn<S::kSlotRows>(
+      tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
+        if (q < kNorm) {
+          tc::load_stage<tc::norm_chunk<C>()>(dst,
+                                              tc::norm_src<C>(gamma_s, q));
+        } else {  // group s / 25·KC, stage s % 25·KC of the pass
+          const int s = (q - kNorm) % kPassStages;
+          tc::load_stage<OG>(dst, w + ((s % kGroupStages) * O +
+                                       (s / kGroupStages) * OG) * 64);
+        }
+      });
   ring.prefetch();
 
   const int b = blockIdx.y;
@@ -156,33 +188,39 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
     const int row = pass * kPassRows + wrow;
     const uint32_t apix = tc::a_row<C>(win_u32, row * kWinW + wcol, kSlots);
 #pragma unroll 1
-    for (int ph = 0; ph < 4; ++ph) {
-      const int pa = ph >> 1, pb = ph & 1;
-      // acc[j][e]: pixel wcol + g + 8·(e / 2), channel o = 8j + 2t + e % 2
-      float acc[O / 8][4];
-      tc::init_bias<O>(acc, bias, 0);
+    for (int gi = 0; gi < G; ++gi) {
 #pragma unroll 1
-      for (int dy = pa ? 0 : -1; dy <= 1; ++dy) {
+      for (int ph = 0; ph < 4; ++ph) {
+        const int pa = ph >> 1, pb = ph & 1;
+        // acc[j][e]: pixel wcol + g + 8·(e / 2), channel
+        // o = gi·OG + 8j + 2t + e % 2
+        float acc[OG / 8][4];
+        tc::init_bias<OG>(acc, bias, gi * OG);
 #pragma unroll 1
-        for (int dx = pb ? 0 : -1; dx <= 1; ++dx) {
-          const uint32_t off =
-              ((dy + 1) * kWinW + (dx + 1)) * (L::kStride * 2);
+        for (int dy = pa ? 0 : -1; dy <= 1; ++dy) {
 #pragma unroll 1
-          for (int kc = 0; kc < KC; ++kc)
-            tc::conv_stage_wg<O>(acc, ring.next(q++), apix, off + kc * 128);
+          for (int dx = pb ? 0 : -1; dx <= 1; ++dx) {
+            const uint32_t off =
+                ((dy + 1) * kWinW + (dx + 1)) * (L::kStride * 2);
+#pragma unroll 1
+            for (int kc = 0; kc < KC; ++kc)
+              tc::conv_stage_wg<OG>(acc, ring.next(q++), apix,
+                                    off + kc * 128);
+          }
         }
-      }
-      const int iy = iy0 + row;
-      if (iy < H) {
-        const long long plane8 = 8 * 4LL * H * W;  // 8 output channels
+        const int iy = iy0 + row;
+        if (iy < H) {
+          const long long plane8 = 8 * 4LL * H * W;  // 8 output channels
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ix = ix0 + wcol + g + 8 * (e >> 1);
-          if (ix >= W) continue;
-          bf16* dst = ob + out_index(2 * t + (e & 1), iy, ix, pa, pb, H, W);
+          for (int e = 0; e < 4; ++e) {
+            const int ix = ix0 + wcol + g + 8 * (e >> 1);
+            if (ix >= W) continue;
+            bf16* dst = ob + out_index(gi * OG + 2 * t + (e & 1), iy, ix,
+                                       pa, pb, H, W);
 #pragma unroll
-          for (int j = 0; j < O / 8; ++j, dst += plane8)
-            *dst = __float2bfloat16_rn(acc[j][e]);
+            for (int j = 0; j < OG / 8; ++j, dst += plane8)
+              *dst = __float2bfloat16_rn(acc[j][e]);
+          }
         }
       }
     }
@@ -232,9 +270,10 @@ struct Narrow {
   static constexpr int KC = C / 64;
   static constexpr int MT = N <= 64 ? 2 : 1;
   static constexpr int kSweeps = 2 / MT;
-  static constexpr int KS = KC * N <= C ? KC : 1;
-  static constexpr int kSlotRows = (C > KS * N ? C : KS * N);
-  static constexpr size_t smem() {
+  static constexpr int kNormRows = tc::norm_chunk<C>();  // γ's stage rows
+  static constexpr int KS = KC * N <= kNormRows ? KC : 1;
+  static constexpr int kSlotRows = (kNormRows > KS * N ? kNormRows : KS * N);
+  __host__ __device__ static constexpr size_t smem() {
     return tc::Layout<C>::window_bytes(kSlots) + 1024 +
            static_cast<size_t>(tc::kStages) * kSlotRows * tc::kRowBytes;
   }
@@ -257,7 +296,7 @@ igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
                           bf16* __restrict__ out, int F, int H, int W,
                           int tiles_w) {
   using S = Narrow<C, N>;
-  constexpr int KN = C / 32;   // ring stages per norm round
+  static_assert(S::smem() <= 232448, "shared memory of a block");
   constexpr int MT = S::MT, KS = S::KS;
   constexpr int kNorm = tc::norm_stages<C>(kSlots);
   constexpr int kSweepStages = 9 * S::KC / KS;
@@ -271,7 +310,7 @@ igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
   const auto ring = tc::make_ring_fn<S::kSlotRows>(
       tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
         if (q < kNorm)
-          tc::load_stage<C>(dst, gamma_s + (q % KN) * (C * 64));
+          tc::load_stage<S::kNormRows>(dst, tc::norm_src<C>(gamma_s, q));
         else
           tc::load_stage<KS * N>(
               dst, w + ((q - kNorm) % kSweepStages) * (KS * N * 64));
@@ -349,7 +388,7 @@ int launch_wide(const bf16* x, const bf16* gamma_s, const float* beta,
   int tiles_w;
   long long tiles;
   if (!grid_of(batch, H, W, &tiles_w, &tiles)) return cudaErrorInvalidValue;
-  const size_t smem = tc::Layout<C>::bytes(kSlots);
+  const size_t smem = Wide<C>::smem();
   cudaError_t err = tc::allow_smem(igdn_deconv_wide_kernel<C>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   igdn_deconv_wide_kernel<C>
@@ -409,7 +448,7 @@ extern "C" {
 // x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and
 // lo (ops/kernels.py::split_gamma); beta (C,) f32; w (25, C/64, O, 64) bf16
 // (see igdn_deconv_wide_kernel); bias (O,) f32; out (B, O, 2H, 2W) bf16.
-// C = O ∈ {64, 128, 192}.
+// C = O ∈ {64, 128, 192, 256}.
 int stem_igdn_deconv_wide_bf16(const void* x, const void* gamma_s,
                                const float* beta, const void* w,
                                const float* bias, void* out, long long batch,
@@ -428,13 +467,15 @@ int stem_igdn_deconv_wide_bf16(const void* x, const void* gamma_s,
     return stem::launch_wide<128>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
   if (C == 192)
     return stem::launch_wide<192>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
+  if (C == 256)
+    return stem::launch_wide<256>(xb, gs, beta, wb, bias, ob, batch, H, W, s);
   return cudaErrorInvalidValue;
 }
 
 // x (B, C, H, W) bf16; gamma_s (C/32, C, 64) bf16 = γ split into hi and
 // lo (ops/kernels.py::split_gamma); beta (C,) f32; w (9, C/64, rows, 64)
 // bf16 (see igdn_deconv_narrow_kernel); bias_m (rows,) f32; out
-// (B, F, 2H, 2W) bf16. C ∈ {64, 128, 192}, 1 ≤ F ≤ 32, rows = 16 for F ≤ 4
+// (B, F, 2H, 2W) bf16. C ∈ {64, 128, 192, 256}, 1 ≤ F ≤ 32, rows = 16 for F ≤ 4
 // and 32·⌈F/8⌉ otherwise (ops/kernels.py::narrow_rows).
 int stem_igdn_deconv_narrow_bf16(const void* x, const void* gamma_s,
                                  const float* beta, const void* w,
@@ -458,6 +499,9 @@ int stem_igdn_deconv_narrow_bf16(const void* x, const void* gamma_s,
                                          F, rows, H, W, s);
   if (C == 192)
     return stem::launch_narrow_rows<192>(xb, gs, beta, wb, bias_m, ob, batch,
+                                         F, rows, H, W, s);
+  if (C == 256)
+    return stem::launch_narrow_rows<256>(xb, gs, beta, wb, bias_m, ob, batch,
                                          F, rows, H, W, s);
   return cudaErrorInvalidValue;
 }

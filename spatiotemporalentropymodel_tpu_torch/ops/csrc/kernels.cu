@@ -28,9 +28,11 @@ namespace tc = stem::tc;
 //
 //   out[b, o, p] = x[b, o, p] * rsqrt(beta[o] + sum_i gamma_t[i, o] * x[b, i, p]^2)
 //
-// (sqrt instead of rsqrt for IGDN) at f32 accuracy. The bf16 entry takes x
-// and writes out in bf16, with f32 math and one rounding at the end, as
-// the TPU kernel casts x to f32 and the result back (_gdn_kernel).
+// (sqrt instead of rsqrt for IGDN) at f32 accuracy, for any C that is a
+// multiple of 64 (the wrapper zero-pads the others) and any B. The bf16
+// entry takes x and writes out in bf16, with f32 math and one rounding at
+// the end, as the TPU kernel casts x to f32 and the result back
+// (_gdn_kernel).
 //
 // Bound on the H100: bytes. The f32 entry at (2088960, 192) moves 3.2 GB
 // (0.958 ms at 3.35 TB/s); its norm, 1.5e11 products, takes 2.3 ms on the
@@ -38,14 +40,18 @@ namespace tc = stem::tc;
 // and less shared between the two (chip_smoke.py::gdn_bound).
 //
 // Design (gdn_kernel, both entries): the norm is a GEMM on wgmma with the
-// pixels as rows. A block takes 128 pixels of one image over all C
-// channels, one warpgroup per 64 (wgmma m64nCk16, C/2 f32 accumulators per
-// thread), so every pixel is read from device memory once and written once.
+// pixels as rows. A block takes 128 pixels of one image (blockIdx.x runs
+// over the tiles of every image, so any batch fits the grid), one
+// warpgroup per 64, and their output channels in chunks of NC (one chunk
+// of all C up to 192; wgmma m64nNCk16, NC/2 f32 accumulators per thread).
 //   1. The window, x in its own type channel-major [C][128 + pad], arrives
 //      by 16-byte cp.async along P (plain loads when a row of P is not a
 //      whole number of 16-byte chunks). A row is 16 bytes longer than its
 //      128 pixels, ≡ 4 words mod 32, so the 8 pixels × 4 channel pairs of
-//      an A fragment fall in distinct banks.
+//      an A fragment fall in distinct banks. Where the window and a ring of
+//      64-row slots do not fit in a block's shared memory (f32 past 384
+//      channels, bf16 past 704), there is no window: the squares and the
+//      rescale read x from device memory (L1/L2) in the same pattern.
 //   2. x² is split exactly into K bf16 pieces, s₀ + … + s_{K−1}, each the
 //      bf16 rounding of what the earlier ones leave; the wrapper splits γ
 //      the same way (ops/kernels.py::split_gamma_pieces), and
@@ -54,24 +60,40 @@ namespace tc = stem::tc;
 //      the dropped terms are below 3·2⁻²⁴ of the norm). bf16 entry: K = 2,
 //      three products (a bf16 square has 16 bits, so s₀ + s₁ is exact; γ
 //      keeps 16 bits). A ring stage is one γ piece for 64 input channels,
-//      C rows × 128 bytes in the header's 3-slot cp.async ring, read by both
-//      warpgroups; a warp computes the pieces of its 16 pixels × 64
-//      channels from the window once and keeps them in registers across
-//      the K stages that use them.
-//   3. x·rsqrt(β + norm) in f32 on the accumulators, x read again from the
-//      window, rounded to the I/O type into the window in place (a warp
-//      owns its 16 pixels over all channels), then 16-byte stores along P.
+//      a chunk's NC rows × 128 bytes in the header's 3-slot cp.async ring,
+//      read by both warpgroups; a warp computes the pieces of its 16 pixels
+//      × 64 channels from the window and keeps them in registers across the
+//      K stages that use them (again for each chunk).
+//   3. x·rsqrt(β + norm) in f32 on the accumulators, x read again. With one
+//      chunk the result is rounded to the I/O type into the window in place
+//      (a warp owns its 16 pixels over all channels), then stored with
+//      16-byte stores along P. With several chunks a later chunk still
+//      reads the squares of the channels an earlier one has finished, so
+//      each chunk goes straight from its accumulators to `out` (8 pixels
+//      contiguous per channel and warp).
+// Chunks (launch_gdn): NC = C up to 192 (then C is a template constant
+// and the rescale runs in place, the design before the chunks); past that
+// the fewest chunks of 64, 128 or 192 whose ring fits beside the window
+// (the smallest such NC), e.g. 2 × 128 at 256 (f32: window 135,168 B +
+// ring 49,152 B), 128 + 128 + 64 at 320 (f32), 6 × 64 at 384 (f32);
+// without a window, chunks of 128 (f32 at 512: 4).
 // Shared memory at C = 192: window 101,376 B (f32) or 52,224 B (bf16) +
 // ring 73,728 B + up to 1,024 B of alignment: 176,128 or 126,976 B, so one
-// block per SM. Registers (nvcc -Xptxas -v) at C = 192 / 128 / 64: 201 /
-// 157 / 106 (f32), 182 / 140 / 90 (bf16), no spills.
+// block per SM. Registers (nvcc -Xptxas -v), one chunk at C = 192 / 128 /
+// 64: 203 / 156 / 106 (f32), 182 / 139 / 90 (bf16); chunks of 192 / 128 /
+// 64 with a window: 189 / 175 / 143 (f32), 180 / 158 / 126 (bf16); of
+// 128 without: 169 (f32), 158 (bf16); no spills.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, through
 // the wrapper (γ's split included): f32 2.24-2.35 ms at (2088960, 192),
 // 2.3-2.4× its byte bound; bf16 0.22-0.23 ms at (130560, 192), bound
-// 0.030 ms (PERF.md §6).
+// 0.030 ms; f32 5.25 ms at (2088960, 256), 4.1× its byte bound of 1.28 ms
+// (PERF.md §6). Alone (ops/kernel_ab.py, the same card): f32 2.13 ms at
+// (2088960, 192) and 4.76 at 256, bf16 0.142 ms at (130560, 192) and
+// 0.233 at 256.
 // ---------------------------------------------------------------------------
 
-constexpr int kGdnTile = 128;  // pixels per block
+constexpr int kGdnTile = 128;       // pixels per block
+constexpr size_t kMaxSmem = 232448;  // shared memory a block may have
 
 template <typename T>
 struct GdnIo {
@@ -115,21 +137,39 @@ __device__ __forceinline__ void split_squares(float a, float b,
   }
 }
 
+// Shared memory of gdn_kernel at C channels: the window (if WIN), the
+// ring's alignment slack and its kStages slots of NC rows.
+template <typename T, int NC, bool WIN>
+constexpr size_t gdn_smem(int C) {
+  return (WIN ? static_cast<size_t>(C) * GdnIo<T>::kStride * sizeof(T) : 0) +
+         1024 + static_cast<size_t>(tc::kStages) * NC * tc::kRowBytes;
+}
+
 // gamma_p: (C/64 · K, C, 64) bf16, γ's K pieces, stage kc·K + j = piece j
 // of input channels 64·kc .. 64·kc + 63 for every output row o
-// (ops/kernels.py::split_gamma_pieces).
-template <typename T, int C, int K, bool INVERSE>
+// (ops/kernels.py::split_gamma_pieces); ring stage (r·C/64 + kc)·K + j is
+// that stage's rows r·NC .. r·NC + NC − 1 (fewer in a last, partial chunk;
+// the slot's other rows give columns that are never stored). C is a
+// multiple of 64; tiles = ⌈P / 128⌉, blockIdx.x = b·tiles + tile. ONE: one
+// chunk of all channels, C = NC known at compile time (the widths up to
+// 192), rescaled in the window; else chunks, with a window if WIN.
+template <typename T, int NC, int K, bool INVERSE, bool WIN, bool ONE>
 __global__ void __launch_bounds__(tc::kThreads, 1)
 gdn_kernel(const T* __restrict__ x, const bf16* __restrict__ gamma_p,
-           const float* __restrict__ beta, T* __restrict__ out, int P) {
+           const float* __restrict__ beta, T* __restrict__ out, int c_arg,
+           int P, int tiles) {
+  static_assert(WIN || !ONE, "one chunk is rescaled in the window");
   using Io = GdnIo<T>;
-  constexpr int S = Io::kStride, KC = C / 64;
+  constexpr int S = Io::kStride;
   constexpr int kRowChunks = kGdnTile / Io::kChunk;
+  const int C = ONE ? NC : c_arg;
+  const int KC = C / 64, rounds = ONE ? 1 : (C + NC - 1) / NC;
   extern __shared__ __align__(16) unsigned char smem[];
   T* win = reinterpret_cast<T*>(smem);
   const uint32_t win_u32 = tc::smem_u32(smem);
-  const int p0 = blockIdx.x * kGdnTile;
-  const long long base = static_cast<long long>(blockIdx.y) * C * P;
+  const int b = blockIdx.x / tiles;
+  const int p0 = (blockIdx.x - b * tiles) * kGdnTile;
+  const long long base = static_cast<long long>(b) * C * P;
   const T* xb = x + base;
   T* ob = out + base;
   const bool vec = (P % Io::kChunk) == 0 &&
@@ -137,27 +177,52 @@ gdn_kernel(const T* __restrict__ x, const bf16* __restrict__ gamma_p,
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
 
   // the window: one cp.async group, complete at the ring's first stage
-  if (vec) {
+  if constexpr (WIN) {
+    if (vec) {
 #pragma unroll 4
-    for (int e = threadIdx.x; e < C * kRowChunks; e += tc::kThreads) {
-      const int c = e / kRowChunks, j = (e % kRowChunks) * Io::kChunk;
-      const bool valid = p0 + j < P;
-      cp_async_zfill(win_u32 + (c * S + j) * sizeof(T),
-                     valid ? xb + static_cast<long long>(c) * P + p0 + j : xb,
-                     valid);
-    }
-  } else {
-    for (int e = threadIdx.x; e < C * kGdnTile; e += tc::kThreads) {
-      const int c = e / kGdnTile, j = e % kGdnTile;
-      win[c * S + j] = p0 + j < P ? xb[static_cast<long long>(c) * P + p0 + j]
-                                  : from_f32<T>(0.f);
+      for (int e = threadIdx.x; e < C * kRowChunks; e += tc::kThreads) {
+        const int c = e / kRowChunks, j = (e % kRowChunks) * Io::kChunk;
+        const bool valid = p0 + j < P;
+        cp_async_zfill(
+            win_u32 + (c * S + j) * sizeof(T),
+            valid ? xb + static_cast<long long>(c) * P + p0 + j : xb, valid);
+      }
+    } else {
+      for (int e = threadIdx.x; e < C * kGdnTile; e += tc::kThreads) {
+        const int c = e / kGdnTile, j = e % kGdnTile;
+        win[c * S + j] = p0 + j < P
+                             ? xb[static_cast<long long>(c) * P + p0 + j]
+                             : from_f32<T>(0.f);
+      }
     }
   }
   tc::cp_async_commit();
-  const auto ring = tc::make_ring<C>(
-      (win_u32 + C * S * sizeof(T) + 1023u) & ~1023u, K * KC,
-      [=](int q) { return gamma_p + q * (C * 64); });
+  const uint32_t win_end =
+      win_u32 + (WIN ? static_cast<uint32_t>(C * S * sizeof(T)) : 0u);
+  const auto ring = tc::make_ring_fn<NC>(
+      (win_end + 1023u) & ~1023u, rounds * KC * K,
+      [=](uint32_t dst, int q) {
+        if constexpr (ONE) {
+          tc::load_stage<NC>(dst, gamma_p + q * (NC * 64));
+        } else {
+          const int r = q / (KC * K), i = q - r * (KC * K);
+          const int rows = C - r * NC < NC ? C - r * NC : NC;
+          tc::load_rows(dst, gamma_p + (static_cast<long long>(i) * C +
+                                        r * NC) * 64, rows);
+        }
+      });
   ring.prefetch();
+
+  // x[c][pixel j of the tile] in f32: from the window, or from device
+  // memory past the image's P pixels as 0
+  auto xat = [&](int c, int j) -> float {
+    if constexpr (WIN) {
+      return to_f32(win[c * S + j]);
+    } else {
+      return p0 + j < P ? to_f32(xb[static_cast<long long>(c) * P + p0 + j])
+                        : 0.f;
+    }
+  };
 
   // warp w: pixels m0 .. m0 + 15 of the tile as A rows (warps 0-3 the first
   // warpgroup's 64, 4-7 the second's); this lane's rows m0 + g and
@@ -165,59 +230,68 @@ gdn_kernel(const T* __restrict__ x, const bf16* __restrict__ gamma_p,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = 16 * warp;
-  T* xr = win + 2 * t * S + m0 + g;
 
-  float acc[C / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < C / 8; ++nt)
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
 #pragma unroll 1
-  for (int kc = 0; kc < KC; ++kc) {
-    uint32_t s[4][4][K];  // [k-step][A fragment register][piece]
+  for (int r = 0; r < rounds; ++r) {
+    float acc[NC / 8][4];
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const uint32_t slot = ring.next(kc * K + j);
-      if (j == 0) {
+    for (int nt = 0; nt < NC / 8; ++nt)
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll 1
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t s[4][4][K];  // [k-step][A fragment register][piece]
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          // fragment register i: rows + 8·(i & 1), channels + 8·(i >> 1)
+      for (int j = 0; j < K; ++j) {
+        const uint32_t slot = ring.next((r * KC + kc) * K + j);
+        if (j == 0) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const T* q = xr + (kc * 64 + kk * 16 + (i >> 1) * 8) * S +
-                         (i & 1) * 8;
-            split_squares<K>(to_f32(q[0]), to_f32(q[S]), s[kk][i]);
+          for (int kk = 0; kk < 4; ++kk) {
+            // fragment register i: rows + 8·(i & 1), channels + 8·(i >> 1)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int c = kc * 64 + kk * 16 + (i >> 1) * 8 + 2 * t;
+              const int px = m0 + g + (i & 1) * 8;
+              split_squares<K>(xat(c, px), xat(c + 1, px), s[kk][i]);
+            }
           }
         }
-      }
-      tc::wgmma_fence();
-      const uint64_t d = tc::ring_desc(slot);
+        tc::wgmma_fence();
+        const uint64_t d = tc::ring_desc(slot);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int i = K - 1 - j; i >= 0; --i) {  // the small products first
-          const uint32_t a[4] = {s[kk][0][i], s[kk][1][i], s[kk][2][i],
-                                 s[kk][3][i]};
-          tc::wgmma<C>(acc, a, d + kk * 2);
+          for (int i = K - 1 - j; i >= 0; --i) {  // the small products first
+            const uint32_t a[4] = {s[kk][0][i], s[kk][1][i], s[kk][2][i],
+                                   s[kk][3][i]};
+            tc::wgmma<NC>(acc, a, d + kk * 2);
+          }
         }
+        tc::wgmma_commit();
+        tc::wgmma_wait_all();
       }
-      tc::wgmma_commit();
-      tc::wgmma_wait_all();
     }
-  }
 
-  // acc[nt][e]: pixel m0 + g + 8·(e / 2), channel o = 8·nt + 2t + e % 2
+    // acc[nt][e]: pixel m0 + g + 8·(e / 2), channel o = r·NC + 8·nt + 2t +
+    // e % 2
 #pragma unroll
-  for (int nt = 0; nt < C / 8; ++nt) {
-    const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + 8 * nt +
-                                                            2 * t));
+    for (int nt = 0; nt < NC / 8; ++nt) {
+      const int o2 = r * NC + 8 * nt + 2 * t;  // channels o2, o2 + 1
+      if (!ONE && o2 >= C) continue;
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(beta + o2));
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      T* px = xr + (8 * nt + (e & 1)) * S + 8 * (e >> 1);
-      const float n = acc[nt][e] + ((e & 1) ? bb.y : bb.x);
-      const float v = to_f32(*px);
-      *px = from_f32<T>(INVERSE ? v * sqrtf(n) : v * rsqrtf(n));
+      for (int e = 0; e < 4; ++e) {
+        const int o = o2 + (e & 1), px = m0 + g + 8 * (e >> 1);
+        const float n = acc[nt][e] + ((e & 1) ? bb.y : bb.x);
+        const float v = xat(o, px);
+        const T y = from_f32<T>(INVERSE ? v * sqrtf(n) : v * rsqrtf(n));
+        if constexpr (ONE)
+          win[o * S + px] = y;
+        else if (p0 + px < P)
+          ob[static_cast<long long>(o) * P + p0 + px] = y;
+      }
     }
   }
+  if constexpr (!ONE) return;
   __syncthreads();
   if (vec) {
 #pragma unroll 4
@@ -236,48 +310,65 @@ gdn_kernel(const T* __restrict__ x, const bf16* __restrict__ gamma_p,
   }
 }
 
-template <typename T, int C, int K, bool INVERSE>
+// K = 3 pieces for f32 x, 2 for bf16 x
+template <typename T, int NC, bool WIN, bool ONE = false>
 int launch_gdn_c(const T* x, const bf16* gamma_p, const float* beta, T* out,
-                 long long batch, int P, cudaStream_t stream) {
-  const size_t smem =
-      static_cast<size_t>(C) * GdnIo<T>::kStride * sizeof(T) + 1024 +
-      static_cast<size_t>(tc::kStages) * C * tc::kRowBytes;
-  cudaError_t err = tc::allow_smem(gdn_kernel<T, C, K, INVERSE>, smem);
+                 long long batch, int C, int P, int inverse,
+                 cudaStream_t stream) {
+  constexpr int K = sizeof(T) == 4 ? 3 : 2;
+  const long long tiles = (P + kGdnTile - 1) / kGdnTile;
+  if (batch * tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = gdn_smem<T, NC, WIN>(C);
+  const auto kernel = inverse ? gdn_kernel<T, NC, K, true, WIN, ONE>
+                              : gdn_kernel<T, NC, K, false, WIN, ONE>;
+  cudaError_t err = tc::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((P + kGdnTile - 1) / kGdnTile, static_cast<unsigned>(batch));
-  gdn_kernel<T, C, K, INVERSE><<<grid, tc::kThreads, smem, stream>>>(
-      x, gamma_p, beta, out, P);
+  kernel<<<static_cast<unsigned>(batch * tiles), tc::kThreads, smem,
+           stream>>>(x, gamma_p, beta, out, C, P, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
-// K = 3 pieces for f32 x, 2 for bf16 x
-template <int C, typename T>
-int launch_gdn_inv(const T* x, const bf16* gamma_p, const float* beta, T* out,
-                   long long batch, int P, int inverse, cudaStream_t stream) {
-  constexpr int K = sizeof(T) == 4 ? 3 : 2;
-  return inverse
-             ? launch_gdn_c<T, C, K, true>(x, gamma_p, beta, out, batch, P,
-                                           stream)
-             : launch_gdn_c<T, C, K, false>(x, gamma_p, beta, out, batch, P,
-                                            stream);
-}
-
+// The chunks of C (a multiple of 64): all C in one up to 192; else the
+// fewest chunks of 64, 128 or 192 whose ring fits beside the window (the
+// smallest such NC), else chunks of 128 without a window.
 template <typename T>
 int launch_gdn(const T* x, const void* gamma_p, const float* beta, T* out,
                long long batch, int C, long long P, int inverse,
                void* stream) {
   if (batch == 0 || P == 0) return 0;
-  if (batch > 65535 || P > 0x7fffffffLL - kGdnTile)
+  if (C <= 0 || C % 64 != 0 || P > 0x7fffffffLL - kGdnTile)
     return cudaErrorInvalidValue;
   const bf16* g = static_cast<const bf16*>(gamma_p);
   const int p = static_cast<int>(P);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C == 64) return launch_gdn_inv<64>(x, g, beta, out, batch, p, inverse, s);
+  if (C == 64)
+    return launch_gdn_c<T, 64, true, true>(x, g, beta, out, batch, C, p,
+                                           inverse, s);
   if (C == 128)
-    return launch_gdn_inv<128>(x, g, beta, out, batch, p, inverse, s);
+    return launch_gdn_c<T, 128, true, true>(x, g, beta, out, batch, C, p,
+                                            inverse, s);
   if (C == 192)
-    return launch_gdn_inv<192>(x, g, beta, out, batch, p, inverse, s);
-  return cudaErrorInvalidValue;
+    return launch_gdn_c<T, 192, true, true>(x, g, beta, out, batch, C, p,
+                                            inverse, s);
+  int nc = 0;
+  const size_t fit[3] = {gdn_smem<T, 64, true>(C), gdn_smem<T, 128, true>(C),
+                         gdn_smem<T, 192, true>(C)};
+  for (int k = 2; k >= 0; --k) {
+    const int cand = 64 * (k + 1);
+    if (fit[k] <= kMaxSmem &&
+        (nc == 0 || (C + cand - 1) / cand <= (C + nc - 1) / nc))
+      nc = cand;
+  }
+  if (nc == 64) return launch_gdn_c<T, 64, true>(x, g, beta, out, batch, C, p,
+                                                 inverse, s);
+  if (nc == 128)
+    return launch_gdn_c<T, 128, true>(x, g, beta, out, batch, C, p, inverse,
+                                      s);
+  if (nc == 192)
+    return launch_gdn_c<T, 192, true>(x, g, beta, out, batch, C, p, inverse,
+                                      s);
+  return launch_gdn_c<T, 128, false>(x, g, beta, out, batch, C, p, inverse,
+                                     s);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,8 +610,8 @@ int launch_qidx(const void* y, const void* means, const void* scales,
 extern "C" {
 
 // x and out (B, C, P) f32; gamma_p (C/64 · 3, C, 64) bf16 = γ in three
-// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32.
-// C ∈ {64, 128, 192}.
+// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32. C a
+// multiple of 64, B·⌈P/128⌉ < 2³¹.
 int stem_gdn_fused_f32(const float* x, const void* gamma_p, const float* beta,
                        float* out, long long batch, int C, long long P,
                        int inverse, void* stream) {
@@ -528,8 +619,8 @@ int stem_gdn_fused_f32(const float* x, const void* gamma_p, const float* beta,
 }
 
 // x and out (B, C, P) bf16; gamma_p (C/64 · 2, C, 64) bf16 = γ in two
-// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32.
-// C ∈ {64, 128, 192}.
+// pieces (ops/kernels.py::split_gamma_pieces); beta (C,) f32. C a
+// multiple of 64, B·⌈P/128⌉ < 2³¹.
 int stem_gdn_fused_bf16(const void* x, const void* gamma_p,
                         const float* beta, void* out, long long batch, int C,
                         long long P, int inverse, void* stream) {

@@ -8,15 +8,18 @@ tree's ``ops/csrc`` (e.g. a ``git archive`` of the parent commit) beside
 this tree's (``build.build``), and launches the C entries whose arguments
 both trees share, on the same inputs and in one process: quantize_and_index
 at the y plane of 4 × 1088 × 1920 frames (its contiguous f32 entry),
-gdn_conv_fused at g_a's three stages and the wide g_s kernel at 272 × 480
-and 136 × 240 (C = 192). For each, N rounds of this, other, other, this,
-each timed with CUDA events over 20 launches. The wrappers' host time
-(argument checks, packing) is left out, so the ratio is the kernels' alone.
-An entry the other tree lacks (quantize_and_index's strided f32 and bf16
-entries, which read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is
-timed in this tree's build alone, 2N times, and so is gdn_conv_fused at
-192 → 320 on one 192 × 136 × 240 input (g_a's last stage of the zoo's N =
-192, M = 320 models), which trees before its instantiation refuse.
+gdn_fused's f32 entry at g_a's first GDN (4 × 192 × 544 × 960) and its
+bf16 entry at g_s's first IGDN (4 × 192 × 136 × 240), gdn_conv_fused at
+g_a's three stages and the wide g_s kernel at 272 × 480 and 136 × 240 (C =
+192). For each, N rounds of this, other, other, this, each timed with CUDA
+events over 20 launches. The wrappers' host time (argument checks,
+packing) is left out, so the ratio is the kernels' alone. An entry the
+other tree lacks (quantize_and_index's strided f32 and bf16 entries, which
+read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is timed in this
+tree's build alone, 2N times, and so are the widths trees before them
+refuse: gdn_conv_fused at 192 → 320 on one 192 × 136 × 240 input (g_a's
+last stage of the zoo's N = 192, M = 320 models), and gdn_fused at 256
+on the same shapes as at 192.
 
 Prints one JSON line per kernel and shape: the median ms per launch of
 each build over its 2N timings, their spread and the ratio other / this
@@ -42,6 +45,8 @@ SIGNATURES = {
         VP, I32, ctypes.c_float, VP, VP, VP],
     "stem_quantize_and_index_bf16": [VP] * 3 + [I64] * 5 + [
         VP, I32, ctypes.c_float, VP, VP, VP],
+    "stem_gdn_fused_f32": [VP] * 4 + [I64, I32, I64, I32, VP],
+    "stem_gdn_fused_bf16": [VP] * 4 + [I64, I32, I64, I32, VP],
     "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
 }
@@ -92,6 +97,20 @@ def _cases(gen):
                        both.data_ptr(), b, per, per, 2 * per, 2 * per,
                        table.data_ptr(), table.numel() - 1, 0.11,
                        sym.data_ptr(), idx.data_ptr()), True))
+    for cg in (c, 256):  # gdn_fused, its f32 and bf16 entries
+        gt = (0.02 * torch.rand((cg, cg), generator=gen, device=dev)
+              + 0.1 * torch.eye(cg, device=dev)).t().contiguous()
+        bg = 1.0 + torch.rand((cg,), generator=gen, device=dev)
+        for entry, dtype, k, (h, w), inverse in (
+                ("stem_gdn_fused_f32", torch.float32, 3, (544, 960), 0),
+                ("stem_gdn_fused_bf16", torch.bfloat16, 2, (136, 240), 1)):
+            x = torch.randn((b, cg, h, w), generator=gen,
+                            device=dev).to(dtype)
+            out, gp = torch.empty_like(x), kernels.split_gamma_pieces(gt, k)
+            keep += [gt, bg, x, out, gp]
+            cases.append((f"{entry} {[b, cg, h, w]}", entry,
+                          (x.data_ptr(), gp.data_ptr(), bg.data_ptr(),
+                           out.data_ptr(), b, cg, h * w, inverse), cg == c))
     gamma = (0.02 * torch.rand((c, c), generator=gen, device=dev)
              + 0.1 * torch.eye(c, device=dev))
     gs = kernels.split_gamma(gamma.t().contiguous())

@@ -76,13 +76,14 @@ def _count(name, *widths) -> None:
 
 
 # channel counts the fused GDN + conv kernels are instantiated for
-# (gdn_conv.cu, igdn_deconv.cu)
-FUSED_CHANNELS = (64, 128, 192)
+# (gdn_conv.cu, igdn_deconv.cu); ``gdn_fused`` takes any C
+FUSED_CHANNELS = (64, 128, 192, 256)
 
 # (C, O) pairs ``gdn_conv_fused`` is instantiated for (gdn_conv.cu): C = O
-# at each width, and g_a's last stage of the N = 128, M = 192 and the
-# N = 192, M = 320 models
-GDN_CONV_PAIRS = ((64, 64), (128, 128), (192, 192), (128, 192), (192, 320))
+# at each width, and g_a's last stage of the N = 128, M = 192, the
+# N = 192, M = 320 and the N = 256, M = 320 models
+GDN_CONV_PAIRS = ((64, 64), (128, 128), (192, 192), (256, 256), (128, 192),
+                  (192, 320), (256, 320))
 
 # the JAX package's peephole knobs (pallas_kernels.py:1341, :513, :262,
 # :1151), with its defaults
@@ -251,11 +252,8 @@ def _gdn_launch(x, gamma_t, beta, inverse: bool):
             f"{name}: x {tuple(x.shape)} needs gamma_t ({c}, {c}) and "
             f"beta ({c},), got {tuple(gamma_t.shape)}, {tuple(beta.shape)}"
         )
-    if c > FUSED_CHANNELS[-1]:
-        raise ValueError(f"{name}: no kernel for {c} > "
-                         f"{FUSED_CHANNELS[-1]} channels")
     p = x.numel() // max(b * c, 1)
-    cp = next(k for k in FUSED_CHANNELS if k >= c)
+    cp = -(-c // 64) * 64  # the kernel's channels: a multiple of 64
     xk = x.reshape(b, c, p)
     if cp != c:  # zero channels: no x², no output, β = 1 keeps rsqrt finite
         xk = F.pad(xk, (0, 0, 0, cp - c))
@@ -276,9 +274,9 @@ def _gdn_launch(x, gamma_t, beta, inverse: bool):
 def gdn_fused(x, gamma_t, beta, inverse: bool = False):
     """Fused GDN over channel-second x (B, C, ...), f32 or bf16. gamma_t is
     (in, out) = γ transposed and beta is (C,), both f32 on the card. Output
-    has x's shape and dtype; the math is f32. The card's kernel takes C of
-    64, 128 or 192; other C up to 192 run zero-padded to the next of them,
-    and more raise."""
+    has x's shape and dtype; the math is f32. The card's kernel takes any
+    C that is a multiple of 64 and any batch; other C run zero-padded to
+    the next multiple of 64."""
     inverse = bool(inverse)
     return _KernelFn.apply("gdn_fused", partial(_gdn_plain, inverse=inverse),
                            partial(_gdn_launch, inverse=inverse),

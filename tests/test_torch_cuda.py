@@ -497,7 +497,7 @@ def test_cuda_fused_wrappers_reject_bad_inputs(cuda):
     assert kernels.LAUNCHES == n0
 
 
-def _check_narrow(cuda, c, f, h, w, wide_range=False):
+def _check_narrow(cuda, c, f, h, w, wide_range=False, window_step=False):
     rng = np.random.default_rng(10 * c + f)
     x = (_wide_range(rng, (2, c, h, w), cuda) if wide_range
          else _bf16(rng, (2, c, h, w), cuda))
@@ -513,7 +513,10 @@ def _check_narrow(cuda, c, f, h, w, wide_range=False):
     torch.cuda.synchronize()
     assert out.shape == (2, f, 2 * h, 2 * w)
     _assert_scaled_close(out, ref, PLAIN_TOL)
-    _assert_scaled_close(out, win, WINDOW_TOL)
+    if window_step:
+        _assert_within_top_step(out, win)
+    else:
+        _assert_scaled_close(out, win, WINDOW_TOL)
     assert (kernels.LAUNCHES["igdn_deconv_fused"]
             == n0["igdn_deconv_fused"] + 1)
     assert (kernels.LAUNCHES["igdn_deconv_tail_packed"]
@@ -540,7 +543,7 @@ def test_cuda_igdn_deconv_fused_dynamic_range(cuda, c, f, h, w):
     _check_narrow(cuda, c, f, h, w, wide_range=True)
 
 
-def _check_wide(cuda, c, b, h, w, wide_range=False):
+def _check_wide(cuda, c, b, h, w, wide_range=False, window_step=False):
     rng = np.random.default_rng(h + w)
     x = (_wide_range(rng, (b, c, h, w), cuda) if wide_range
          else _bf16(rng, (b, c, h, w), cuda))
@@ -556,7 +559,10 @@ def _check_wide(cuda, c, b, h, w, wide_range=False):
     torch.cuda.synchronize()
     assert out.shape == (b, c, 2 * h, 2 * w)
     _assert_scaled_close(out, ref, PLAIN_TOL)
-    _assert_scaled_close(out, win, WINDOW_TOL)
+    if window_step:
+        _assert_within_top_step(out, win)
+    else:
+        _assert_scaled_close(out, win, WINDOW_TOL)
     assert kernels.LAUNCHES["igdn_deconv_wide"] == n0["igdn_deconv_wide"] + 1
     assert (kernels.LAUNCHES["igdn_deconv_wide_packed"]
             == n0["igdn_deconv_wide_packed"])
@@ -586,6 +592,132 @@ def test_cuda_igdn_deconv_wide_dynamic_range(cuda, c, h, w):
     """x over two and a half decades, so x²·γ dominates β in the IGDN."""
     _check_wide(cuda, c, 2, h, w, wide_range=True)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [200, 256, 320, 384, 512])
+@pytest.mark.parametrize("hw", [(24, 40), (9, 13)])
+def test_cuda_gdn_fused_past_192_channels(cuda, c, hw):
+    """gdn_fused past 192 channels: the norm in chunks of output channels
+    (two of 128 at 256; 128 + 128 + 64 at 320 in f32; 6 × 64 at 384 in
+    f32; 512 f32 without a window, x read from device memory; 200 runs
+    zero-padded to 256), both entries, forward and inverse, on x over two
+    and a half decades, with P a multiple of 8 and odd (partial tiles):
+    f32 at rtol 1e-5, atol 1e-6, bf16 at rtol 2⁻⁷. Each launch counted at
+    its width."""
+    rng = np.random.default_rng(c + hw[1])
+    x = _wide_range_f32(rng, (2, c) + hw, cuda)
+    gt, beta = _gdn_params(rng, c, cuda)
+    kernels.reset_launch_counts()
+    for inverse in (False, True):
+        out = kernels.gdn_fused(x, gt, beta, inverse)
+        ref = kernels._gdn_ref(x, gt, beta, inverse)
+        assert out.shape == x.shape and out.dtype == torch.float32
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+        xb = x.to(torch.bfloat16)
+        out = kernels.gdn_fused(xb, gt, beta, inverse)
+        ref = kernels._gdn_ref(xb.float(), gt, beta, inverse).to(xb.dtype)
+        assert out.shape == x.shape and out.dtype == torch.bfloat16
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7,
+                                   atol=1e-6)
+    assert kernels.LAUNCHES_BY_WIDTH == {("gdn_fused", c): 2,
+                                         ("gdn_fused_bf16", c): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,p", [(64, 3), (192, 8)])
+def test_cuda_gdn_fused_batch_past_65535(cuda, c, p):
+    """A batch of 65,600 items (past the 65,535 a grid's y dimension
+    takes): the batch is folded into the grid's x dimension, both
+    entries, against the plain version."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy((rng.standard_normal((65600, c, 1, p))).astype(
+        np.float32)).to(cuda)
+    gt, beta = _gdn_params(rng, c, cuda)
+    for inverse in (False, True):
+        out = kernels.gdn_fused(x, gt, beta, inverse)
+        torch.testing.assert_close(out, kernels._gdn_ref(x, gt, beta,
+                                                         inverse),
+                                   rtol=1e-5, atol=1e-6)
+        xb = x.to(torch.bfloat16)
+        out = kernels.gdn_fused(xb, gt, beta, inverse)
+        ref = kernels._gdn_ref(xb.float(), gt, beta, inverse).to(xb.dtype)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2**-7,
+                                   atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("o,h,w,wide_range", [
+    (256, 17, 35, False), (256, 20, 72, True), (256, 68, 120, False),
+    (320, 17, 35, False), (320, 20, 72, True), (320, 34, 60, False)])
+def test_cuda_gdn_conv_fused_256(cuda, o, h, w, wide_range):
+    """C = 256 → O = 256 and 320 (g_a of MeanScaleHyperprior(256, 320)):
+    tiles of 4 × 14 and 4 × 13 output pixels, O in two groups of 128 and
+    160 over one window, the norm in two chunks of 128; partial edge
+    tiles, W a multiple of 8 and not, and x over two and a half decades.
+    Against the window's arithmetic within one bf16 step of the largest
+    output, as at 192 → 320."""
+    assert kernels.gdn_conv_supported(256, o)
+    _check_gdn_conv(cuda, 256, h, w, wide_range, o=o, window_step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(9, 33), (17, 64)])
+def test_cuda_igdn_deconv_pair_256(cuda, h, w):
+    """The packed g_s pair at C = 256: the wide kernel (O in two groups of
+    128) then the tail (N → 3) on its output, each against its plain
+    version, with partial and whole 8 × 32 input tiles; against the
+    window's arithmetic within one bf16 step of the largest output, as at
+    192 → 320 (at 17 × 64 an output of 25.125 lies 0.125 off, one step
+    there, above 2⁻⁸·max|ref| = 0.098)."""
+    rng = np.random.default_rng(256 + w)
+    c = 256
+    x = _bf16(rng, (2, c, h, w), cuda)
+    g1, b1 = _gdn_params(rng, c, cuda)
+    g2, b2 = _gdn_params(rng, c, cuda)
+    w1 = _bf16(rng, (c, c, 5, 5), cuda, 0.05)
+    w2 = _bf16(rng, (c, 3, 5, 5), cuda, 0.05)
+    s1 = torch.from_numpy(rng.standard_normal(c).astype(np.float32)).to(cuda)
+    s2 = torch.from_numpy(rng.standard_normal(3).astype(np.float32)).to(cuda)
+    kernels.reset_launch_counts()
+    mid = kernels.igdn_deconv_wide_packed(x, g1, b1, w1, s1)
+    out = kernels.igdn_deconv_tail_packed(mid, g2, b2, w2, s2)
+    mid_ref = kernels._igdn_deconv_ref(x, g1, b1, w1, s1)
+    ref = kernels._igdn_deconv_ref(mid, g2, b2, w2, s2)
+    mid_win = _window_bf16_conv(x, g1, b1, True, lambda g: F.conv_transpose2d(
+        g, w1.float(), s1, 2, 2, 1))
+    win = _window_bf16_conv(mid, g2, b2, True, lambda g: F.conv_transpose2d(
+        g, w2.float(), s2, 2, 2, 1))
+    torch.cuda.synchronize()
+    assert mid.shape == (2, c, 2 * h, 2 * w)
+    assert out.shape == (2, 3, 4 * h, 4 * w)
+    _assert_scaled_close(mid, mid_ref, PLAIN_TOL)
+    _assert_within_top_step(mid, mid_win)
+    _assert_scaled_close(out, ref, PLAIN_TOL)
+    _assert_within_top_step(out, win)
+    assert kernels.LAUNCHES_BY_WIDTH == {
+        ("igdn_deconv_wide_packed", c, c): 1,
+        ("igdn_deconv_tail_packed", c, 3): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [3, 8, 20, 32])
+def test_cuda_igdn_deconv_fused_256(cuda, f):
+    """The lone narrow kernel at C = 256, 16, 32, 96 and 128 GEMM rows, at
+    17 × 30 (partial tiles, the 2-byte window gather); against the
+    window's arithmetic within one bf16 step of the largest output."""
+    _check_narrow(cuda, 256, f, 17, 30, window_step=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w,wide_range", [(2, 17, 30, False),
+                                              (2, 13, 40, True),
+                                              (1, 68, 120, False)])
+def test_cuda_igdn_deconv_wide_256(cuda, b, h, w, wide_range):
+    """The lone wide kernel at C = O = 256: ragged and whole tiles, and x
+    over two and a half decades; against the window's arithmetic within
+    one bf16 step of the largest output."""
+    _check_wide(cuda, 256, b, h, w, wide_range, window_step=True)
 
 def _grad_case(name, rng, device):
     """(wrapper, plain version, inputs) of one differentiable kernel at a
