@@ -1138,8 +1138,8 @@ def run_res_wavefront(torch, kernels, card):
         f"x̂ finite bf16, bpp per frame {bpps}")
     check_batch_invariance(torch, pipe, frames[1])
 
-    # ---- stage breakdown: one frame with the codec's stage clock on (it
-    # synchronises at each boundary), median of 3 ----
+    # ---- stage breakdown: one frame with the codec's stage clock on (host
+    # seconds a stage; no synchronisation), median of 3 ----
     y_cur, y_cond = frames[0][0], frames[0][1]
     runs = []
     for _ in range(3):
@@ -3307,9 +3307,9 @@ def _charm_bpp(enc, pixels):
 def _charm_times(torch, model, y_cur, y_cond, enc):
     """Median ms over CHARM_TIMED runs of compress and of the fetch-free
     decompress (synchronised, no stage clock); then one run of each with
-    the stage clock (models/base.py::_codec_stats, which synchronises at
-    each boundary): its split into encode dispatch (the device pass and its
-    fetch), host rANS and decode dispatch."""
+    the stage clock (models/base.py::_codec_stats, host seconds, no
+    synchronisation): its split into encode dispatch (the device pass and
+    its fetch), host rANS and decode dispatch."""
     comp, deco = [], []
     for _ in range(CHARM_TIMED):
         comp.append(timed_ms(torch, lambda: model.compress(y_cur, y_cond))[0])

@@ -3,7 +3,11 @@
 The port's copy of spatiotemporalentropymodel_tpu/entropy/base.py (NumPy
 only): EntropyModel.compress/decompress (entropy_models.py:201-279) over
 batched int32 planes in NHWC order, the coder per batch element, with the
-native coder's acceleration tables where the coder has them.
+native coder's acceleration tables where the coder has them. Each stream's
+coder call is a span (utils/trace.py), ``rans.y.encode`` and so on, by the
+``stream`` it codes: "y" the latent, "z" the hyper-latent; the bottleneck's
+symbols and values on either side of it are ``eb.symbols`` and
+``eb.dequantize``.
 """
 
 from typing import List, Optional, Sequence
@@ -11,6 +15,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..coders import get_coder
+from ..utils import trace
 from .tables import CodecTables
 
 # Symbols saturate to an int32-safe band before coding. The reference casts
@@ -64,6 +69,7 @@ def compress(
     tables: CodecTables,
     coder=None,
     order: str = "chw",
+    stream: str = "y",
 ) -> List[bytes]:
     """Encode per-batch-element bitstreams.
 
@@ -76,17 +82,19 @@ def compress(
         raise ValueError("`symbols` and `indexes` must have the same shape")
     esym = get_enc_table(tables, coder)
     kw = {} if esym is None else {"esym": esym}
-    return [
-        coder.encode_with_indexes(
-            _flatten(symbols[i], order),
-            _flatten(indexes[i], order),
-            tables.cdf,
-            tables.cdf_length,
-            tables.offset,
-            **kw,
-        )
-        for i in range(symbols.shape[0])
-    ]
+    name = "rans.z.encode" if stream == "z" else "rans.y.encode"
+    out = []
+    for i in range(symbols.shape[0]):
+        with trace.span(name):
+            out.append(coder.encode_with_indexes(
+                _flatten(symbols[i], order),
+                _flatten(indexes[i], order),
+                tables.cdf,
+                tables.cdf_length,
+                tables.offset,
+                **kw,
+            ))
+    return out
 
 
 def get_lut(tables: CodecTables, coder):
@@ -113,6 +121,7 @@ def decompress(
     tables: CodecTables,
     coder=None,
     order: str = "chw",
+    stream: str = "y",
 ) -> np.ndarray:
     """Decode bitstreams back to int32 symbols with `indexes`'s shape."""
     coder = coder or get_coder()
@@ -125,16 +134,18 @@ def decompress(
     transpose = order == "chw" and len(plane_shape) >= 2
     if transpose:
         plane_shape = (plane_shape[-1],) + plane_shape[:-1]
+    name = "rans.z.decode" if stream == "z" else "rans.y.decode"
     for i, s in enumerate(strings):
-        plane = coder.decode_with_indexes(
-            s,
-            _flatten(indexes[i], order),
-            tables.cdf,
-            tables.cdf_length,
-            tables.offset,
-            lut=lut,
-        ).reshape(plane_shape)
-        out[i] = np.moveaxis(plane, 0, -1) if transpose else plane
+        with trace.span(name):
+            plane = coder.decode_with_indexes(
+                s,
+                _flatten(indexes[i], order),
+                tables.cdf,
+                tables.cdf_length,
+                tables.offset,
+                lut=lut,
+            ).reshape(plane_shape)
+            out[i] = np.moveaxis(plane, 0, -1) if transpose else plane
     return out
 
 
@@ -160,14 +171,15 @@ def bottleneck_indexes(shape, channels: int) -> np.ndarray:
     )
 
 
-def bottleneck_compress(z, tables: CodecTables, coder=None) -> List[bytes]:
+def bottleneck_compress(z, tables: CodecTables, coder=None,
+                        stream: str = "z") -> List[bytes]:
     """EB compress: symbols = round(z − median[c]) (entropy_models.py:461-464).
     z is a host NHWC plane."""
     z = np.asarray(z)
-    medians = tables.medians[None, None, None, :]
-    symbols = safe_symbols(z, medians)
+    with trace.span("eb.symbols"):
+        symbols = safe_symbols(z, tables.medians[None, None, None, :])
     idx = bottleneck_indexes(z.shape, z.shape[-1])
-    return compress(symbols, idx, tables, coder)
+    return compress(symbols, idx, tables, coder, stream=stream)
 
 
 def bottleneck_decompress(
@@ -176,11 +188,13 @@ def bottleneck_decompress(
     tables: CodecTables,
     coder=None,
     dtype=np.float32,
+    stream: str = "z",
 ) -> np.ndarray:
     """EB decompress → ẑ = symbols + median[c] (entropy_models.py:466-470),
     a host NHWC plane."""
     h, w = spatial_shape
     c = tables.rows
     idx = bottleneck_indexes((len(strings), h, w, c), c)
-    symbols = decompress(strings, idx, tables, coder)
-    return (symbols + tables.medians[None, None, None, :]).astype(dtype)
+    symbols = decompress(strings, idx, tables, coder, stream=stream)
+    with trace.span("eb.dequantize"):
+        return (symbols + tables.medians[None, None, None, :]).astype(dtype)

@@ -15,6 +15,10 @@ Replaces the reference's per-tensor ``.tolist()`` boundary
 (entropy_models.py:201-233) with, per 1080p frame: ~0.5 MB down on encode and
 ~0.5 MB up on decode (zero fetches — the container carries the row counts),
 vs ~10 MB dense.
+
+Spans (utils/trace.py): ``transport.unpack`` and ``transport.pack`` around
+the buffer work, and one ``rans.y.encode``/``rans.y.decode`` per coded
+stream.
 """
 
 import struct
@@ -24,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ..coders import get_coder
+from ..utils import trace
 from . import base as entropy_base
 from .tables import CodecTables
 
@@ -81,46 +86,48 @@ class SparseEncodePlanes:
 
 
 def unpack_encode(buf, layout: SparseLayout) -> SparseEncodePlanes:
-    buf = np.asarray(buf, np.uint8)
-    if buf.size != layout.total:
-        raise ValueError(
-            f"transport buffer size {buf.size} != layout {layout.total}"
-        )
-    s = layout.sizes
-    off = np.cumsum((0,) + s)
-    b, n, cap = layout.b, layout.n, layout.cap
+    with trace.span("transport.unpack"):
+        buf = np.asarray(buf, np.uint8)
+        if buf.size != layout.total:
+            raise ValueError(
+                f"transport buffer size {buf.size} != layout {layout.total}"
+            )
+        s = layout.sizes
+        off = np.cumsum((0,) + s)
+        b, n, cap = layout.b, layout.n, layout.cap
 
-    maskbits = buf[off[0]:off[1]].reshape(b, n // 8)
-    values = buf[off[1]:off[2]].view(np.int8).reshape(b, cap)
-    counts = buf[off[2]:off[3]].view(np.int32).reshape(b, layout.levels)
-    z_sym = buf[off[3]:off[4]].view(np.int8).reshape(b, layout.zn)
-    meta = buf[off[4]:off[5]].view(np.int32).reshape(b, 2)
+        maskbits = buf[off[0]:off[1]].reshape(b, n // 8)
+        values = buf[off[1]:off[2]].view(np.int8).reshape(b, cap)
+        counts = buf[off[2]:off[3]].view(np.int32).reshape(b, layout.levels)
+        z_sym = buf[off[3]:off[4]].view(np.int8).reshape(b, layout.zn)
+        meta = buf[off[4]:off[5]].view(np.int32).reshape(b, 2)
 
-    if meta[:, 1].any():  # int8/capacity overflow → caller re-encodes dense
+        if meta[:, 1].any():  # int8/capacity overflow → re-encoded dense
+            return SparseEncodePlanes(
+                y_sorted=np.zeros((b, n), np.int32),
+                counts=counts,
+                z_sym=z_sym.astype(np.int32),
+                overflow=True,
+            )
+
+        coder = get_coder()
+        if coder.supports_runs:
+            y_sorted = np.stack([
+                coder.expand_sparse(maskbits[i], values[i], n)
+                for i in range(b)
+            ])
+        else:
+            mask = np.unpackbits(maskbits, axis=-1, bitorder="little").astype(
+                bool)
+            y_sorted = np.zeros((b, n), np.int32)
+            for i in range(b):
+                y_sorted[i, mask[i]] = values[i, :int(meta[i, 0])]
         return SparseEncodePlanes(
-            y_sorted=np.zeros((b, n), np.int32),
+            y_sorted=y_sorted,
             counts=counts,
             z_sym=z_sym.astype(np.int32),
-            overflow=True,
+            overflow=False,
         )
-
-    coder = get_coder()
-    if coder.supports_runs:
-        y_sorted = np.stack([
-            coder.expand_sparse(maskbits[i], values[i], n) for i in range(b)
-        ])
-    else:
-        mask = np.unpackbits(maskbits, axis=-1, bitorder="little").astype(
-            bool)
-        y_sorted = np.zeros((b, n), np.int32)
-        for i in range(b):
-            y_sorted[i, mask[i]] = values[i, :int(meta[i, 0])]
-    return SparseEncodePlanes(
-        y_sorted=y_sorted,
-        counts=counts,
-        z_sym=z_sym.astype(np.int32),
-        overflow=False,
-    )
 
 
 def rows_from_counts(counts: np.ndarray) -> np.ndarray:
@@ -149,13 +156,14 @@ def encode_grouped(
     y_sorted = np.ascontiguousarray(y_sorted, np.int32)
     counts = np.ascontiguousarray(counts, np.int32)
     esym = entropy_base.get_enc_table(tables, coder)
-    return [
-        coder.encode_runs(
-            y_sorted[i], counts[i], tables.cdf, tables.cdf_length,
-            tables.offset, esym,
-        )
-        for i in range(y_sorted.shape[0])
-    ]
+    out = []
+    for i in range(y_sorted.shape[0]):
+        with trace.span("rans.y.encode"):
+            out.append(coder.encode_runs(
+                y_sorted[i], counts[i], tables.cdf, tables.cdf_length,
+                tables.offset, esym,
+            ))
+    return out
 
 
 def decode_grouped(
@@ -172,12 +180,14 @@ def decode_grouped(
             strings, rows_from_counts(counts), tables, coder, order="hwc")
     lut = entropy_base.get_lut(tables, coder)
     n = int(counts[0].sum())
-    return np.stack([
-        coder.decode_runs(
-            s, counts[i], n, tables.cdf, tables.cdf_length, tables.offset, lut,
-        )
-        for i, s in enumerate(strings)
-    ])
+    out = []
+    for i, s in enumerate(strings):
+        with trace.span("rans.y.decode"):
+            out.append(coder.decode_runs(
+                s, counts[i], n, tables.cdf, tables.cdf_length,
+                tables.offset, lut,
+            ))
+    return np.stack(out)
 
 
 def decode_grouped_packed(
@@ -203,10 +213,11 @@ def decode_grouped_packed(
     maskbits = np.empty((len(strings), (n + 7) // 8), np.uint8)
     values = np.empty((len(strings), cap), np.int8)
     for i, s in enumerate(strings):
-        res = coder.decode_runs_packed(
-            s, counts[i], n, cap, tables.cdf, tables.cdf_length,
-            tables.offset, lut,
-        )
+        with trace.span("rans.y.decode"):
+            res = coder.decode_runs_packed(
+                s, counts[i], n, cap, tables.cdf, tables.cdf_length,
+                tables.offset, lut,
+            )
         if res is None:
             return None
         maskbits[i], values[i] = res[0], res[1]
@@ -216,14 +227,15 @@ def decode_grouped_packed(
 def pack_decode_payload(y_sorted: np.ndarray, cap: int):
     """(b, n) decoded symbols → (maskbits u8 (b, n/8), values i8 (b, cap))
     for upload; symbols must fit int8 (they do — the encoder clamped)."""
-    b, n = y_sorted.shape
-    mask = y_sorted != 0
-    maskbits = np.packbits(mask, axis=-1, bitorder="little")
-    values = np.zeros((b, cap), np.int8)
-    for i in range(b):
-        nzv = y_sorted[i, mask[i]]
-        values[i, : nzv.size] = nzv.astype(np.int8)
-    return maskbits, values
+    with trace.span("transport.pack"):
+        b, n = y_sorted.shape
+        mask = y_sorted != 0
+        maskbits = np.packbits(mask, axis=-1, bitorder="little")
+        values = np.zeros((b, cap), np.int8)
+        for i in range(b):
+            nzv = y_sorted[i, mask[i]]
+            values[i, : nzv.size] = nzv.astype(np.int8)
+        return maskbits, values
 
 
 def pack_counts(counts) -> bytes:

@@ -13,8 +13,12 @@ configuration (MeanScaleHyperprior(192, 192) and STEM res with EB 256 and
 wavefront tile (1, 4), both bf16, 4 streams of 1088×1920, y_cur = y_cond +
 0.2·ε with g_a run on the pixel frame), serves ``frames`` P-frames through
 WavefrontVideoPipeline.serve_latent and prints their wall frames/s, then
-one frame's stages with the codec's stage clock (median of 3). The script
-prints every run, each tree's medians and the card's name and power limit.
+one frame's stages with the codec's stage clock (median of 3). Its
+``stage_ms`` are host milliseconds: the stage clock no longer
+synchronises, so a stage holds device time only where it waits on a copy
+(a tree before the spans of utils/trace.py gave device time, synchronised
+at each stage). The script prints every run, each tree's medians and the
+card's name and power limit.
 """
 
 import argparse

@@ -27,6 +27,14 @@ stream itself is the unsplit pipeline's where the split g_a and HE give
 the unsplit ones' y and z, which a card's convolution algorithms for the
 narrower shapes need not (their sums run in another order).
 ``gop_forward_sharded`` splits a GOP's batch over a mesh instead.
+
+Both pipelines open spans (utils/trace.py) ``serve.encode``, ``serve.decode``
+and ``serve.gs_dispatch`` with the frame's index in the call's sequence
+(``frame``; None where a caller codes single frames and gives none). In
+``encode_frames`` frame k's host half (``serve.encode.host``) runs while
+frame k+1 is on the device, and carries k. The counters
+``transport.sparse`` and ``transport.dense`` count frames by the transport
+they took.
 """
 
 from typing import Tuple
@@ -44,6 +52,7 @@ from ..parallel.spatial import (
     SP_AXIS, Sharded, halo_map, receptive_field, shard_frame, spatial_apply,
     stack_halo, whole,
 )
+from ..utils import trace
 
 
 def _shape4(y):
@@ -77,8 +86,9 @@ class _Download:
             self._host, self._event = packed, None
 
     def result(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
+        with trace.d2h(self._host.nbytes):
+            if self._event is not None:
+                self._event.synchronize()
         return self._host.numpy()
 
 
@@ -192,10 +202,10 @@ class StemVideoPipeline:
         return y_cur, self._sp_place(y_hat), packed
 
     @torch.no_grad()
-    def _finish(self, y_sym, means, y_cond):
-        y_hat = self._sp_place(
-            self.stem.fused_reconstruct_expr(y_sym, means, y_cond))
-        return y_hat, self._apply("get_x", y_hat)
+    def _synthesis(self, y_hat, frame=None):
+        """g_s of ŷ (W-split over the spatial mesh if any), dispatched."""
+        with trace.span("serve.gs_dispatch", frame=frame):
+            return self._apply("get_x", y_hat)
 
     # -- encoder side ---------------------------------------------------------
 
@@ -214,12 +224,13 @@ class StemVideoPipeline:
 
         z_idx = entropy_base.bottleneck_indexes(z_sym.shape, zc)
         z_strings = entropy_base.compress(
-            z_sym.astype(np.int32), z_idx, zt, self.stem.coder
+            z_sym.astype(np.int32), z_idx, zt, self.stem.coder, stream="z"
         )
         y_strings = entropy_base.compress(
             y_sym.astype(np.int32), idx,
             self.stem.tables["gaussian_conditional"], self.stem.coder,
         )
+        trace.count("transport.dense")
         return {
             "strings": [y_strings, z_strings],
             "shape": (zh, zw),
@@ -238,24 +249,28 @@ class StemVideoPipeline:
         )
 
     def code_sparse_buffer(self, packed, shape4):
-        """Host half of the sparse encode: buffer → enc dict (or None on
-        int8/capacity overflow — caller re-encodes dense)."""
-        layout = self._sparse_layout(shape4)
-        planes = transport.unpack_encode(packed, layout)
-        if planes.overflow:
-            return None
-        b, hgt, wid, m = shape4
-        zh, zw = -(-hgt // 4), -(-wid // 4)
-        zt = self.stem.tables["entropy_bottleneck"]
-        z_idx = entropy_base.bottleneck_indexes((b, zh, zw, zt.rows), zt.rows)
-        z_strings = entropy_base.compress(
-            planes.z_sym.reshape(b, zh, zw, zt.rows), z_idx, zt,
-            self.stem.coder,
-        )
-        y_strings = transport.encode_grouped(
-            planes.y_sorted, planes.counts,
-            self.stem.tables["gaussian_conditional"], self.stem.coder,
-        )
+        """Host half of the sparse encode (span ``transport.encode``):
+        buffer → enc dict (or None on int8/capacity overflow — caller
+        re-encodes dense)."""
+        with trace.span("transport.encode"):
+            layout = self._sparse_layout(shape4)
+            planes = transport.unpack_encode(packed, layout)
+            if planes.overflow:
+                return None
+            b, hgt, wid, m = shape4
+            zh, zw = -(-hgt // 4), -(-wid // 4)
+            zt = self.stem.tables["entropy_bottleneck"]
+            z_idx = entropy_base.bottleneck_indexes((b, zh, zw, zt.rows),
+                                                    zt.rows)
+            z_strings = entropy_base.compress(
+                planes.z_sym.reshape(b, zh, zw, zt.rows), z_idx, zt,
+                self.stem.coder, stream="z",
+            )
+            y_strings = transport.encode_grouped(
+                planes.y_sorted, planes.counts,
+                self.stem.tables["gaussian_conditional"], self.stem.coder,
+            )
+        trace.count("transport.sparse")
         return {
             "strings": [y_strings, z_strings],
             "shape": (zh, zw),
@@ -265,23 +280,25 @@ class StemVideoPipeline:
             "counts": planes.counts,
         }
 
-    def encode_frame(self, x, y_cond) -> Tuple[dict, torch.Tensor]:
+    def encode_frame(self, x, y_cond,
+                     frame=None) -> Tuple[dict, torch.Tensor]:
         """x (B, 3, H, W) image, y_cond device-resident conditioning latent.
 
         Returns (enc dict with strings/shape/transport, carry latent). In
         sparse mode the carry is the decoder-consistent ŷ; the dense path
         returns the raw y_cur (the JAX package's contract for it).
         """
-        if self.transport_mode == "sparse":
-            y_cur, y_hat, packed = self._encode_sparse(x, y_cond)
-            enc = self.code_sparse_buffer(_Download(packed).result(),
-                                          _shape4(y_cur))
-            if enc is not None:
-                return enc, y_hat
-            # overflow → dense fallback (diverged/untrained models)
-        y_cur, packed = self._encode(x, y_cond)
-        return (self._code_dense_buffer(_Download(packed).result(),
-                                        _shape4(y_cur)), y_cur)
+        with trace.span("serve.encode", frame=frame):
+            if self.transport_mode == "sparse":
+                y_cur, y_hat, packed = self._encode_sparse(x, y_cond)
+                enc = self.code_sparse_buffer(_Download(packed).result(),
+                                              _shape4(y_cur))
+                if enc is not None:
+                    return enc, y_hat
+                # overflow → dense fallback (diverged/untrained models)
+            y_cur, packed = self._encode(x, y_cond)
+            return (self._code_dense_buffer(_Download(packed).result(),
+                                            _shape4(y_cur)), y_cur)
 
     def encode_frames(self, frames, y_cond):
         """Encode a GOP of P-frames with the host coder of frame k overlapping
@@ -289,31 +306,33 @@ class StemVideoPipeline:
         images; yields enc dicts in order. The conditioning carry is the
         decoder-consistent ŷ, device-resident throughout."""
         if self.transport_mode != "sparse":
-            for x in frames:
-                enc, y_cond = self.encode_frame(x, y_cond)
+            for k, x in enumerate(frames):
+                enc, y_cond = self.encode_frame(x, y_cond, frame=k)
                 yield enc
             return
-        pending = None  # (download, y_cur, x, y_cond_before)
-        for x in frames:
+        pending = None  # (download, y_cur, x, y_cond_before, frame)
+        for k, x in enumerate(frames):
             y_cond_before = y_cond
-            y_cur, y_hat, packed = self._encode_sparse(x, y_cond)
+            with trace.span("serve.encode", frame=k):
+                y_cur, y_hat, packed = self._encode_sparse(x, y_cond)
+                download = _Download(packed)
             y_cond = y_hat  # device-resident carry
-            download = _Download(packed)
             if pending is not None:
                 yield self._finish_encode(*pending)
-            pending = (download, y_cur, x, y_cond_before)
+            pending = (download, y_cur, x, y_cond_before, k)
         if pending is not None:
             yield self._finish_encode(*pending)
 
-    def _finish_encode(self, download, y_cur, x, y_cond_before):
-        enc = self.code_sparse_buffer(download.result(), _shape4(y_cur))
-        if enc is None:
-            # int8 overflow → re-encode this frame densely. The sparse carry
-            # clips at the dense int16 band, so frames already dispatched
-            # against it stay decodable.
-            _, packed = self._encode(x, y_cond_before)
-            enc = self._code_dense_buffer(_Download(packed).result(),
-                                          _shape4(y_cur))
+    def _finish_encode(self, download, y_cur, x, y_cond_before, frame=None):
+        with trace.span("serve.encode.host", frame=frame):
+            enc = self.code_sparse_buffer(download.result(), _shape4(y_cur))
+            if enc is None:
+                # int8 overflow → re-encode this frame densely. The sparse
+                # carry clips at the dense int16 band, so frames already
+                # dispatched against it stay decodable.
+                _, packed = self._encode(x, y_cond_before)
+                enc = self._code_dense_buffer(_Download(packed).result(),
+                                              _shape4(y_cur))
         return enc
 
     # -- decoder side ---------------------------------------------------------
@@ -321,78 +340,94 @@ class StemVideoPipeline:
     def decode_frames(self, encs, y_cond):
         """Decode a sequence of enc dicts, carrying ŷ on device; yields
         (x_hat, y_hat) per frame."""
-        for enc in encs:
-            x_hat, y_cond = self.decode_frame(enc, y_cond=y_cond)
+        for k, enc in enumerate(encs):
+            x_hat, y_cond = self.decode_frame(enc, y_cond=y_cond, frame=k)
             yield x_hat, y_cond
 
     def _host_decode_sparse(self, enc):
-        """Host half of the fetch-free sparse decode: rANS of z and of the
-        grouped y (row counts from the container) → the packed payload
-        [maskbits][values i8][z_sym i8] and its layout."""
-        strings = enc["strings"]
-        zh, zw = enc["shape"]
-        b = len(strings[1])
-        shape4 = (b, zh * 4, zw * 4, self.stem.in_channels)
-        layout = self._sparse_layout(shape4)
-        zt = self.stem.tables["entropy_bottleneck"]
-        z_idx = entropy_base.bottleneck_indexes((b, zh, zw, zt.rows), zt.rows)
-        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.stem.coder)
-        counts = np.asarray(enc["counts"], np.int32)
-        gc_tables = self.stem.tables["gaussian_conditional"]
-        coder = self.stem.coder
-        packed = transport.decode_grouped_packed(
-            strings[0], counts, layout.cap, gc_tables, coder
-        )
-        if packed is not None:  # fused rANS → payload (native coders)
-            maskbits, values = packed
-        elif coder.supports_runs:  # the encoder never ships more than cap
-            raise ValueError("corrupt sparse frame: more nonzero symbols "
-                             "than the values capacity")
-        else:
-            maskbits, values = transport.pack_decode_payload(
-                transport.decode_grouped(strings[0], counts, gc_tables,
-                                         coder), layout.cap)
-        payload = np.concatenate([
-            maskbits.reshape(-1),
-            values.view(np.uint8).reshape(-1),
-            np.ascontiguousarray(z_sym.astype(np.int8)).view(np.uint8)
-            .reshape(-1),
-        ])
-        return payload, shape4, layout
+        """Host half of the fetch-free sparse decode (span
+        ``transport.decode``): rANS of z and of the grouped y (row counts
+        from the container) → the packed payload [maskbits][values i8]
+        [z_sym i8] and its layout."""
+        with trace.span("transport.decode"):
+            strings = enc["strings"]
+            zh, zw = enc["shape"]
+            b = len(strings[1])
+            shape4 = (b, zh * 4, zw * 4, self.stem.in_channels)
+            layout = self._sparse_layout(shape4)
+            zt = self.stem.tables["entropy_bottleneck"]
+            z_idx = entropy_base.bottleneck_indexes((b, zh, zw, zt.rows),
+                                                    zt.rows)
+            z_sym = entropy_base.decompress(strings[1], z_idx, zt,
+                                            self.stem.coder, stream="z")
+            counts = np.asarray(enc["counts"], np.int32)
+            gc_tables = self.stem.tables["gaussian_conditional"]
+            coder = self.stem.coder
+            packed = transport.decode_grouped_packed(
+                strings[0], counts, layout.cap, gc_tables, coder
+            )
+            if packed is not None:  # fused rANS → payload (native coders)
+                maskbits, values = packed
+            elif coder.supports_runs:  # the encoder never ships past cap
+                raise ValueError("corrupt sparse frame: more nonzero "
+                                 "symbols than the values capacity")
+            else:
+                maskbits, values = transport.pack_decode_payload(
+                    transport.decode_grouped(strings[0], counts, gc_tables,
+                                             coder), layout.cap)
+            payload = np.concatenate([
+                maskbits.reshape(-1),
+                values.view(np.uint8).reshape(-1),
+                np.ascontiguousarray(z_sym.astype(np.int8)).view(np.uint8)
+                .reshape(-1),
+            ])
+            return payload, shape4, layout
 
     @torch.no_grad()
-    def _device_decode_sparse(self, payload, shape4, layout, y_cond):
-        """Device half: one upload, then params-from-ẑ, sparse unpack,
-        reconstruct and g_s. Returns (x_hat, y_hat)."""
+    def _sparse_latent(self, payload, shape4, layout, y_cond):
+        """Device half up to ŷ: one upload, then params-from-ẑ, sparse
+        unpack and reconstruct."""
         b, hgt, wid, m = shape4
         n, cap = layout.n, layout.cap
         zh, zw = -(-hgt // 4), -(-wid // 4)
         zc = self.stem.tables["entropy_bottleneck"].rows
         nbm, nval, nz = b * n // 8, b * cap, b * zh * zw * zc
-        dev = torch.from_numpy(payload).to(self.stem.device, non_blocking=True)
+        dev = trace.upload(torch.from_numpy(payload), self.stem.device,
+                           non_blocking=True)
         maskbits = dev[:nbm].view(b, n // 8)
         values = dev[nbm:nbm + nval].view(torch.int8).view(b, cap)
         z_sym = (dev[nbm + nval:nbm + nval + nz].view(torch.int8)
                  .view(b, zh, zw, zc).permute(0, 3, 1, 2))
         y_cond = whole(y_cond)
         order, means = self.stem.fused_params_sparse_expr(z_sym, y_cond)
-        y_hat = self._sp_place(self.stem.fused_reconstruct_sparse_expr(
+        return self._sp_place(self.stem.fused_reconstruct_sparse_expr(
             maskbits, values, order, means, y_cond
         ))
-        return self._apply("get_x", y_hat), y_hat
 
-    def decode_frame(self, enc_or_strings, shape=None, y_cond=None):
+    def _device_decode_sparse(self, payload, shape4, layout, y_cond):
+        """Device half: ``_sparse_latent``, then g_s. Returns (x_hat,
+        y_hat)."""
+        y_hat = self._sparse_latent(payload, shape4, layout, y_cond)
+        return self._synthesis(y_hat), y_hat
+
+    @torch.no_grad()
+    def decode_frame(self, enc_or_strings, shape=None, y_cond=None,
+                     frame=None):
         """decode_frame(enc, y_cond=...) or decode_frame(strings, shape,
         y_cond). Returns (x_hat, y_hat); y_hat is the next frame's
         conditioning. Sparse containers (which carry their row counts)
         decode with no device→host fetch; dense ones decode through the
-        CDF-row index plane.
+        CDF-row index plane. ``frame`` names the frame in the spans.
         """
+        with trace.span("serve.decode", frame=frame):
+            y_hat = self._decode_latent(enc_or_strings, shape, y_cond)
+        return self._synthesis(y_hat, frame), y_hat
+
+    def _decode_latent(self, enc_or_strings, shape, y_cond):
         if isinstance(enc_or_strings, dict):
             if enc_or_strings.get("transport", "dense") == "sparse":
-                return self._device_decode_sparse(
-                    *self._host_decode_sparse(enc_or_strings), y_cond
-                )
+                return self._sparse_latent(
+                    *self._host_decode_sparse(enc_or_strings), y_cond)
             strings = enc_or_strings["strings"]
             shape = enc_or_strings["shape"]
         else:
@@ -401,17 +436,17 @@ class StemVideoPipeline:
         z_idx = entropy_base.bottleneck_indexes(
             (len(strings[1]), *shape, zt.rows), zt.rows
         )
-        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.stem.coder)
+        z_sym = entropy_base.decompress(strings[1], z_idx, zt,
+                                        self.stem.coder, stream="z")
         z_dev = _to_nchw(z_sym, self.stem.device)
         gc_tables = self.stem.tables["gaussian_conditional"]
         y_cond = whole(y_cond)
         means, idx = self.stem.fused_params_expr(z_dev, y_cond)
-        idx_np = idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
+        idx_np = trace.fetch(idx.permute(0, 2, 3, 1)).astype(np.int32)
         y_sym = entropy_base.decompress(strings[0], idx_np, gc_tables,
                                         self.stem.coder)
-        y_hat, x_hat = self._finish(_to_nchw(y_sym, self.stem.device), means,
-                                    y_cond)
-        return x_hat, y_hat
+        return self._sp_place(self.stem.fused_reconstruct_expr(
+            _to_nchw(y_sym, self.stem.device), means, y_cond))
 
     # -- device-only GOP evaluation -------------------------------------------
 
@@ -487,14 +522,11 @@ class WavefrontVideoPipeline:
     codes the streams one after another. Bitstreams are the model API's
     ``compress`` (the pipeline calls it).
 
-    ``trace`` (optional): callable(event: str, frame: int) fired at
-    ``encode``/``decode_rounds``/``gs_dispatch`` boundaries.
-
     On CUDA, encoder and decoder must compute bit-identical (σ, μ): set
     ``torch.backends.cudnn.deterministic`` first.
     """
 
-    def __init__(self, i_model, stem, trace=None):
+    def __init__(self, i_model, stem):
         if not stem.use_spm or stem.ar_mode != "wavefront":
             raise ValueError(
                 "WavefrontVideoPipeline drives the wavefront-AR codec path; "
@@ -504,11 +536,6 @@ class WavefrontVideoPipeline:
         stem._require_tables()
         self.i_model = i_model
         self.stem = stem
-        self.trace = trace
-
-    def _trace(self, event: str, frame: int) -> None:
-        if self.trace is not None:
-            self.trace(event, frame)
 
     # -- single-frame pieces ----------------------------------------------
 
@@ -537,12 +564,12 @@ class WavefrontVideoPipeline:
     def serve_latent(self, y_cur, y_cond, frame: int = 0):
         """Codec round trip of one P-frame latent with the async-g_s
         schedule. Returns (enc, ŷ, x̂), x̂ possibly still in flight."""
-        self._trace("encode", frame)
-        enc = self.encode_frame(y_cur, y_cond)
-        self._trace("decode_rounds", frame)
-        y_hat = self.decode_frame(enc, y_cond)
-        self._trace("gs_dispatch", frame)
-        return enc, y_hat, self.synthesis_async(y_hat)
+        with trace.span("serve.encode", frame=frame):
+            enc = self.encode_frame(y_cur, y_cond)
+        with trace.span("serve.decode", frame=frame):
+            y_hat = self.decode_frame(enc, y_cond)
+        with trace.span("serve.gs_dispatch", frame=frame):
+            return enc, y_hat, self.synthesis_async(y_hat)
 
     def serve_gop(self, frames, y_cond, latents: bool = False):
         """Serve a GOP of P-frames (pixels, or latents with latents=True)

@@ -26,7 +26,6 @@ Bitstream symbol order is wavefront order, the JAX package's: round-major,
 then tile, lane and channel (``flatten_wavefront_grouped``).
 """
 
-import time
 from typing import List, NamedTuple
 
 import numpy as np
@@ -36,6 +35,7 @@ from ..entropy import base as entropy_base
 from ..entropy import build_indexes
 from ..layers import Conv
 from ..layers.masked_conv import per_stream
+from ..utils import trace
 from .base import _nchw
 
 SPAN = 3  # wavefront slope for a 5x5 causal mask (offset 2)
@@ -326,11 +326,15 @@ class ARCodec:
     ``context_prediction`` masked conv, and its ``__init__`` sets
     ``_rounds_cache = {}`` (the device rounds by plane shape and mode).
     ``wavefront_format`` picks the stream order ("lane" v1, "grouped" v2;
-    not bitstream compatible with each other). ``_codec_stats`` (the
-    stage clock of models/base.py): the AR legs add the seconds of each
-    stage and the decode rounds under "hyper_s", "priors_s",
-    "enc_device_s", "enc_fetch_bytes", "enc_host_s", "device_s",
-    "host_rans_s", "rounds".
+    not bitstream compatible with each other). The legs' stages are spans
+    (utils/trace.py): ``ar.encode.device`` and ``ar.encode.host`` (one
+    ``rans.y.encode`` a stream), then ``ar.decode.params`` and per round
+    ``ar.decode.round`` with its ``ar.decode.fetch``, ``ar.decode.rans``
+    (one ``rans.y.decode`` a stream) and ``ar.decode.write``.
+    ``_codec_stats`` (the stage clock of models/base.py, host seconds):
+    the stages add under "hyper_s", "priors_s", "enc_device_s",
+    "enc_host_s", "device_s" and "host_rans_s", and the legs count
+    "enc_fetch_bytes" and "rounds".
     """
 
     wavefront_format = "auto"
@@ -338,7 +342,7 @@ class ARCodec:
     def _upload(self, plane_nhwc: np.ndarray):
         """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
         t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.float32))
-        return _nchw(t.to(self.device).permute(0, 3, 1, 2))
+        return _nchw(trace.upload(t, self.device).permute(0, 3, 1, 2))
 
     def _wf_format(self) -> str:
         return wire_format(self.wavefront_format, self.coder)
@@ -376,38 +380,38 @@ class ARCodec:
         _, th, tw, m = target.shape
         coords, valid, rounds, encoder, *_ = self._wavefront_setup(
             th, tw, serial)
-        t0 = time.perf_counter()
-        syms, idxs, recon = encoder(target, priors, rounds, streams)
-        if nt > 1:
-            flat = [flatten_wavefront_grouped(p, coords, valid, streams)
-                    for p in (syms, idxs)]
-        else:  # the same order in one gather instead of one per round
-            flat = [flatten_wavefront(p, coords, valid) for p in (syms, idxs)]
-        sym_flat, idx_flat = (p.cpu().numpy() for p in flat)
-        t1 = self._lap("enc_device_s", t0)
+        with self._lap("ar.encode.device", "enc_device_s"):
+            syms, idxs, recon = encoder(target, priors, rounds, streams)
+            if nt > 1:
+                flat = [flatten_wavefront_grouped(p, coords, valid, streams)
+                        for p in (syms, idxs)]
+            else:  # the same order in one gather instead of one per round
+                flat = [flatten_wavefront(p, coords, valid)
+                        for p in (syms, idxs)]
+            sym_flat, idx_flat = (trace.fetch(p) for p in flat)
         st = self._codec_stats
         if st is not None:
             st["enc_fetch_bytes"] = (st.get("enc_fetch_bytes", 0)
                                      + sym_flat.nbytes + idx_flat.nbytes)
         t = self.tables["gaussian_conditional"]
-        esym = entropy_base.get_enc_table(t, self.coder)
-        if not serial and self._wf_format() == "grouped":
-            sizes = round_sizes(valid, nt, m)
-            levels = t.cdf.shape[0]
+        grouped = not serial and self._wf_format() == "grouped"
+        with self._lap("ar.encode.host", "enc_host_s"):
+            esym = entropy_base.get_enc_table(t, self.coder)
+            if grouped:
+                sizes, levels = round_sizes(valid, nt, m), t.cdf.shape[0]
             y_strings = []
             for i in range(streams):
-                sym_g, seg_counts = group_round_symbols(
-                    sym_flat[i], idx_flat[i], sizes, levels)
-                y_strings.append(self.coder.encode_runs_segmented(
-                    sym_g, seg_counts, t.cdf, t.cdf_length, t.offset,
-                    esym=esym))
-        else:
-            y_strings = [
-                self.coder.encode_stream(sym_flat[i], idx_flat[i], t.cdf,
-                                         t.cdf_length, t.offset, esym=esym)
-                for i in range(streams)
-            ]
-        self._lap("enc_host_s", t1)
+                with trace.span("rans.y.encode"):
+                    if grouped:
+                        sym_g, seg_counts = group_round_symbols(
+                            sym_flat[i], idx_flat[i], sizes, levels)
+                        y_strings.append(self.coder.encode_runs_segmented(
+                            sym_g, seg_counts, t.cdf, t.cdf_length,
+                            t.offset, esym=esym))
+                    else:
+                        y_strings.append(self.coder.encode_stream(
+                            sym_flat[i], idx_flat[i], t.cdf, t.cdf_length,
+                            t.offset, esym=esym))
         return y_strings, recon
 
     def _ar_decode(self, y_strings, priors, m: int, nt: int = 1,
@@ -429,26 +433,30 @@ class ARCodec:
         # round t's write and round t+1's parameters back to back: one
         # blocking u8 index fetch per round
         st = self._codec_stats
-        t0 = time.perf_counter()
-        means, idx = params_step(plane, priors, rounds[0], b)
+        with self._lap("ar.decode.params", "device_s"):
+            means, idx = params_step(plane, priors, rounds[0], b)
         for k, rnd in enumerate(rounds):
-            idx_np = idx.view(b, -1).cpu().numpy()
-            t1 = self._lap("device_s", t0)
-            sym = np.empty(idx_np.shape, np.int32)
-            for i in range(b):
-                if grouped:
-                    sym[i] = decode_round_grouped(decoders[i], idx_np[i], t,
-                                                  lut=lut)
-                else:
-                    sym[i] = decoders[i].decode(idx_np[i], t.cdf,
-                                                t.cdf_length, t.offset,
-                                                lut=lut)
-            t0 = self._lap("host_rans_s", t1)
-            if st is not None:
-                st["rounds"] = st.get("rounds", 0) + 1
-            sym_dev = torch.from_numpy(sym).to(self.device).view(-1, m)
-            plane = write_step(plane, rnd, sym_dev, means)
-            if k + 1 < len(rounds):
-                means, idx = params_step(plane, priors, rounds[k + 1], b)
-        self._lap("device_s", t0)
+            with trace.span("ar.decode.round", round=k):
+                with self._lap("ar.decode.fetch", "device_s"):
+                    idx_np = trace.fetch(idx.view(b, -1))
+                sym = np.empty(idx_np.shape, np.int32)
+                with self._lap("ar.decode.rans", "host_rans_s"):
+                    for i in range(b):
+                        with trace.span("rans.y.decode"):
+                            if grouped:
+                                sym[i] = decode_round_grouped(
+                                    decoders[i], idx_np[i], t, lut=lut)
+                            else:
+                                sym[i] = decoders[i].decode(
+                                    idx_np[i], t.cdf, t.cdf_length, t.offset,
+                                    lut=lut)
+                if st is not None:
+                    st["rounds"] = st.get("rounds", 0) + 1
+                with self._lap("ar.decode.write", "device_s"):
+                    sym_dev = trace.upload(torch.from_numpy(sym),
+                                           self.device).view(-1, m)
+                    plane = write_step(plane, rnd, sym_dev, means)
+                    if k + 1 < len(rounds):
+                        means, idx = params_step(plane, priors,
+                                                 rounds[k + 1], b)
         return plane[:, 2:-2, 2:-2, :]

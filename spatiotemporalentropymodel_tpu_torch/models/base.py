@@ -11,6 +11,7 @@ Counterpart of spatiotemporalentropymodel_tpu/models/base.py
     for the transform nets with f32 entropy math.
 """
 
+import contextlib
 import time
 from typing import Any, Dict
 
@@ -27,6 +28,7 @@ from ..entropy import (
     update_gaussian_tables,
 )
 from ..ops import kernels
+from ..utils import trace
 
 
 def _nhwc_flat(t, b):
@@ -111,7 +113,16 @@ def _unpack_sparse(maskbits, values, order, b: int, n: int):
 def _to_nchw(plane_nhwc: np.ndarray, device):
     """Host NHWC int plane → device NCHW int32 tensor, canonical strides."""
     t = torch.from_numpy(np.ascontiguousarray(plane_nhwc, np.int32))
-    return _nchw(t.to(device).permute(0, 3, 1, 2), torch.int32)
+    return _nchw(trace.upload(t, device).permute(0, 3, 1, 2), torch.int32)
+
+
+@contextlib.contextmanager
+def _timed(name: str, stats: dict, key: str):
+    """The span ``name``, its host seconds added to ``stats[key]``."""
+    t0 = time.perf_counter()
+    with trace.span(name):
+        yield
+    stats[key] = stats.get(key, 0.0) + (time.perf_counter() - t0)
 
 
 def aux_loss(module):
@@ -141,22 +152,19 @@ class CompressionModel:
         else the package's current default."""
         return get_coder(self._coder_name)
 
-    # the stage clock: set it to a dict and the codec paths add the seconds
-    # of each stage under their names (synchronising the device at each
-    # boundary, so only for measurement)
+    # the stage clock: set it to a dict and each codec stage adds its host
+    # seconds under its key. Nothing synchronises: a stage's seconds are
+    # the host's, and hold a wait for the device only where the stage
+    # blocks on a copy.
     _codec_stats = None
 
-    def _lap(self, key: str, t0: float) -> float:
-        """With ``_codec_stats`` set: synchronise the device, add the
-        seconds since t0 under ``key`` and return the clock; else 0."""
+    def _lap(self, name: str, key: str):
+        """The codec stage ``name`` over a block: its span (utils/trace.py)
+        and, with ``_codec_stats`` set, its host seconds under ``key``."""
         st = self._codec_stats
         if st is None:
-            return 0.0
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t = time.perf_counter()
-        st[key] = st.get(key, 0.0) + (t - t0)
-        return t
+            return trace.span(name)
+        return _timed(name, st, key)
 
     # serving compute dtype of the transform nets; None = float32. The
     # fused codec expressions cast back to f32 before quantization and CDF
@@ -286,19 +294,21 @@ class CompressionModel:
 
     # ---- EB coding helpers (host NumPy, NHWC planes) -------------------------
 
-    def _eb_compress(self, z, name="entropy_bottleneck"):
-        return entropy_base.bottleneck_compress(np.asarray(z),
-                                                self.tables[name], self.coder)
+    def _eb_compress(self, z, name="entropy_bottleneck", stream="z"):
+        return entropy_base.bottleneck_compress(
+            np.asarray(z), self.tables[name], self.coder, stream=stream)
 
     def _eb_decompress(self, strings, spatial_shape,
-                       name="entropy_bottleneck"):
+                       name="entropy_bottleneck", stream="z"):
         return entropy_base.bottleneck_decompress(
-            strings, spatial_shape, self.tables[name], self.coder)
+            strings, spatial_shape, self.tables[name], self.coder,
+            stream=stream)
 
     def _eb_quantize(self, z, name="entropy_bottleneck"):
         """Encoder-side ẑ: decode(encode(z)) by construction, through the
         coder's own saturated symbols, so the encoder's priors are the
         decoder's."""
         med = self.tables[name].medians[None, None, None, :]
-        symbols = entropy_base.safe_symbols(np.asarray(z), med)
-        return (symbols + med).astype(np.float32)
+        with trace.span("eb.symbols"):
+            symbols = entropy_base.safe_symbols(np.asarray(z), med)
+            return (symbols + med).astype(np.float32)

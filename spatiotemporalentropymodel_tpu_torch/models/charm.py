@@ -49,7 +49,6 @@ path floors the ẑ shape (h // 4) where the sparse path ceil-divides, and
 a ValueError here.
 """
 
-import time
 from typing import Any, Dict
 
 import numpy as np
@@ -61,6 +60,7 @@ from ..entropy import base as entropy_base
 from ..entropy import transport
 from ..layers import Conv, Deconv, LeakyReLU, Sequential
 from ..ops.quantize import ste_round
+from ..utils import trace
 from .base import (
     CompressionModel, _as_bytes, _nchw, _nhwc_flat, _pack_sparse, _to_nchw,
     _unpack_sparse,
@@ -345,27 +345,29 @@ class SpatioTemporalPriorModelChannelAR(CompressionModel):
         layout = transport.SparseLayout(
             b=b, n=hgt * wid * m, zn=int(np.prod(z_shape[1:])),
             levels=self.groups * levels, cap_value=(hgt * wid * m) // 4)
-        t0 = time.perf_counter()
-        packed = self.fused_encode_sparse_carry_expr(
-            y_cur, y_conditioned)[0].cpu().numpy()
-        t1 = self._lap("enc_device_s", t0)
-        planes = transport.unpack_encode(packed, layout)
-        if planes.overflow:
-            return None
-        z_idx = entropy_base.bottleneck_indexes(z_shape, zt.rows)
-        z_strings = entropy_base.compress(planes.z_sym.reshape(z_shape),
-                                          z_idx, zt, self.coder)
-        counts = planes.counts.reshape(b, self.groups, levels)
-        y_strings = []
-        for i in range(b):
-            offs = np.concatenate([[0], np.cumsum(counts[i].sum(axis=-1))])
-            y_strings.append([
-                transport.encode_grouped(
-                    planes.y_sorted[i, offs[g]:offs[g + 1]][None],
-                    counts[i, g][None], gt, self.coder)[0]
-                for g in range(self.groups)
-            ])
-        self._lap("enc_host_s", t1)
+        with self._lap("charm.encode.device", "enc_device_s"):
+            packed = trace.fetch(self.fused_encode_sparse_carry_expr(
+                y_cur, y_conditioned)[0])
+        with self._lap("charm.encode.host", "enc_host_s"):
+            planes = transport.unpack_encode(packed, layout)
+            if planes.overflow:
+                return None
+            z_idx = entropy_base.bottleneck_indexes(z_shape, zt.rows)
+            z_strings = entropy_base.compress(planes.z_sym.reshape(z_shape),
+                                              z_idx, zt, self.coder,
+                                              stream="z")
+            counts = planes.counts.reshape(b, self.groups, levels)
+            y_strings = []
+            for i in range(b):
+                offs = np.concatenate([[0],
+                                       np.cumsum(counts[i].sum(axis=-1))])
+                y_strings.append([
+                    transport.encode_grouped(
+                        planes.y_sorted[i, offs[g]:offs[g + 1]][None],
+                        counts[i, g][None], gt, self.coder)[0]
+                    for g in range(self.groups)
+                ])
+        trace.count("transport.sparse")
         return {
             "strings": [y_strings, z_strings],
             "shape": tuple(z_shape[1:3]),
@@ -388,29 +390,29 @@ class SpatioTemporalPriorModelChannelAR(CompressionModel):
         zt = self.tables["entropy_bottleneck"]
         gt = self.tables["gaussian_conditional"]
         y_shape, z_shape = (b, hgt, wid, m), (b, hgt // 4, wid // 4, zt.rows)
-        t0 = time.perf_counter()
-        packed = self.fused_encode_carry_expr(
-            y_cur, y_conditioned)[0].cpu().numpy()
-        t1 = self._lap("enc_device_s", t0)
-        y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
-            packed, y_shape, z_shape)
-        z_idx = entropy_base.bottleneck_indexes(z_shape, zt.rows)
-        z_strings = entropy_base.compress(z_sym.astype(np.int32), z_idx, zt,
-                                          self.coder)
-        # one stream per group per element: the groups decode in sequence,
-        # each plane in one host call
-        gs = m // self.groups
-        y_strings = []
-        for i in range(b):
-            y_strings.append([
-                self.coder.encode_with_indexes(
-                    y_sym[i, ..., g * gs:(g + 1) * gs].astype(
-                        np.int32).reshape(-1),
-                    idx[i, ..., g * gs:(g + 1) * gs].reshape(-1),
-                    gt.cdf, gt.cdf_length, gt.offset)
-                for g in range(self.groups)
-            ])
-        self._lap("enc_host_s", t1)
+        with self._lap("charm.encode.device", "enc_device_s"):
+            packed = trace.fetch(self.fused_encode_carry_expr(
+                y_cur, y_conditioned)[0])
+        with self._lap("charm.encode.host", "enc_host_s"):
+            y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
+                packed, y_shape, z_shape)
+            z_idx = entropy_base.bottleneck_indexes(z_shape, zt.rows)
+            z_strings = entropy_base.compress(z_sym.astype(np.int32), z_idx,
+                                              zt, self.coder, stream="z")
+            # one stream per group per element: the groups decode in
+            # sequence, each plane in one host call
+            gs = m // self.groups
+            y_strings = []
+            for i in range(b):
+                y_strings.append([])
+                for g in range(self.groups):
+                    with trace.span("rans.y.encode"):
+                        y_strings[i].append(self.coder.encode_with_indexes(
+                            y_sym[i, ..., g * gs:(g + 1) * gs].astype(
+                                np.int32).reshape(-1),
+                            idx[i, ..., g * gs:(g + 1) * gs].reshape(-1),
+                            gt.cdf, gt.cdf_length, gt.offset))
+        trace.count("transport.dense")
         return {"strings": [y_strings, z_strings],
                 "shape": tuple(z_shape[1:3]), "transport": "dense"}
 
@@ -432,27 +434,28 @@ class SpatioTemporalPriorModelChannelAR(CompressionModel):
                 f"but y_conditioned is {tuple(y_conditioned.shape[2:])}")
         zt = self.tables["entropy_bottleneck"]
         b = len(strings[1])
-        t0 = time.perf_counter()
-        z_idx = entropy_base.bottleneck_indexes((b, *shape, zt.rows),
-                                                zt.rows)
-        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.coder)
-        z_dev = _to_nchw(z_sym, self.device)
-        if transport_mode == "sparse" and counts is not None:
-            payload = self._host_fetchfree(
-                strings[0], np.asarray(counts, np.int32), b, hgt, wid)
-            t0 = self._lap("dec_host_s", t0)
-            if payload is not None:
+        with self._lap("charm.decode.host", "dec_host_s"):
+            z_idx = entropy_base.bottleneck_indexes((b, *shape, zt.rows),
+                                                    zt.rows)
+            z_sym = entropy_base.decompress(strings[1], z_idx, zt,
+                                            self.coder, stream="z")
+            z_dev = _to_nchw(z_sym, self.device)
+            payload = None
+            if transport_mode == "sparse" and counts is not None:
+                payload = self._host_fetchfree(
+                    strings[0], np.asarray(counts, np.int32), b, hgt, wid)
+        if payload is not None:
+            with self._lap("charm.decode.device", "dec_device_s"):
                 target_hat = self.fused_decode_expr(
-                    z_dev, torch.from_numpy(payload).to(self.device),
-                    y_conditioned)
-                self._lap("dec_device_s", t0)
-                return {"y_hat": self._carry(target_hat, y_conditioned)}
-        t0 = self._lap("dec_host_s", t0)
-        priors = self._priors(z_dev, y_conditioned)
+                    z_dev, trace.upload(torch.from_numpy(payload),
+                                        self.device), y_conditioned)
+            return {"y_hat": self._carry(target_hat, y_conditioned)}
+        with self._lap("charm.priors", "dec_device_s"):
+            priors = self._priors(z_dev, y_conditioned)
         if transport_mode == "sparse":
-            decoded = self._decode_groups_sparse(strings[0], priors, b, t0)
+            decoded = self._decode_groups_sparse(strings[0], priors, b)
         else:
-            decoded = self._decode_groups_dense(strings[0], priors, b, t0)
+            decoded = self._decode_groups_dense(strings[0], priors, b)
         return {"y_hat": self._carry(torch.cat(decoded, dim=1),
                                      y_conditioned)}
 
@@ -481,31 +484,33 @@ class SpatioTemporalPriorModelChannelAR(CompressionModel):
             segments.append(values.view(np.uint8).reshape(-1))
         return np.concatenate(segments)
 
-    def _decode_groups_dense(self, y_strings, priors, b, t0):
+    def _decode_groups_dense(self, y_strings, priors, b):
         """Per group: (σ, μ) on the device, its index plane fetched, host
         rANS, ŷ_g (charm.py:672-695 there)."""
         gt = self.tables["gaussian_conditional"]
         decoded = []
         for g in range(self.groups):
-            ctx = torch.cat(decoded, dim=1) if decoded else None
-            scales, means = self._params_f32(priors, ctx, g)
-            idx = build_indexes(scales, self._scale_table).to(torch.uint8)
-            idx_np = idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
-            t0 = self._lap("dec_device_s", t0)
-            sym = np.stack([
-                self.coder.decode_with_indexes(
-                    y_strings[i][g], idx_np[i].reshape(-1), gt.cdf,
-                    gt.cdf_length, gt.offset,
-                ).reshape(idx_np.shape[1:])
-                for i in range(b)
-            ])
-            t0 = self._lap("dec_host_s", t0)
-            y_hat_g = _to_nchw(sym, self.device).float() + means
-            decoded.append(self._refine(priors, ctx, y_hat_g, g))
-        self._lap("dec_device_s", t0)
+            with self._lap("charm.decode.params", "dec_device_s"):
+                ctx = torch.cat(decoded, dim=1) if decoded else None
+                scales, means = self._params_f32(priors, ctx, g)
+                idx = build_indexes(scales, self._scale_table).to(
+                    torch.uint8)
+                idx_np = trace.fetch(idx.permute(0, 2, 3, 1)).astype(
+                    np.int32)
+            with self._lap("charm.decode.rans", "dec_host_s"):
+                sym = np.empty(idx_np.shape, np.int32)
+                for i in range(b):
+                    with trace.span("rans.y.decode"):
+                        sym[i] = self.coder.decode_with_indexes(
+                            y_strings[i][g], idx_np[i].reshape(-1), gt.cdf,
+                            gt.cdf_length, gt.offset,
+                        ).reshape(idx_np.shape[1:])
+            with self._lap("charm.decode.write", "dec_device_s"):
+                y_hat_g = _to_nchw(sym, self.device).float() + means
+                decoded.append(self._refine(priors, ctx, y_hat_g, g))
         return decoded
 
-    def _decode_groups_sparse(self, y_strings, priors, b, t0):
+    def _decode_groups_sparse(self, y_strings, priors, b):
         """Per group: its G·levels counts computed on the device and
         fetched (the order and μ stay there), grouped host rANS, the
         bitmask and values uploaded (charm.py:697-732 there). The payload's
@@ -515,28 +520,33 @@ class SpatioTemporalPriorModelChannelAR(CompressionModel):
         levels = self.levels
         decoded = []
         for g in range(self.groups):
-            ctx = torch.cat(decoded, dim=1) if decoded else None
-            scales, means = self.module.group_params(priors, ctx, g)
-            idx = build_indexes(scales.float(), self._scale_table)
-            idx_flat = _nhwc_flat(idx, b).long()
-            counts = torch.zeros((b, levels), dtype=torch.int32,
-                                 device=self.device).scatter_add_(
-                1, idx_flat, torch.ones_like(idx_flat, dtype=torch.int32))
-            counts = counts.cpu().numpy()
-            order = torch.argsort(idx_flat, dim=1, stable=True)
-            t0 = self._lap("dec_device_s", t0)
-            y_sorted = transport.decode_grouped(
-                [y_strings[i][g] for i in range(b)], counts, gt, self.coder)
-            n_g = y_sorted.shape[1]
-            nz_max = int((y_sorted != 0).sum(axis=-1).max())
-            cap = min(max(n_g // 4, -(-max(nz_max, 1) // 4096) * 4096), n_g)
-            maskbits, values = transport.pack_decode_payload(y_sorted, cap)
-            t0 = self._lap("dec_host_s", t0)
-            flat = _unpack_sparse(
-                torch.from_numpy(maskbits).to(self.device),
-                torch.from_numpy(values).to(self.device), order, b, n_g)
-            _, gs, hgt, wid = means.shape
-            y_hat_g = _nchw(flat.view(b, hgt, wid, gs).permute(0, 3, 1, 2))
-            decoded.append(self._refine(priors, ctx, y_hat_g + means, g))
-        self._lap("dec_device_s", t0)
+            with self._lap("charm.decode.params", "dec_device_s"):
+                ctx = torch.cat(decoded, dim=1) if decoded else None
+                scales, means = self.module.group_params(priors, ctx, g)
+                idx = build_indexes(scales.float(), self._scale_table)
+                idx_flat = _nhwc_flat(idx, b).long()
+                counts = torch.zeros((b, levels), dtype=torch.int32,
+                                     device=self.device).scatter_add_(
+                    1, idx_flat, torch.ones_like(idx_flat, dtype=torch.int32))
+                counts = trace.fetch(counts)
+                order = torch.argsort(idx_flat, dim=1, stable=True)
+            with self._lap("charm.decode.rans", "dec_host_s"):
+                y_sorted = transport.decode_grouped(
+                    [y_strings[i][g] for i in range(b)], counts, gt,
+                    self.coder)
+                n_g = y_sorted.shape[1]
+                nz_max = int((y_sorted != 0).sum(axis=-1).max())
+                cap = min(max(n_g // 4, -(-max(nz_max, 1) // 4096) * 4096),
+                          n_g)
+                maskbits, values = transport.pack_decode_payload(y_sorted,
+                                                                 cap)
+            with self._lap("charm.decode.write", "dec_device_s"):
+                flat = _unpack_sparse(
+                    trace.upload(torch.from_numpy(maskbits), self.device),
+                    trace.upload(torch.from_numpy(values), self.device),
+                    order, b, n_g)
+                _, gs, hgt, wid = means.shape
+                y_hat_g = _nchw(flat.view(b, hgt, wid, gs).permute(
+                    0, 3, 1, 2))
+                decoded.append(self._refine(priors, ctx, y_hat_g + means, g))
         return decoded

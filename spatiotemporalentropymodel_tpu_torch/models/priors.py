@@ -29,7 +29,6 @@ each round's products run once per picture of the batch, so a picture's
 strings and ŷ do not depend on what it is batched with.
 """
 
-import time
 from typing import Any, Dict
 
 import numpy as np
@@ -44,6 +43,7 @@ from ..layers import (
 from ..layers.masked_conv import per_stream
 from ..ops import kernels
 from ..ops.quantize import quantize_dequantize, quantize_noise
+from ..utils import trace
 from . import ar_wavefront as wf
 from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
@@ -284,8 +284,8 @@ class FactorizedPrior(CompressionModel):
         y's (h, w)}."""
         self._require_tables()
         y = self.module.g_a(self._cast_in(x))
-        strings = self._eb_compress(y.float().permute(0, 2, 3, 1).cpu()
-                                    .numpy())
+        strings = self._eb_compress(trace.fetch(y.float().permute(0, 2, 3, 1)),
+                                    stream="y")
         return {"strings": [strings], "shape": tuple(y.shape[2:])}
 
     @torch.no_grad()
@@ -294,8 +294,9 @@ class FactorizedPrior(CompressionModel):
         if not (isinstance(strings, list) and len(strings) == 1):
             raise ValueError("strings must be [y_strings]")
         self._require_tables()
-        y_hat = torch.from_numpy(self._eb_decompress(strings[0], shape))
-        y_hat = _nchw(y_hat.to(self.device).permute(0, 3, 1, 2))
+        y_hat = torch.from_numpy(self._eb_decompress(strings[0], shape,
+                                                     stream="y"))
+        y_hat = _nchw(trace.upload(y_hat, self.device).permute(0, 3, 1, 2))
         x_hat = self.module.g_s(self._cast_in(y_hat))
         return {"x_hat": torch.clamp(x_hat, 0.0, 1.0)}
 
@@ -382,10 +383,11 @@ class _HyperpriorCodecBase(CompressionModel):
         z_shape = (b, -(-h // 64), -(-w // 64), zt.rows)
         packed, _ = self.fused_encode_expr(x)
         y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
-            packed.cpu().numpy(), y_shape, z_shape)
+            trace.fetch(packed), y_shape, z_shape)
         z_strings = entropy_base.compress(
             z_sym.astype(np.int32),
-            entropy_base.bottleneck_indexes(z_shape, zt.rows), zt, self.coder)
+            entropy_base.bottleneck_indexes(z_shape, zt.rows), zt, self.coder,
+            stream="z")
         y_strings = entropy_base.compress(
             y_sym.astype(np.int32), idx, self.tables["gaussian_conditional"],
             self.coder)
@@ -400,10 +402,11 @@ class _HyperpriorCodecBase(CompressionModel):
         zt = self.tables["entropy_bottleneck"]
         z_idx = entropy_base.bottleneck_indexes(
             (len(strings[1]), *shape, zt.rows), zt.rows)
-        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.coder)
+        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.coder,
+                                        stream="z")
         means, idx = self.fused_params_expr(_to_nchw(z_sym, self.device))
         y_sym = entropy_base.decompress(
-            strings[0], idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32),
+            strings[0], trace.fetch(idx.permute(0, 2, 3, 1)).astype(np.int32),
             self.tables["gaussian_conditional"], self.coder)
         y_hat, x_hat = self.fused_finish_expr(_to_nchw(y_sym, self.device),
                                               means)
@@ -501,13 +504,12 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
         """(``compress(x)``, the ŷ the decoder rebuilds, f32 NCHW)."""
         self._require_tables()
         b = x.shape[0]
-        t0 = time.perf_counter()
-        y = per_stream(self.module.g_a, b, self._cast_in(x))
-        z = per_stream(self.module.h_a, b, y)
-        z_np = z.float().permute(0, 2, 3, 1).cpu().numpy()
-        z_strings = self._eb_compress(z_np)
-        z_hat = self._upload(self._eb_quantize(z_np))
-        self._lap("hyper_s", t0)
+        with self._lap("image.hyper", "hyper_s"):
+            y = per_stream(self.module.g_a, b, self._cast_in(x))
+            z = per_stream(self.module.h_a, b, y)
+            z_np = trace.fetch(z.float().permute(0, 2, 3, 1))
+            z_strings = self._eb_compress(z_np)
+            z_hat = self._upload(self._eb_quantize(z_np))
         priors = self._priors(z_hat, b)
         y_strings, y_hat = self._ar_encode(y.permute(0, 2, 3, 1), priors, b,
                                            serial=self.ar_mode == "serial")
@@ -522,9 +524,8 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
         if not (isinstance(strings, list) and len(strings) == 2):
             raise ValueError("strings must be [y_strings, z_strings]")
         self._require_tables()
-        t0 = time.perf_counter()
-        z_hat = self._upload(self._eb_decompress(strings[1], shape))
-        self._lap("hyper_s", t0)
+        with self._lap("image.hyper", "hyper_s"):
+            z_hat = self._upload(self._eb_decompress(strings[1], shape))
         priors = self._priors(z_hat, z_hat.shape[0])
         y_hat = self._ar_decode(strings[0], priors, self.M,
                                 serial=self.ar_mode == "serial")

@@ -35,7 +35,6 @@ rounded to bf16 before its bias is added, σ meets the scale table cast to
 bf16, and the symbols, the context plane and the ŷ carry are f32.
 """
 
-import time
 from typing import Any, Dict
 
 import numpy as np
@@ -49,6 +48,7 @@ from ..layers import Conv, Deconv, LeakyReLU, MaskedConv2d, Sequential
 from ..layers.masked_conv import per_stream
 from ..ops import kernels
 from ..ops.quantize import quantize_dequantize, quantize_noise
+from ..utils import trace
 from . import ar_wavefront as wf
 from .base import (
     CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat,
@@ -387,12 +387,12 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
         zh, zw = self._zshape(hgt, wid)
         zt = self.tables["entropy_bottleneck"]
         zc = zt.rows
-        packed = self.fused_encode_expr(y_cur, y_conditioned).cpu().numpy()
+        packed = trace.fetch(self.fused_encode_expr(y_cur, y_conditioned))
         y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
             packed, (b, hgt, wid, m), (b, zh, zw, zc))
         z_idx = entropy_base.bottleneck_indexes(z_sym.shape, zc)
         z_strings = entropy_base.compress(z_sym.astype(np.int32), z_idx, zt,
-                                          self.coder)
+                                          self.coder, stream="z")
         y_strings = entropy_base.compress(
             y_sym.astype(np.int32), idx, self.tables["gaussian_conditional"],
             self.coder,
@@ -405,17 +405,17 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
             raise ValueError("strings must be [y_strings, z_strings]")
         self._require_tables()
         if self.use_spm:
-            t0 = time.perf_counter()
-            z_hat = self._upload(self._eb_decompress(strings[1], shape))
-            self._lap("hyper_s", t0)
+            with self._lap("stem.hyper", "hyper_s"):
+                z_hat = self._upload(self._eb_decompress(strings[1], shape))
             return self._decompress_wavefront(strings, z_hat, y_conditioned)
         zt = self.tables["entropy_bottleneck"]
         z_idx = entropy_base.bottleneck_indexes(
             (len(strings[1]), *shape, zt.rows), zt.rows)
-        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.coder)
+        z_sym = entropy_base.decompress(strings[1], z_idx, zt, self.coder,
+                                        stream="z")
         means, idx = self.fused_params_expr(
             _to_nchw(z_sym, self.device), y_conditioned)
-        idx_np = idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32)
+        idx_np = trace.fetch(idx.permute(0, 2, 3, 1)).astype(np.int32)
         y_sym = entropy_base.decompress(
             strings[0], idx_np, self.tables["gaussian_conditional"],
             self.coder,
@@ -441,13 +441,12 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
     def _code_z(self, y_cur, y_conditioned):
         """HE, then ẑ's strings and the encoder's ẑ (the decoder's, by
         construction) on the device."""
-        t0 = time.perf_counter()
-        z = per_stream(self.module.hyper_encode, y_cur.shape[0],
-                       self._cast(y_cur), self._cast(y_conditioned))
-        z_np = z.float().permute(0, 2, 3, 1).cpu().numpy()
-        z_strings = self._eb_compress(z_np)
-        z_hat = self._upload(self._eb_quantize(z_np))
-        self._lap("hyper_s", t0)
+        with self._lap("stem.hyper", "hyper_s"):
+            z = per_stream(self.module.hyper_encode, y_cur.shape[0],
+                           self._cast(y_cur), self._cast(y_conditioned))
+            z_np = trace.fetch(z.float().permute(0, 2, 3, 1))
+            z_strings = self._eb_compress(z_np)
+            z_hat = self._upload(self._eb_quantize(z_np))
         return z_strings, z_hat
 
     def _tile_dims(self, hgt: int, wid: int):
@@ -480,13 +479,12 @@ class SpatioTemporalPriorModel(wf.ARCodec, CompressionModel):
     def _tiled_priors(self, z_hat, y_conditioned, th, tw, nt):
         """prior_feats as the NHWC tile batch (B·nt, th, tw, P), the nets
         run once per stream."""
-        t0 = time.perf_counter()
-        priors = per_stream(self.module.prior_feats, z_hat.shape[0],
-                            self._cast(z_hat),
-                            self._cast(y_conditioned)).permute(0, 2, 3, 1)
-        if nt > 1:
-            priors = wf.tile_plane(priors, th, tw)
-        self._lap("priors_s", t0)
+        with self._lap("stem.priors", "priors_s"):
+            priors = per_stream(self.module.prior_feats, z_hat.shape[0],
+                                self._cast(z_hat),
+                                self._cast(y_conditioned)).permute(0, 2, 3, 1)
+            if nt > 1:
+                priors = wf.tile_plane(priors, th, tw)
         return priors
 
     @torch.no_grad()

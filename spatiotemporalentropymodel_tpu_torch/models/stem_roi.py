@@ -53,6 +53,7 @@ from ..layers import (
 )
 from ..ops import kernels
 from ..ops.padding import pad_centered
+from ..utils import trace
 from .base import (
     CompressionModel, _as_bytes, _common_dtype, _nchw, _nhwc_flat, _to_nchw,
 )
@@ -399,11 +400,12 @@ class _PixelCodecBase(CompressionModel):
         y_shape, z_shape = self._latent_shapes(x_cur.shape)
         packed, y_hat = self.fused_encode_expr(x_cur, *rest)
         y_sym, z_sym, idx = entropy_base.unpack_symbol_buffer(
-            packed.cpu().numpy(), y_shape, z_shape)
+            trace.fetch(packed), y_shape, z_shape)
         zt = self.tables["entropy_bottleneck"]
         z_strings = entropy_base.compress(
             z_sym.astype(np.int32),
-            entropy_base.bottleneck_indexes(z_shape, zt.rows), zt, self.coder)
+            entropy_base.bottleneck_indexes(z_shape, zt.rows), zt, self.coder,
+            stream="z")
         y_strings = entropy_base.compress(
             y_sym.astype(np.int32), idx, self.tables["gaussian_conditional"],
             self.coder)
@@ -417,10 +419,11 @@ class _PixelCodecBase(CompressionModel):
         z_idx = entropy_base.bottleneck_indexes(
             (len(strings[1]), *shape, zt.rows), zt.rows)
         z_sym = _to_nchw(entropy_base.decompress(strings[1], z_idx, zt,
-                                                 self.coder), self.device)
+                                                 self.coder, stream="z"),
+                         self.device)
         means, idx = self.fused_params_expr(z_sym, y_cond)
         y_sym = entropy_base.decompress(
-            strings[0], idx.permute(0, 2, 3, 1).cpu().numpy().astype(np.int32),
+            strings[0], trace.fetch(idx.permute(0, 2, 3, 1)).astype(np.int32),
             self.tables["gaussian_conditional"], self.coder)
         y_hat, x_hat = self.fused_finish_expr(_to_nchw(y_sym, self.device),
                                               means, z_sym)

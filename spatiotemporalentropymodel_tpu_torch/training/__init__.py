@@ -4,7 +4,7 @@ from .checkpoints import (
     load_trees,
     save_checkpoint,
 )
-from .logging import MetricsLogger, StageTimer, profile_trace
+from .logging import MetricsLogger
 from .losses import (
     em_loss,
     pixelwise_rate_distortion_loss,
@@ -27,8 +27,6 @@ __all__ = [
     "load_trees",
     "save_checkpoint",
     "MetricsLogger",
-    "StageTimer",
-    "profile_trace",
     "em_loss",
     "rate_distortion_loss",
     "pixelwise_rate_distortion_loss",

@@ -1,20 +1,14 @@
-"""Training observability: scalar metrics, stage clocks, profiler traces.
+"""Training observability: scalar metrics.
 
 Counterpart of spatiotemporalentropymodel_tpu/training/logging.py (the
 reference logs TensorBoard scalars, trainSTEM.py:155,220-234): a JSONL
 file of scalars, mirrored to TensorBoard where ``torch.utils.tensorboard``
-imports; ``StageTimer``, whose stages synchronise the card at both ends so
-a stage's time is its device work; and ``profile_trace`` on
-``torch.profiler`` in place of ``jax.profiler``.
+imports. Spans and counters are ``utils/trace.py``'s.
 """
 
 import json
 import os
 import time
-from contextlib import contextmanager
-from typing import Optional
-
-import torch
 
 
 class MetricsLogger:
@@ -42,57 +36,3 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
-
-
-@contextmanager
-def profile_trace(logdir: Optional[str]):
-    """A ``torch.profiler`` trace of the block (CPU, and CUDA where a card
-    is present), written as ``logdir/trace.json`` (Chrome trace format);
-    a no-op when logdir is None."""
-    if logdir is None:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-class StageTimer:
-    """Per-stage wall-clock timers (the reference's ad-hoc time.time()
-    prints, spatiotemporalpriors.py:360-390). On a CUDA ``device`` each
-    stage synchronises it before and after, so the clock holds the
-    stage's device work."""
-
-    def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else None
-        self.totals = {}
-        self.counts = {}
-
-    def _sync(self):
-        if self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextmanager
-    def stage(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def summary(self):
-        return {
-            name: {"total_s": self.totals[name], "count": self.counts[name],
-                   "mean_ms": 1e3 * self.totals[name] / self.counts[name]}
-            for name in self.totals
-        }

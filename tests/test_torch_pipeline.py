@@ -14,6 +14,7 @@ from spatiotemporalentropymodel_tpu.eval.pipeline import (
 from spatiotemporalentropymodel_tpu_torch.eval.pipeline import (
     StemVideoPipeline,
 )
+from spatiotemporalentropymodel_tpu_torch.utils import trace
 
 from torch_port_util import B, H, W, build_slice, to_nchw, to_nhwc
 
@@ -92,12 +93,16 @@ def test_dense_transport_matches_model_api_and_sparse_decode(served,
 
 def test_sparse_overflow_falls_back_to_dense():
     """Untrained weights overflow the sparse layout; the frame is coded
-    dense, as in the JAX package, and still decodes."""
+    dense, as in the JAX package, counted under ``transport.dense``, and
+    still decodes."""
     _, _, port_i, port_stem, xs, y_cond = build_slice(seed=2, surgery=False)
     pipe = StemVideoPipeline(port_i, port_stem, transport_mode="sparse")
     yc = to_nchw(y_cond)
-    encs = list(pipe.encode_frames([to_nchw(xs[0])], yc))
+    with trace.record() as rec:
+        encs = list(pipe.encode_frames([to_nchw(xs[0])], yc))
     assert encs[0]["transport"] == "dense"
+    assert dict(rec.counters).get("transport.dense") == 1
+    assert "transport.sparse" not in rec.counters
     x_hat, _ = pipe.decode_frame(encs[0], y_cond=yc)
     assert x_hat.shape == (B, 3, H, W)
 

@@ -21,6 +21,7 @@ from spatiotemporalentropymodel_tpu_torch.models import (
     MeanScaleHyperprior,
     SpatioTemporalPriorModel,
 )
+from spatiotemporalentropymodel_tpu_torch.utils import trace
 
 from torch_port_util import jax_tree_numpy, to_nchw, to_nhwc
 
@@ -117,18 +118,22 @@ def test_pipeline_multistream_streams_exact_bf16():
 
 
 def test_pipeline_gop_schedule(wf_setup):
-    """gs_dispatch(k) precedes encode(k+1); the x̂ are g_s of each frame's
-    decoded ŷ, and the carry is the last ŷ."""
+    """The serve.* spans in order, each with its frame: gs_dispatch(k)
+    precedes encode(k+1); the x̂ are g_s of each frame's decoded ŷ, and the
+    carry is the last ŷ."""
     x, imodel, stem, _, _ = wf_setup
-    events = []
-    pipe = WavefrontVideoPipeline(imodel, stem,
-                                  trace=lambda ev, k: events.append((ev, k)))
+    pipe = WavefrontVideoPipeline(imodel, stem)
     y0 = pipe.analysis(x)
     frames = [x, x * 0.9 + 0.05, x * 1.1 - 0.05]
-    encs, x_hats, y_fin = pipe.serve_gop(frames, y0)
+    with trace.record() as rec:
+        encs, x_hats, y_fin = pipe.serve_gop(frames, y0)
     assert len(encs) == 3 and len(x_hats) == 3
-    assert events == [(ev, k) for k in range(3)
-                      for ev in ("encode", "decode_rounds", "gs_dispatch")]
+    serve = sorted((s for s in rec.spans if s.name.startswith("serve.")),
+                   key=lambda s: s.start_ns)
+    assert [(s.name, s.attrs["frame"]) for s in serve] == [
+        (ev, k) for k in range(3)
+        for ev in ("serve.encode", "serve.decode", "serve.gs_dispatch")]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(serve, serve[1:]))
     y_cond = y0
     for k in range(3):
         y_hat = pipe.decode_frame(encs[k], y_cond)
