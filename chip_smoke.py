@@ -48,6 +48,11 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 igdn_deconv_wide_packed at 128 and igdn_deconv_tail_packed
                 at 128→3; and gdn_conv_fused 192→320 at 1×192×136×240
                 (mbt2018's last g_a stage at quality 5-8), its own row.
+                Then deconv_k5s2_f32, g_s's f32 transposed convs, at g_s's
+                four shapes of 4 × 1088 × 1920 pictures (192 → 192 from
+                272×480, 136×240 and 68×120, and 192 → 3 from 544×960) at
+                max|kernel − plain| ≤ 1e-5·max|plain| (both f32, summed in
+                other orders); its library call is F.conv_transpose2d f32.
                 (The widths past 192 are checked in phase 4's n256.)
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
@@ -281,7 +286,8 @@ GOP_RTOL = 1e-5  # gop_forward's bpp_est vs estimate_bpp of stem.forward
 KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
            "quantize_and_index_bf16", "gdn_conv_fused",
            "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
-           "igdn_deconv_fused", "igdn_deconv_wide")
+           "igdn_deconv_fused", "igdn_deconv_wide", "deconv_k5s2_f32")
+DECONV_F32_TOL = 1e-5  # max|kernel − plain| ≤ it · max|plain|, both f32
 PK = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
 CSRC = "spatiotemporalentropymodel_tpu_torch/ops/csrc"
 
@@ -568,6 +574,65 @@ def _kaiming(torch, gen, shape, fan_in):
     return (w * (2.0 / fan_in) ** 0.5).to(torch.bfloat16)
 
 
+def check_deconv_f32(torch, F, kernels, c=N, o=N, b=B,
+                     sizes=((H // 4, W // 4), (H // 8, W // 8),
+                            (H // 16, W // 16))):
+    """deconv_k5s2_f32 C → O at g_s's stages of the given input sizes (by
+    default its three N → N stages; the row reports the first, the log
+    every stage) against its plain version, f32 both, at max|kernel −
+    plain| ≤ DECONV_F32_TOL·max|plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    weight = (torch.randn((c, o, 5, 5), generator=gen, device="cuda")
+              * (2.0 / (25 * c)) ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    stages, worst = [], 0.0
+    for hh, ww in sizes:
+        x = torch.randn((b, c, hh, ww), generator=gen, device="cuda")
+        out = kernels.deconv_k5s2_f32(x, weight, bias)
+        ref = kernels._deconv_k5s2_plain(x, weight, bias)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
+        ok = bool(torch.isfinite(out).all()) and err <= DECONV_F32_TOL * scale
+        log(f"  deconv_k5s2_f32 {tuple(x.shape)} → {o}: max abs {err:.4g}, "
+            f"max|plain| {scale:.4g} (limit {DECONV_F32_TOL:g}·) ok={ok}")
+        if not ok:
+            raise AssertionError(f"deconv_k5s2_f32 disagrees with its plain "
+                                 f"version at {tuple(x.shape)} → {o}")
+        worst = max(worst, err)
+        del out, ref
+        b_ms, b_by = bound(4 * (x.numel() + 4 * b * o * hh * ww
+                                + c * o * 25 + o),
+                           2 * b * hh * ww * c * o * 25)
+        stages.append(dict(
+            shape=[b, c, hh, ww],
+            ms=cuda_ms(lambda: kernels.deconv_k5s2_f32(x, weight, bias)),
+            plain_ms=cuda_ms(lambda: kernels._deconv_k5s2_plain(
+                x, weight, bias)),
+            library_ms=cuda_ms(lambda: F.conv_transpose2d(
+                x, weight, bias, 2, 2, 1)),
+            bound_ms=b_ms, bound_by=b_by))
+        log(f"    stage {c}→{o} {hh}×{ww}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages[-1].items()
+            if k.endswith("ms")))
+        del x
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=worst, stages=stages, **{
+        k: stages[0][k] for k in ("ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "shape")})
+
+
+def _gs_deconvs(n, m, passes):
+    """LAUNCHES_BY_WIDTH of deconv_k5s2_f32 over ``passes`` f32 g_s passes
+    with no graph to record (layers/conv.py::Synthesis): M → N, N → N
+    twice, N → 3."""
+    widths = {}
+    for c, o in ((m, n), (n, n), (n, n), (n, 3)):
+        key = ("deconv_k5s2_f32", c, o)
+        widths[key] = widths.get(key, 0) + passes
+    return {k: v for k, v in widths.items() if v}
+
+
 def _scaled_err(torch, out, ref, name):
     """max|out − ref|, held to FUSED_TOL · max|ref|."""
     err = float((out.float() - ref.float()).abs().max())
@@ -754,8 +819,9 @@ def check_gs_lone(torch, F, kernels, c=N):
 
 def expected_launches(bf16: bool):
     """Launches per kernel over P_FRAMES encoded and decoded frames: g_a
-    runs 3 GDN stages per frame, g_s 3 IGDN stages, the STEM one quantizer;
-    at bf16 g_a's stages fuse into their convs and g_s's last two into the
+    runs 3 GDN stages per frame, g_s 3 IGDN stages and, at f32, its 4
+    transposed convs as deconv_k5s2_f32, the STEM one quantizer; at bf16
+    g_a's stages fuse into their convs and g_s's last two into the
     packed pair, leaving its first IGDN to gdn_fused's bf16 entry, and the
     quantizer reads the bf16 nets' outputs through its bf16 entry."""
     want = dict.fromkeys(KERNELS, 0)
@@ -765,7 +831,8 @@ def expected_launches(bf16: bool):
                     igdn_deconv_wide_packed=P_FRAMES,
                     igdn_deconv_tail_packed=P_FRAMES)
     else:
-        want.update(gdn_fused=6 * P_FRAMES, quantize_and_index=P_FRAMES)
+        want.update(gdn_fused=6 * P_FRAMES, quantize_and_index=P_FRAMES,
+                    deconv_k5s2_f32=4 * P_FRAMES)
     return want
 
 
@@ -1282,13 +1349,16 @@ def run_hero_eval(torch, kernels, card, models):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         # I-frame: forward (g_a, g_s), compress (g_a), decompress (g_s);
-        # P-frame: get_y (g_a), get_x (g_s); each GDN stage one gdn_fused
+        # P-frame: get_y (g_a), get_x (g_s); each GDN stage one gdn_fused,
+        # each g_s transposed conv one deconv_k5s2_f32
         qidx = n_i + (n_p if variant == "without_spm" else 0)
-        gdn = 3 * (4 * n_i + 2 * n_p)
+        gdn, gs = 3 * (4 * n_i + 2 * n_p), 2 * n_i + n_p
         _check_launches(kernels, tag, _want(gdn_fused=gdn,
-                                            quantize_and_index=qidx))
+                                            quantize_and_index=qidx,
+                                            deconv_k5s2_f32=4 * gs))
         _check_widths(kernels, tag, {("gdn_fused", HERO_N): gdn,
-                                     ("quantize_and_index",): qidx})
+                                     ("quantize_and_index",): qidx,
+                                     **_gs_deconvs(HERO_N, M, gs)})
         snaps[tag] = _snap(kernels)
         avg = res["average"]
         log(f"  {tag}: {frames} frames in {wall:.1f} s, bpp "
@@ -1374,9 +1444,11 @@ def run_hero_serving(torch, kernels, card, i_model, stem, frames, tag,
                   ("igdn_deconv_tail_packed", HERO_N, 3): p_frames,
                   ("quantize_and_index_bf16",): p_frames}
     else:
-        want = _want(gdn_fused=6 * p_frames, quantize_and_index=p_frames)
+        want = _want(gdn_fused=6 * p_frames, quantize_and_index=p_frames,
+                     deconv_k5s2_f32=4 * p_frames)
         widths = {("gdn_fused", HERO_N): 6 * p_frames,
-                  ("quantize_and_index",): p_frames}
+                  ("quantize_and_index",): p_frames,
+                  **_gs_deconvs(HERO_N, M, p_frames)}
     _check_launches(kernels, tag, want)
     _check_widths(kernels, tag, widths)
     snap = _snap(kernels)
@@ -1423,7 +1495,7 @@ def run_gop_forward(torch, kernels, card, i_model, stem, frames, tag,
                      igdn_deconv_wide_packed=p_frames,
                      igdn_deconv_tail_packed=p_frames)
     else:
-        want = _want(gdn_fused=6 * p_frames)
+        want = _want(gdn_fused=6 * p_frames, deconv_k5s2_f32=4 * p_frames)
     _check_launches(kernels, tag, want)
     snap = _snap(kernels)
     if (tuple(x_hats.shape) != (p_frames, 1, 3, H, W)
@@ -1544,11 +1616,12 @@ def run_hero(torch, kernels, card):
     return snaps
 
 
-def _file_want(bf16, n_ga, n_gs, n_q):
+def _file_want(bf16, n_ga, n_gs, n_q, graph=False):
     """Launches (by kernel, by width) of n_ga hero g_a passes, n_gs g_s
     passes and n_q quantizer calls: per pass 3 GDN stages, fused in bf16 into
     two 128 → 128 and one 128 → 192 gdn_conv_fused (g_a), or gdn_fused_bf16
-    then the packed pair (g_s)."""
+    then the packed pair (g_s); in f32 g_s's 4 transposed convs run as
+    deconv_k5s2_f32, unless autograd records them (``graph``: training)."""
     if bf16:
         counts = _want(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
                        igdn_deconv_wide_packed=n_gs,
@@ -1561,9 +1634,11 @@ def _file_want(bf16, n_ga, n_gs, n_q):
                   ("igdn_deconv_tail_packed", HERO_N, 3): n_gs,
                   ("quantize_and_index_bf16",): n_q}
     else:
-        counts = _want(gdn_fused=3 * (n_ga + n_gs), quantize_and_index=n_q)
+        gs = 0 if graph else n_gs
+        counts = _want(gdn_fused=3 * (n_ga + n_gs), quantize_and_index=n_q,
+                       deconv_k5s2_f32=4 * gs)
         widths = {("gdn_fused", HERO_N): 3 * (n_ga + n_gs),
-                  ("quantize_and_index",): n_q}
+                  ("quantize_and_index",): n_q, **_gs_deconvs(HERO_N, M, gs)}
     return counts, {k: v for k, v in widths.items() if v}
 
 
@@ -2316,7 +2391,8 @@ def run_train_image(torch, kernels, card, tmp):
     torch.cuda.reset_peak_memory_stats()
     try:
         wall, (state, metrics), snap = _counted(
-            torch, kernels, "train_image", _file_want(False, 3, 3, 0),
+            torch, kernels, "train_image",
+            _file_want(False, 3, 3, 0, graph=True),
             lambda: ti.train_image(cfg, max_steps=3, model=model))
     finally:
         restore()
@@ -2454,11 +2530,17 @@ def _ar_want(kind, bf16, n_ga, n_gs, n=N):
     stages as gdn_conv_fused and whose bf16 g_s runs its first IGDN as
     gdn_fused_bf16 and the last two stages as the packed pair; or
     Cheng2020 ("cheng", N = n), whose six (I)GDNs feed residual sums, so
-    each runs gdn_fused alone. In f32 every (I)GDN is a gdn_fused."""
+    each runs gdn_fused alone. In f32 every (I)GDN is a gdn_fused, and
+    mbt2018's g_s runs its 4 transposed convs as deconv_k5s2_f32 (Cheng2020's
+    g_s is its own)."""
     if not bf16 or kind == "cheng":
         name = "gdn_fused_bf16" if bf16 else "gdn_fused"
         counts = {name: 3 * (n_ga + n_gs)}
         widths = {(name, n): 3 * (n_ga + n_gs)}
+        if not bf16 and kind != "cheng":
+            counts["deconv_k5s2_f32"] = 4 * n_gs
+            widths.update(_gs_deconvs(
+                N, AR_M if kind == "mbt2018" else N, n_gs))
     else:
         m = AR_M if kind == "mbt2018" else N
         counts = dict(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
@@ -3747,7 +3829,7 @@ def run_parallel_train(torch, kernels, card, tmp):
             torch, kernels, ti,
             "data_parallel_step" if dp else "make_image_train_step", tag,
             lambda: ti.train_image(cfg, max_steps=steps, model=model),
-            _file_want(False, steps * n, steps * n, 0))
+            _file_want(False, steps * n, steps * n, 0, graph=True))
         return state, _finite_metrics(tag, metrics), ms
 
     def stem(tag, dp, steps=1):
@@ -3910,8 +3992,10 @@ def run_gop_sharded(torch, kernels, card):
                         lambda: pipe.gop_forward_sharded(gop, y0, mesh), 2)):
         kernels.reset_launch_counts()
         ms, out[tag] = timed_ms(torch, fn)
-        _check_launches(kernels, tag, _want(gdn_fused=6 * t * n))
-        _check_widths(kernels, tag, {("gdn_fused", HERO_N): 6 * t * n})
+        _check_launches(kernels, tag, _want(gdn_fused=6 * t * n,
+                                            deconv_k5s2_f32=4 * t * n))
+        _check_widths(kernels, tag, {("gdn_fused", HERO_N): 6 * t * n,
+                                     **_gs_deconvs(HERO_N, M, t * n)})
         snaps[tag] = _snap(kernels)
         out[tag + "_fps"] = t * GOP_SHARD_B / (ms / 1e3)
     (x_ref, bpp_ref), (x_sh, bpp_sh) = out["gop_forward_b2"], out[
@@ -4121,10 +4205,12 @@ def _n256_widths(bf16: bool, frames: int, wide_knobs: bool = False):
     three GDN stages into gdn_conv_fused, twice at (256, 256) and once at
     (256, 320), and g_s runs gdn_fused at 256 then the packed pair (under
     the wide knobs the lone wide kernel twice and the narrow one); in f32
-    every GDN is a gdn_fused at 256."""
+    every GDN is a gdn_fused at 256 and g_s's transposed convs run as
+    deconv_k5s2_f32."""
     if not bf16:
         return {("gdn_fused", WIDE_N): 6 * frames,
-                ("quantize_and_index",): frames}
+                ("quantize_and_index",): frames,
+                **_gs_deconvs(WIDE_N, WIDE_M, frames)}
     n = WIDE_N
     gs = ({("igdn_deconv_wide", n, n): 2 * frames,
            ("igdn_deconv_fused", n, 3): frames} if wide_knobs else
@@ -4279,6 +4365,11 @@ def main() -> int:
     log(f"  mbt2018's last g_a stage, {N} → {AR_M}, B = 1")
     hero_rows[("gdn_conv_fused", N, AR_M)] = check_gdn_conv(
         torch, F, kernels, 1, N, AR_M, ((H // 8, W // 8),))
+    # g_s's f32 transposed convs: N → N at its three stages, then N → 3
+    log("  deconv_k5s2_f32, g_s's f32 transposed convs, B = 4")
+    results["deconv_k5s2_f32"] = check_deconv_f32(torch, F, kernels)
+    hero_rows[("deconv_k5s2_f32", N, 3)] = check_deconv_f32(
+        torch, F, kernels, N, 3, B, ((H // 2, W // 2),))
     # the ROI trunk's first GDN, 1×128×544×960, f32 and bf16
     log(f"  the ROI trunk's GDN, C = {ROI_N}, 1×{ROI_N}×{H // 2}×{W // 2}")
     roi_rows = {(name, ROI_N): check_gdn_entry(
@@ -4386,6 +4477,8 @@ def main() -> int:
         "igdn_deconv_tail_packed": (f"{PK}:1561", "igdn_deconv.cu"),
         "igdn_deconv_fused": (f"{PK}:387", "igdn_deconv.cu"),
         "igdn_deconv_wide": (f"{PK}:1267", "igdn_deconv.cu"),
+        # the JAX package left f32 transposed convs to XLA
+        "deconv_k5s2_f32": ("none (XLA's conv_transpose)", "deconv_f32.cu"),
     }
     def row(name, kernel, res, per_path):
         line, src = replaces[kernel]

@@ -15,6 +15,7 @@ from .conv import (
     ReLU,
     Sequential,
     SubpelConv3x3,
+    Synthesis,
     conv,
     conv1x1,
     conv3x3,
@@ -27,6 +28,6 @@ from .masked_conv import MaskedConv2d, make_causal_mask
 __all__ = ["AttentionBlock", "ResidualBlock", "ResidualBlockUpsample",
            "ResidualBlockWithStride", "SFT", "SFTResblk",
            "adaptive_avg_pool", "leaky_relu", "Conv", "Deconv",
-           "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3", "conv",
-           "conv1x1", "conv3x3", "deconv",
+           "LeakyReLU", "ReLU", "Sequential", "SubpelConv3x3", "Synthesis",
+           "conv", "conv1x1", "conv3x3", "deconv",
            "pixel_shuffle", "GDN", "GDN1", "MaskedConv2d", "make_causal_mask"]

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import kernels
+from ..utils import trace
 
 
 def _kaiming_normal(shape, fan_in: int, generator=None):
@@ -238,4 +239,40 @@ class Sequential(nn.Module):
             gdn, conv = layers[i], layers[i + 1]
             x = fused(x, *gdn.kernel_weights(), conv.weight, conv.bias.float())
             i += 2
+        return x
+
+
+class Synthesis(Sequential):
+    """The synthesis transform g_s: a ``Sequential`` (the same layers and
+    parameter names) whose f32 chain runs each k5 s2 ``Deconv`` through
+    ``kernels.deconv_k5s2_f32``, f32 FMA on the CUDA cores, in place of
+    cuDNN's ``conv_transpose2d`` and the bias add. It does so on 4-D f32
+    input when autograd records nothing (grad mode off, or neither the
+    input nor a parameter requires grad) and the kernel takes the widths;
+    bf16 input takes the ``Sequential``'s peepholes, and anything else runs
+    layer by layer as there. On the CPU the wrapper runs its plain version.
+    Each such call counts ``gs.deconv_f32`` in a ``trace`` recording.
+
+    Only g_s routes here: x̂ feeds nothing that is entropy-coded, so a new
+    summation order is safe in g_s, and h_s and the STEM's HD, which set the
+    coder's (σ, μ), keep their bits."""
+
+    def _f32_route(self, x) -> bool:
+        if x.dtype != torch.float32 or x.dim() != 4:
+            return False
+        return not torch.is_grad_enabled() or not (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
+    def forward(self, x):
+        if not self._f32_route(x):
+            return super().forward(x)
+        for layer in self.layers:
+            if (_k5s2(layer, Deconv) and x.is_contiguous()
+                    and layer.weight.dtype == torch.float32
+                    and kernels.deconv_k5s2_f32_supported(
+                        *layer.weight.shape[:2])):
+                x = kernels.deconv_k5s2_f32(x, layer.weight, layer.bias)
+                trace.count("gs.deconv_f32")
+            else:
+                x = layer(x)
         return x

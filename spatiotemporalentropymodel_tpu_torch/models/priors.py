@@ -38,7 +38,7 @@ from torch import nn
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
 from ..layers import (
-    GDN, Conv, Deconv, LeakyReLU, MaskedConv2d, ReLU, Sequential,
+    GDN, Conv, Deconv, LeakyReLU, MaskedConv2d, ReLU, Sequential, Synthesis,
 )
 from ..layers.masked_conv import per_stream
 from ..ops import kernels
@@ -56,7 +56,7 @@ def _g_a(n, m, g):
 
 
 def _g_s(n, m, g):
-    return Sequential([
+    return Synthesis([
         Deconv(m, n, 5, 2, g), GDN(n, inverse=True),
         Deconv(n, n, 5, 2, g), GDN(n, inverse=True),
         Deconv(n, n, 5, 2, g), GDN(n, inverse=True),

@@ -17,7 +17,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu")
+SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu", "deconv_f32.cu")
 HEADERS = ("gdn_window_tc.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # -gencode names the sm_90a PTX target, which wgmma needs; "-arch=sm_90a"
@@ -40,9 +40,17 @@ def nvcc() -> str:
     )
 
 
+def _sources(csrc: Path):
+    """The sources to build: all of SOURCES here; of another tree's
+    ``csrc`` those it has (an older tree lacks the newer files)."""
+    if csrc == CSRC:
+        return SOURCES
+    return tuple(s for s in SOURCES if (csrc / s).exists())
+
+
 def lib_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
+    for name in _sources(csrc) + HEADERS:
         h.update(name.encode())
         h.update((csrc / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -65,9 +73,10 @@ def build(csrc: Path = CSRC) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    sources = _sources(csrc)
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in sources]
     cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(csrc / s), "-o", str(o)]
-            for s, o in zip(SOURCES, objs)]
+            for s, o in zip(sources, objs)]
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]

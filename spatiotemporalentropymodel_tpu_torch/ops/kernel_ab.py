@@ -19,7 +19,9 @@ read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is timed in this
 tree's build alone, 2N times, and so are the widths trees before them
 refuse: gdn_conv_fused at 192 → 320 on one 192 × 136 × 240 input (g_a's
 last stage of the zoo's N = 192, M = 320 models), and gdn_fused at 256
-on the same shapes as at 192.
+on the same shapes as at 192. deconv_k5s2_f32 (f32 g_s's transposed
+convs) runs at g_s's four shapes of 4 × 1088 × 1920 pictures: 192 → 192
+from 68 × 120, 136 × 240 and 272 × 480, 192 → 3 from 544 × 960.
 
 Prints one JSON line per kernel and shape: the median ms per launch of
 each build over its 2N timings, their spread and the ratio other / this
@@ -49,6 +51,7 @@ SIGNATURES = {
     "stem_gdn_fused_bf16": [VP] * 4 + [I64, I32, I64, I32, VP],
     "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
+    "stem_deconv_k5s2_f32": [VP] * 4 + [I64, I32, I32, I32, I32, VP],
 }
 
 
@@ -147,6 +150,19 @@ def _cases(gen):
                   (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
                    wc.data_ptr(), bias.data_ptr(), out.data_ptr(), 1, c, o,
                    h, w), False))
+    for o, (h, w) in ((c, (68, 120)), (c, (136, 240)), (c, (272, 480)),
+                      (3, (544, 960))):
+        weight = (torch.randn((c, o, 5, 5), generator=gen, device=dev)
+                  * (2.0 / (25 * c)) ** 0.5)
+        wk = kernels.pack_deconv_f32_weight(weight)
+        bias = 0.1 * torch.randn((o,), generator=gen, device=dev)
+        x = torch.randn((b, c, h, w), generator=gen, device=dev)
+        out = torch.empty((b, o, 2 * h, 2 * w), device=dev)
+        keep += [wk, bias, x, out]
+        cases.append((f"stem_deconv_k5s2_f32 {[b, c, h, w]} → {o}",
+                      "stem_deconv_k5s2_f32",
+                      (x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), b, c, o, h, w), True))
     return cases, keep
 
 

@@ -19,6 +19,13 @@ wrapper per Pallas kernel:
     (``_igdn_deconv_ref``). They run the same CUDA kernels as the packed
     pair, since the port's pair already writes and reads the logical layout.
 
+And one kernel with no Pallas counterpart (the JAX package left f32
+transposed convs to XLA):
+
+  * ``deconv_k5s2_f32``    — the k5 s2 transposed conv + bias in f32 FMA on
+    the CUDA cores, g_s's f32 Deconvs (``_deconv_k5s2_plain``, its four
+    sub-pixel phase convs).
+
 Each wrapper launches its hand-written kernel (csrc/*.cu) for a CUDA
 tensor and runs the plain PyTorch version only for a tensor on the CPU, where
 the tests run. On a CUDA tensor it launches or raises; it never falls back.
@@ -59,6 +66,7 @@ LAUNCHES = {
     "igdn_deconv_tail_packed": 0,
     "igdn_deconv_fused": 0,
     "igdn_deconv_wide": 0,
+    "deconv_k5s2_f32": 0,
 }
 
 # launches per (kernel, its channel widths): the same launches as LAUNCHES,
@@ -135,6 +143,9 @@ def _lib():
     lib.stem_igdn_deconv_narrow_bf16.restype = i32
     lib.stem_igdn_deconv_narrow_bf16.argtypes = (
         [vp] * 6 + [i64, i32, i32, i32, i32, i32, vp])
+    lib.stem_deconv_k5s2_f32.restype = i32
+    lib.stem_deconv_k5s2_f32.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32,
+                                                    vp]
     for _, name in _QIDX_ENTRIES.values():
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = (
@@ -731,3 +742,90 @@ def igdn_deconv_fused(x, gamma_t, beta, weight, bias):
         name, _igdn_deconv_ref,
         partial(_narrow_launch, name, igdn_deconv_fused_supported),
         x, gamma_t, beta, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# the k5 s2 transposed conv of g_s, f32 (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+
+def deconv_k5s2_f32_supported(in_ch: int, out_ch: int) -> bool:
+    """The widths deconv_f32.cu takes: O a multiple of 32 with C a multiple
+    of 16 (the wide variant, g_s's N → N), or 1 ≤ O ≤ 3 with C a multiple
+    of 8 (the narrow one, g_s's N → 3): C in whole stages."""
+    if in_ch <= 0:
+        return False
+    if out_ch > 0 and out_ch % 32 == 0:
+        return in_ch % 16 == 0
+    return 1 <= out_ch <= 3 and in_ch % 8 == 0
+
+
+def _phase_taps(a: int):
+    """(kernel indexes, first row of the 1-padded input) of output phase a
+    along one axis: rows i − 1, i, i + 1 take ky = 4, 2, 0 for a = 0; rows
+    i, i + 1 take ky = 3, 1 for a = 1 (ky = a + 2 − 2·dy)."""
+    return ([4, 2, 0], 0) if a == 0 else ([3, 1], 1)
+
+
+def _deconv_k5s2_plain(x, weight, bias):
+    """``deconv_k5s2_f32``'s plain version: ConvTranspose2d(k5, s2, p2,
+    op1) as the kernel computes it, four stride-1 convs over the input
+    padded by one, one per output phase (a, b) with 3×3, 3×2, 2×3 and 2×2
+    taps, interleaved into (B, O, 2H, 2W); then the bias. weight (C, O, 5,
+    5) as ConvTranspose2d stores it, bias (O,)."""
+    b_, _, h, w = x.shape
+    xp = F.pad(x, (1, 1, 1, 1))
+    rows = []
+    for a in range(2):
+        ky, r0 = _phase_taps(a)
+        cols = []
+        for b in range(2):
+            kx, c0 = _phase_taps(b)
+            k = weight[:, :, ky][:, :, :, kx].transpose(0, 1)
+            cols.append(F.conv2d(xp[:, :, r0:, c0:], k))
+        rows.append(torch.stack(cols, dim=-1))  # (B, O, H, W, 2)
+    out = torch.stack(rows, dim=3).reshape(b_, -1, 2 * h, 2 * w)
+    return out + bias.to(out.dtype).view(1, -1, 1, 1)
+
+
+def pack_deconv_f32_weight(weight):
+    """ConvTranspose2d weight (C, O, 5, 5) → deconv_f32.cu's (C, 25, opad):
+    [c][ky·5 + kx], then the output channels in groups of Q (4 for O a
+    multiple of 32, else 3, one group), each group padded to 4 with zeros."""
+    c, o = weight.shape[:2]
+    taps = weight.permute(0, 2, 3, 1).reshape(c, 25, o)
+    if o % 32 == 0:
+        return taps.contiguous()
+    return F.pad(taps, (0, 4 - o))
+
+
+def _deconv_launch(x, weight, bias):
+    name = "deconv_k5s2_f32"
+    f32 = torch.float32
+    _check_cuda(name, [(x, f32), (weight, f32), (bias, f32)])
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"{name}: x (B, C, H, W) and weight (C, O, 5, 5), "
+                         f"got {tuple(x.shape)}, {tuple(weight.shape)}")
+    b, c, h, w = x.shape
+    o = weight.shape[1]
+    if (weight.shape != (c, o, 5, 5) or bias.shape != (o,)
+            or not deconv_k5s2_f32_supported(c, o) or b > 65535):
+        raise ValueError(f"{name}: no kernel for x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)} and bias {tuple(bias.shape)}")
+    wk = pack_deconv_f32_weight(weight)
+    out = torch.empty((b, o, 2 * h, 2 * w), dtype=f32, device=x.device)
+    rc = _lib().stem_deconv_k5s2_f32(
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c,
+        o, h, w, _stream(x.device))
+    _raise_on(rc, name)
+    _count(name, c, o)
+    return out
+
+
+def deconv_k5s2_f32(x, weight, bias):
+    """ConvTranspose2d(k5, s2, padding 2, output_padding 1) + bias on NCHW
+    f32 x (B, C, H, W) → (B, O, 2H, 2W) f32, in f32 FMA on the CUDA cores
+    (deconv_f32.cu). weight (C, O, 5, 5) and bias (O,) f32, the Deconv's
+    own; the widths ``deconv_k5s2_f32_supported`` names."""
+    return _KernelFn.apply("deconv_k5s2_f32", _deconv_k5s2_plain,
+                           _deconv_launch, x, weight, bias)

@@ -743,6 +743,137 @@ def _grad_case(name, rng, device):
             (x32.to(torch.bfloat16), gt, beta, weight, bias))
 
 
+# g_s's four f32 deconvs of 4 streams of 1088 × 1920 pictures: (B, C, O,
+# H, W) of each input
+DECONV_F32_SHAPES = [(4, 192, 192, 68, 120), (4, 192, 192, 136, 240),
+                     (4, 192, 192, 272, 480), (4, 192, 3, 544, 960)]
+
+
+def _deconv_f32_inputs(device, b, c, o, h, w, seed):
+    """x ~ N(0, 1), the Deconv's Kaiming weights (fan-in 25·C) and a
+    bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=gen, device=device)
+    weight = (torch.randn((c, o, 5, 5), generator=gen, device=device)
+              * (2.0 / (25 * c)) ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=gen, device=device)
+    return x, weight, bias
+
+
+def _deconv_f32_errors(x, weight, bias, out):
+    """(max|out − ref|, max|cuDNN f32 − ref|, max|ref|) of the k5 s2
+    transposed conv + bias, ref in float64 (TF32 off for the f32 call)."""
+    ref = F.conv_transpose2d(x.double(), weight.double(), bias.double(), 2,
+                             2, 1)
+    lib = F.conv_transpose2d(x, weight, None, 2, 2, 1) + bias.view(1, -1, 1,
+                                                                   1)
+    return (float((out.double() - ref).abs().max()),
+            float((lib.double() - ref).abs().max()),
+            float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,o,h,w", DECONV_F32_SHAPES)
+def test_cuda_deconv_k5s2_f32_at_g_s_shapes(cuda, b, c, o, h, w):
+    """deconv_k5s2_f32 at g_s's shapes: its max error against float64 at
+    most twice cuDNN f32's against the same float64, two launches
+    bit-identical, each counted under its widths."""
+    x, weight, bias = _deconv_f32_inputs(cuda, b, c, o, h, w, seed=h)
+    n0 = kernels.LAUNCHES["deconv_k5s2_f32"]
+    w0 = kernels.LAUNCHES_BY_WIDTH.get(("deconv_k5s2_f32", c, o), 0)
+    out = kernels.deconv_k5s2_f32(x, weight, bias)
+    again = kernels.deconv_k5s2_f32(x, weight, bias)
+    assert kernels.LAUNCHES["deconv_k5s2_f32"] == n0 + 2
+    assert kernels.LAUNCHES_BY_WIDTH[("deconv_k5s2_f32", c, o)] == w0 + 2
+    assert out.shape == (b, o, 2 * h, 2 * w) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    del again
+    err, lib_err, _ = _deconv_f32_errors(x, weight, bias, out)
+    assert err <= 2 * lib_err, (err, lib_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,o,h,w", [
+    (2, 192, 192, 17, 35), (1, 16, 32, 5, 6), (3, 64, 64, 9, 33),
+    (1, 256, 256, 4, 4), (2, 128, 3, 13, 70), (1, 16, 1, 7, 9),
+    (2, 8, 2, 33, 65), (1, 192, 3, 40, 130)])
+def test_cuda_deconv_k5s2_f32_edge_tiles(cuda, b, c, o, h, w):
+    """Partial tiles on both edges, tiles larger than the image, W not a
+    multiple of 4 (x staged element by element) and odd (outputs stored
+    pixel by pixel), one stage (C = 16 wide, 8 narrow) and O = 1, 2: the
+    error against float64 within twice cuDNN f32's (or 2⁻²⁰ of the
+    output's range, where cuDNN's is smaller), and bit-identical
+    launches."""
+    x, weight, bias = _deconv_f32_inputs(cuda, b, c, o, h, w, seed=w)
+    out = kernels.deconv_k5s2_f32(x, weight, bias)
+    assert torch.equal(out, kernels.deconv_k5s2_f32(x, weight, bias))
+    err, lib_err, top = _deconv_f32_errors(x, weight, bias, out)
+    assert err <= 2 * max(lib_err, 2.0**-20 * top), (err, lib_err, top)
+
+
+@pytest.mark.cuda
+def test_cuda_deconv_k5s2_f32_rejects_bad_inputs(cuda):
+    """On a CUDA tensor the wrapper launches or raises: bf16, a
+    non-contiguous x, widths the kernel does not take (O = 4, C = 12) and
+    a mismatched bias raise, and nothing is counted."""
+    x, weight, bias = _deconv_f32_inputs(cuda, 1, 16, 32, 4, 4, seed=1)
+    n0 = dict(kernels.LAUNCHES)
+    bad = [(x.to(torch.bfloat16), weight, bias),
+           (x.transpose(2, 3), weight, bias),
+           (x, weight[:, :4], bias[:4]),
+           (x[:, :12].contiguous(), weight[:12], bias),
+           (x, weight, bias[:8])]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            kernels.deconv_k5s2_f32(*args)
+    assert kernels.LAUNCHES == n0
+
+
+def _g_s_float64(g_s, y):
+    """g_s's layers in float64: the transposed convs with their biases, the
+    IGDNs on the f32 (γᵀ, β) the kernels take."""
+    from spatiotemporalentropymodel_tpu_torch.layers import GDN
+
+    x = y.double()
+    for layer in g_s.layers:
+        if isinstance(layer, GDN):
+            gamma_t, beta = layer.kernel_weights()
+            x = kernels._gdn_ref(x, gamma_t.double(), beta.double(),
+                                 layer.inverse)
+        else:
+            x = F.conv_transpose2d(x, layer.weight.double(),
+                                   layer.bias.double(), 2, 2, 1)
+    return x
+
+
+@pytest.mark.cuda
+def test_cuda_g_s_f32_runs_the_deconv_kernel(cuda):
+    """MeanScaleHyperprior(192, 192).g_s on an f32 latent with no graph to
+    record: its four Deconvs launch deconv_k5s2_f32 (4 a call) and x̂ lies
+    within twice the cuDNN chain's error of float64 layers (TF32 off); with
+    gradients the chain runs cuDNN, and h_s never launches the kernel."""
+    from spatiotemporalentropymodel_tpu_torch.layers import Sequential
+
+    model = MeanScaleHyperprior(192, 192, device=cuda, seed=3)
+    g_s, h_s = model.module.g_s, model.module.h_s
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    y = torch.round(4.0 * torch.randn((2, 192, 12, 20), generator=gen,
+                                      device=cuda))
+    n0 = kernels.LAUNCHES["deconv_k5s2_f32"]
+    with torch.no_grad():
+        got = g_s(y)
+        lib = Sequential.forward(g_s, y)
+        h_s(y[:, :, :3, :5].contiguous())
+        ref = _g_s_float64(g_s, y)
+    assert kernels.LAUNCHES["deconv_k5s2_f32"] == n0 + 4
+    err = float((got.double() - ref).abs().max())
+    lib_err = float((lib.double() - ref).abs().max())
+    assert err <= 2 * lib_err + 1e-7, (err, lib_err)
+    x = g_s(y)  # grad mode on and the parameters require grad: cuDNN
+    assert x.grad_fn is not None
+    assert kernels.LAUNCHES["deconv_k5s2_f32"] == n0 + 4
+
+
 GRAD_CASES = ["gdn_fused", "gdn_fused_bf16", "gdn_conv_fused",
               "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
               "igdn_deconv_fused", "igdn_deconv_wide"]
@@ -811,6 +942,8 @@ def _plain_wrappers(monkeypatch):
                  "igdn_deconv_fused", "igdn_deconv_wide"):
         monkeypatch.setattr(kernels, name, kernels._igdn_deconv_ref)
     monkeypatch.setattr(kernels, "gdn_conv_fused", kernels._gdn_conv_ref)
+    monkeypatch.setattr(kernels, "deconv_k5s2_f32",
+                        kernels._deconv_k5s2_plain)
     monkeypatch.setattr(kernels, "gdn_fused",
                         lambda x, g, b, inverse=False:
                         kernels._gdn_plain(x, g, b, inverse))

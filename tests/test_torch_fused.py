@@ -194,10 +194,14 @@ def _spy(monkeypatch):
     return calls
 
 
-def _chain(seq, x):
-    """The plain chain: every layer on its own."""
+def _chain(seq, x, f32_deconv=False):
+    """The plain chain: every layer on its own (with ``f32_deconv``, each
+    Deconv as ``kernels.deconv_k5s2_f32``)."""
     for layer in seq.layers:
-        x = layer(x)
+        if f32_deconv and isinstance(layer, tl.Deconv):
+            x = kernels.deconv_k5s2_f32(x, layer.weight, layer.bias)
+        else:
+            x = layer(x)
     return x
 
 
@@ -217,7 +221,12 @@ def test_peepholes_fire_in_bf16_only_and_match_the_plain_chain(msh,
         x32 = module.g_s(y32)
         assert calls == {}
         assert torch.equal(y32, _chain(module.g_a, xt))
-        assert torch.equal(x32, _chain(module.g_s, y32))
+        # f32 g_s fuses nothing either, but runs each k5 s2 Deconv as
+        # deconv_k5s2_f32 (layers/conv.py::Synthesis): exactly that chain,
+        # and the Deconv layers' chain to f32 rounding
+        assert torch.equal(x32, _chain(module.g_s, y32, f32_deconv=True))
+        torch.testing.assert_close(x32, _chain(module.g_s, y32), rtol=1e-5,
+                                   atol=1e-5)
 
         port.set_compute_dtype(torch.bfloat16)
         xb, yb = xt.to(torch.bfloat16), y32.to(torch.bfloat16)
