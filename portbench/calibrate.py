@@ -30,12 +30,11 @@ def control_readings(cell, seed, device="cuda", steps=2):
     import torch
 
     from portbench import harness
-    from portbench import judge as J
     from portbench import reference as R
 
     st = harness.build(cell, seed, device)
-    st.i_model = st.stem = None
-    ref = J.Ref(st.I, st.S, cell.cfg, harness.DTYPES[cell.traffic["dtype"]])
+    harness.drop_models(st)
+    ref = harness.reference(cell, st)
     p = R.Precision(CONTROL[cell.traffic["dtype"]])
     judge = harness.find("judges", cell.traffic["judge"])
     out, y_cond = [], st.y_i

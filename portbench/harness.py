@@ -5,19 +5,25 @@ the configuration file it names and, under ``portbench/``,
 ``traffic/<traffic>.json``, ``limits/<cell>.json``, ``metrics/<metric>.py``
 for each per-layer metric it reports, and the modules its files name:
 
+- the configuration's ``program``: ``programs/<name>.py``, which builds the
+  program's models and state from the weights (``make``), gives the plain
+  reference the judges receive (``reference``), counts its work for the
+  readers (``transforms``, ``picture_ops``) and refuses what a loop does
+  not do (``check``); ``programs/stem.py`` says what each gives;
 - the configuration's ``weights``: ``weights/<name>.py``, whose ``make``
-  gives both models' weights (and the latent's noise, where the
-  configuration draws one) from the seed;
+  gives the weights (and whatever else the program draws from the seed);
 - the traffic's ``loop``: ``loops/<name>.py``, whose ``make`` builds the
   closed loop that the window drives (``KEYS`` lists the traffic keys it
-  reads besides the common ones, ``VARIANTS`` the STEMs it drives);
+  reads besides the common ones, ``PROGRAMS`` the programs it drives);
 - the traffic's ``judge``: ``judges/<name>.py``, which holds what a
   sampled step produced to the plain reference (``judge``), names the
   numbers it reads (``NAMES``) and puts the reference in the program's
   place for the control (``control``).
 
-A traffic file with a key that neither the harness nor its loop reads, or
-a loop asked to drive a STEM variant it does not drive, is refused.
+A configuration whose program is not found, a loop that does not drive
+that program or that the program refuses, a traffic file with a key that
+neither the harness nor its loop reads, and a limit that the judge does
+not read are refused.
 """
 
 import contextlib
@@ -33,7 +39,6 @@ import numpy as np
 import torch
 
 from . import judge as J
-from . import reference as R
 from . import tracing
 from . import workload as WL
 
@@ -101,18 +106,29 @@ def load_cell(name: str, root: Path = ROOT):
     return cell
 
 
+def program(cfg):
+    """The configuration's program: ``programs/<cfg["program"]>.py``."""
+    if "program" not in cfg:
+        raise SystemExit(f"configuration {cfg.get('name')!r} names no "
+                         f"program")
+    return find("programs", cfg["program"])
+
+
 def check_cell(cell):
-    """Refuses traffic the cell's loop does not read, a STEM its loop does
-    not drive, and limits on numbers its judge does not read."""
+    """Refuses a program that is not found, a loop that does not drive it
+    or that it refuses, traffic the loop does not read, and limits on
+    numbers the judge does not read."""
+    prog = program(cell.cfg)
     loop, judge = find("loops", cell.traffic["loop"]), \
         find("judges", cell.traffic["judge"])
+    if cell.cfg["program"] not in loop.PROGRAMS:
+        raise SystemExit(f"{cell.name}: loop {cell.traffic['loop']!r} does "
+                         f"not drive program {cell.cfg['program']!r}")
+    prog.check(cell.cfg, loop)
     unread = set(cell.traffic) - TRAFFIC_KEYS - set(loop.KEYS)
     if unread:
         raise SystemExit(f"{cell.name}: traffic keys {sorted(unread)} are "
                          f"read by no part of loop {cell.traffic['loop']!r}")
-    if cell.cfg["variant"] not in loop.VARIANTS:
-        raise SystemExit(f"{cell.name}: loop {cell.traffic['loop']!r} does "
-                         f"not drive the {cell.cfg['variant']!r} STEM")
     unjudged = set(cell.limits) - set(judge.NAMES)
     if unjudged:
         raise SystemExit(f"{cell.name}: judge {cell.traffic['judge']!r} "
@@ -157,40 +173,38 @@ class Clock:
 
 
 def build(cell, seed: int, device: str):
-    """Inputs, weights and the program's models, from ``seed``."""
-    from spatiotemporalentropymodel_tpu_torch.models import (
-        MeanScaleHyperprior, SpatioTemporalPriorModel,
-    )
-
+    """Inputs, weights and the program's models and state, from ``seed``:
+    the weights' attributes, the program's models (named in ``models``) and
+    state, and the frames."""
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, tr = cell.cfg, cell.traffic
-    m = cfg["M"]
     b, gop = tr["streams"], tr["gop"]
     hw = (tr["height"], tr["width"])
     gen = torch.Generator(device=device).manual_seed(seed)
     frames = WL.gop_frames(seed, b, gop, hw, device)
     W = find("weights", cfg["weights"]).make(cfg, frames, seed, gen, device)
-    with torch.no_grad():
-        y_i = torch.round(R.g_a(W.I, frames[0])).contiguous()
-    i_model = MeanScaleHyperprior(cfg["N"], m, device=device)
-    i_model.module.load_state_dict(W.I, strict=True)
-    tile = cfg.get("wavefront_tile")
-    stem = SpatioTemporalPriorModel(
-        variant=cfg["variant"],
-        entropy_bottleneck_channels=cfg["entropy_bottleneck_channels"],
-        in_channels=m, wavefront_tile=tuple(tile) if tile else None,
-        device=device)
-    stem.module.load_state_dict(W.S, strict=True)
-    stem.update(force=True)
+    models, state = program(cfg).make(cfg, tr, W, frames, device)
     if tr["dtype"] != "float32":
-        i_model.set_compute_dtype(DTYPES[tr["dtype"]])
-        stem.set_compute_dtype(DTYPES[tr["dtype"]])
-    return SimpleNamespace(I=W.I, S=W.S, frames=frames, y_i=y_i,
-                           noise=W.noise, i_model=i_model, stem=stem, hw=hw,
-                           b=b, gop=gop, device=device)
+        for model in models.values():
+            model.set_compute_dtype(DTYPES[tr["dtype"]])
+    return SimpleNamespace(**vars(W), **models, **state, weights=W,
+                           models=tuple(models), frames=frames, hw=hw, b=b,
+                           gop=gop, device=device)
+
+
+def drop_models(st):
+    """Lets the program's models go, so that their memory can be freed."""
+    for name in st.models:
+        setattr(st, name, None)
+
+
+def reference(cell, st):
+    """The plain reference the cell's judge receives, from the weights."""
+    return program(cell.cfg).reference(st.weights, cell.cfg,
+                                       DTYPES[cell.traffic["dtype"]])
 
 
 class Loop:
@@ -329,12 +343,13 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     if bits is not None:
         log(f"coded bits per picture (sampled steps): y {bits[0]:.1f}, "
             f"z {bits[1]:.1f}")
-    st.i_model = st.stem = loop = None
+    drop_models(st)
+    loop = None
     gc.collect()
     if clock.cuda:
         torch.cuda.empty_cache()
     t_check = time.perf_counter()
-    ref = J.Ref(st.I, st.S, cell.cfg, DTYPES[cell.traffic["dtype"]])
+    ref = reference(cell, st)
     judge = find("judges", cell.traffic["judge"]).judge
     readings = [judge(ref, it) for it in items]
     ok, worst = J.verdict(readings, cell.limits)
@@ -356,8 +371,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     else:
         ctx = SimpleNamespace(
             trace=summary, steps=steps, pictures=pictures, window_s=window,
-            cfg=cell.cfg, traffic=cell.traffic, hw=st.hw, b=st.b,
-            calls=calls, host_coder_s=host_coder_s, served=served)
+            cfg=cell.cfg, program=program(cell.cfg), traffic=cell.traffic,
+            hw=st.hw, b=st.b, calls=calls, host_coder_s=host_coder_s,
+            served=served)
         for m in cell.per_layer:
             v = load_reader(m["name"])(ctx)
             if v is not None:

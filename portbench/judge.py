@@ -1,7 +1,8 @@
 """What decides ``correct``: the program's outputs held against the plain
-reference, once the window has closed. The shared part: the reference's
-weights and tables (``Ref``), helpers, and the verdict; each traffic's
-judge (``judges/<name>.py``) recomputes its own steps.
+reference, once the window has closed. The shared part: helpers and the
+verdict; the configuration's program gives the reference the judges
+receive (``programs/<name>.py::reference``), and each traffic's judge
+(``judges/<name>.py``) recomputes its own steps.
 
 A record is what one sampled step of the window produced, with the inputs
 it was given. A judge recomputes that step from the same inputs and the
@@ -22,38 +23,8 @@ the carry against the reference's ŷ of the step before it.
 """
 
 import numpy as np
-import torch
 
 from . import rans
-from . import reference as R
-
-STEM_NETS = ("HE.", "HD.", "TPM.", "EPM.", "context_prediction.")
-
-
-class Ref:
-    """The reference's weights (f32 dicts on the run's device) and tables.
-    ``net_dtype``: the dtype the STEM's nets are served in. Where it is not
-    f32 the serving judge runs those nets in it, on inputs cast to it, so
-    that (σ, μ), and with them the CDF rows a stream is coded in, are the
-    ones a faithful implementation of that precision gets."""
-
-    def __init__(self, I, S, config, net_dtype=torch.float32):
-        self.I, self.S, self.cfg = I, S, config
-        self.net_dtype = net_dtype
-        self.S_net = S if net_dtype == torch.float32 else {
-            k: (v.to(net_dtype) if k.startswith(STEM_NETS) else v)
-            for k, v in S.items()}
-        self.med32 = S["entropy_bottleneck.quantiles"][:, 0, 1].float().view(
-            1, -1, 1, 1)
-        pre = "entropy_bottleneck."
-        self.eb_params = {k[len(pre):]: v.float() for k, v in S.items()
-                          if k.startswith(pre)}
-        self.zt = R.eb_tables({k: v.cpu().numpy()
-                               for k, v in self.eb_params.items()})
-        self.gt = R.gaussian_tables()
-        self.table = torch.as_tensor(self.gt.scales, dtype=torch.float32,
-                                     device=self.med32.device)
-        self.levels = len(self.gt.scales)
 
 
 def rel(a, b):

@@ -7,6 +7,7 @@ import time
 from portbench.harness import Loop
 
 KEYS = ()
+PROGRAMS = ("stem",)
 VARIANTS = ("without_spm",)  # StemVideoPipeline drives no SPM variant
 
 

@@ -11,6 +11,7 @@ import time
 from portbench.harness import Loop
 
 KEYS = ()
+PROGRAMS = ("stem",)
 VARIANTS = ("without_spm",)  # the STEMs the weights and reference make
 
 

@@ -14,6 +14,7 @@ import torch
 from portbench.harness import Loop
 
 KEYS = ()
+PROGRAMS = ("stem",)
 VARIANTS = ("res",)  # the SPM STEM the weights and reference make
 
 

@@ -11,9 +11,6 @@ def read(run):
     calls = run.calls.get("pb.g_a", 0)
     if not dev or not calls:
         return None
-    n, m = run.cfg["N"], run.cfg["M"]
-    h, w = run.hw
-    io = 3 * h * w + m * (h // 16) * (w // 16)
-    least = peaks.transform_bound_s(peaks.g_a_layers(n, m, h, w), run.b, io,
-                                    run.traffic["dtype"])
+    layers, io = run.program.transforms(run.cfg, run.hw)["g_a"]
+    least = peaks.transform_bound_s(layers, run.b, io, run.traffic["dtype"])
     return 100.0 * least * calls / dev

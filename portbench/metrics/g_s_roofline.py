@@ -12,9 +12,6 @@ def read(run):
     calls = run.calls.get("pb.g_s", 0)
     if not dev or not calls:
         return None
-    n, m = run.cfg["N"], run.cfg["M"]
-    h, w = run.hw
-    io = 3 * h * w + m * (h // 16) * (w // 16)
-    least = peaks.transform_bound_s(peaks.g_s_layers(n, m, h // 16, w // 16),
-                                    run.b, io, run.traffic["dtype"])
+    layers, io = run.program.transforms(run.cfg, run.hw)["g_s"]
+    least = peaks.transform_bound_s(layers, run.b, io, run.traffic["dtype"])
     return 100.0 * least * calls / dev

@@ -1,4 +1,5 @@
-"""The chip's peaks and the work of the codec's layers, from their shapes.
+"""The chip's peaks and the work of convolutions and (I)GDNs, from their
+shapes; a program's own layers are counted in ``programs/<name>.py``.
 
 Peaks: one NVIDIA H100 SXM, NVIDIA's data sheet, dense rates at 700 W.
 ``bound``, ``gdn_bound`` and ``fused_bound`` are copies of the program's
@@ -64,35 +65,6 @@ def deconv(cin, cout, k, h_in, w_in):
     return 2 * cin * cout * k * k * h_in * w_in
 
 
-def g_a_layers(n, m, h, w):
-    """(conv operations, [(pixels, C) of each GDN], weights) of g_a on one
-    h×w picture."""
-    ops, norms, weights = 0, [], 0
-    chans = [3, n, n, n, m]
-    for j in range(4):
-        h, w = (h + 1) // 2, (w + 1) // 2
-        ops += conv(chans[j], chans[j + 1], 5, h, w)
-        weights += 25 * chans[j] * chans[j + 1] + chans[j + 1]
-        if j < 3:
-            norms.append((h * w, n))
-            weights += n * n + n
-    return ops, norms, weights
-
-
-def g_s_layers(n, m, h, w):
-    """The same of g_s from an h×w latent."""
-    ops, norms, weights = 0, [], 0
-    chans = [m, n, n, n, 3]
-    for j in range(4):
-        ops += deconv(chans[j], chans[j + 1], 5, h, w)
-        weights += 25 * chans[j] * chans[j + 1] + chans[j + 1]
-        h, w = 2 * h, 2 * w
-        if j < 3:
-            norms.append((h * w, n))
-            weights += n * n + n
-    return ops, norms, weights
-
-
 def transform_ops(layers):
     """Model operations: the convs' and the norms' products."""
     ops, norms, _ = layers
@@ -120,34 +92,3 @@ def transform_bound_s(layers, pictures, io_elems, dtype):
     t_bytes = (io_elems * pictures * BYTES[dtype] + 4 * weights) \
         / HBM_BYTES_PER_S
     return max(t_ops, t_bytes)
-
-
-def stem_ops(cfg, h, w, served: bool):
-    """Model operations of the STEM on one h×w latent: HE, then the priors
-    (TPM, HD) and EPM, once for the encoder and once more for the decoder
-    where the picture is served; on the spatial-prior path EPM runs on rows
-    with the masked context's 12 causal taps."""
-    m, ebc = cfg["in_channels"], cfg["entropy_bottleneck_channels"]
-    spm = cfg["variant"] == "res"
-    h2, w2, h4, w4 = (h + 1) // 2, (w + 1) // 2, (h + 3) // 4, (w + 3) // 4
-    he = (conv(2 * m, 256, 3, h, w) + conv(256, 256, 5, h2, w2)
-          + conv(256, ebc, 5, h4, w4))
-    hd = (deconv(ebc, 256, 5, h4, w4) + deconv(256, 256, 5, h2, w2)
-          + conv(256, 2 * m, 3, h, w))
-    tpm = (conv(m, 256, 5, h, w) + conv(256, 320, 5, h, w)
-           + conv(320, 2 * m, 5, h, w))
-    epm_in = 2 * m * (3 if spm else 2)
-    epm = (conv(epm_in, 768, 1, h, w) + conv(768, 576, 1, h, w)
-           + conv(576, 2 * m, 1, h, w))
-    ctx = 2 * 12 * m * 2 * m * h * w if spm else 0
-    per_side = tpm + hd + epm + ctx
-    return he + per_side * (2 if served else 1)
-
-
-def picture_ops(cfg, hw, served: bool):
-    """Model operations per picture: g_a, the STEM and g_s."""
-    n, m = cfg["N"], cfg["M"]
-    hh, ww = hw[0] // 16, hw[1] // 16
-    return (transform_ops(g_a_layers(n, m, *hw))
-            + stem_ops(cfg, hh, ww, served)
-            + transform_ops(g_s_layers(n, m, hh, ww)))

@@ -113,15 +113,20 @@ def test_control_is_not_correct_on_the_card(name):
 
 
 def test_cells_are_made_of_files_found_by_name():
-    """A cell's loop, judge and weights are modules named by its data
-    files; a traffic key no part reads, a STEM its loop does not drive and a
-    limit its judge does not read are refused."""
+    """A cell's program, loop, judge and weights are modules named by its
+    data files; a program that is not found, a traffic key no part reads, a
+    STEM its loop does not drive and a limit its judge does not read are
+    refused."""
     cell = harness.load_cell("res_192.serve_f32")
-    assert harness.find("loops", cell.traffic["loop"]).VARIANTS == ("res",)
+    assert harness.program(cell.cfg) is harness.find("programs", "stem")
+    loop = harness.find("loops", cell.traffic["loop"])
+    assert loop.PROGRAMS == ("stem",) and loop.VARIANTS == ("res",)
     assert callable(harness.find("weights", cell.cfg["weights"]).make)
     for change, word in ((lambda c: c.traffic.update(sessions=4), "sessions"),
                          (lambda c: c.cfg.update(variant="without_spm"),
                           "does not drive"),
+                         (lambda c: c.cfg.update(program="cheng2020_attn"),
+                          "no programs module"),
                          (lambda c: c.limits.update(flips=1e-3), "flips")):
         bad = harness.load_cell("res_192.serve_f32")
         change(bad)
