@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils import trace
 from .conv import Conv, LeakyReLU, SubpelConv3x3
 from .gdn import GDN
 
@@ -113,7 +114,8 @@ class _ResidualUnit(nn.Module):
 class AttentionBlock(nn.Module):
     """Sigmoid-gated dual-branch attention (layers.py:162-213): x + a ·
     sigmoid(b), a and b three residual units each (``a_0`` … ``b_2``), b
-    through a last 1×1 conv (``b_out``)."""
+    through a last 1×1 conv (``b_out``). Each call counts
+    ``attention.calls`` in a ``trace`` recording."""
 
     def __init__(self, n: int, generator=None):
         super().__init__()
@@ -123,6 +125,7 @@ class AttentionBlock(nn.Module):
         self.b_out = Conv(n, n, 1, 1, generator)
 
     def forward(self, x):
+        trace.count("attention.calls")
         a = b = x
         for i in range(3):
             a = getattr(self, f"a_{i}")(a)

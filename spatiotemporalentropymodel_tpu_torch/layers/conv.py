@@ -35,7 +35,14 @@ def _add_bias(out, bias):
 
 
 class Conv(nn.Module):
-    """2-D convolution with symmetric torch-style padding (padding=k//2)."""
+    """2-D convolution with symmetric torch-style padding (padding=k//2).
+
+    ``im2col`` (off by default; ``models/waseda.py`` sets it on the
+    Cheng2020 transforms' 3×3 stride-1 convs) runs the conv, on f32 input
+    on the card, through PyTorch's own CUDA convolution (im2col and a cuBLAS
+    GEMM) in place of cuDNN's."""
+
+    im2col = False
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 5,
                  stride: int = 2, generator=None):
@@ -49,7 +56,12 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        out = F.conv2d(x, self.weight, None, self.stride, self.padding)
+        if self.im2col and x.is_cuda and x.dtype == torch.float32:
+            out = torch.ops.aten._slow_conv2d_forward(
+                x, self.weight, self.weight.shape[2:], None,
+                (self.stride,) * 2, (self.padding,) * 2)
+        else:
+            out = F.conv2d(x, self.weight, None, self.stride, self.padding)
         return _add_bias(out, self.bias)
 
 

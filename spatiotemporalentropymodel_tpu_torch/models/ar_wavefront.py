@@ -311,6 +311,151 @@ def flatten_wavefront_grouped(planes, coords, valid, b: int):
     return torch.cat(chunks, dim=1)
 
 
+# ---- the rounds as CUDA graphs ---------------------------------------------
+#
+# A round is about 60 small operations (gathers, a product per stream and
+# layer, the CDF search, the writes) on a few dozen pixels: on the card
+# each costs its host ~20 µs to launch and the device far less to run, so
+# the rounds of a 1080p latent are paced by the host's launches. Captured
+# once per plane shape and batch, the encoder's rounds are one replay and
+# each decode round one replay after its host rANS. A replay runs the
+# captured kernels on the inputs' static copies: the same kernels in the
+# same order as the eager rounds.
+
+
+def _capture(fn, stream, pool):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def _static_copy(t):
+    """A contiguous device buffer holding ``t``: a graph's input."""
+    buf = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    buf.copy_(t)
+    return buf
+
+
+class EncodeGraph:
+    """The wavefront encoder of one plane shape and batch as one CUDA
+    graph: ``(target, priors)`` → (symbols, indexes, reconstruction), the
+    first two the graph's own buffers (read them before the next call), the
+    reconstruction a copy."""
+
+    def __init__(self, encoder, rounds, streams, target, priors):
+        self.target, self.priors = _static_copy(target), _static_copy(priors)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # lazy initialisations off the graph
+            encoder(self.target, self.priors, rounds, streams)
+        self.graph, self.out = _capture(
+            lambda: encoder(self.target, self.priors, rounds, streams),
+            side, None)
+        torch.cuda.current_stream().wait_stream(side)
+
+    def __call__(self, target, priors):
+        self.target.copy_(target)
+        self.priors.copy_(priors)
+        self.graph.replay()
+        syms, idxs, recon = self.out
+        return syms, idxs, recon.clone()
+
+
+class DecodeRounds:
+    """The per-round decoder's device side, run eagerly: ``start(priors)``
+    zeroes the plane and computes round 0's parameters, ``indexes(k)`` are
+    round k's u8 CDF rows (N·L, M), ``write(k, sym)`` uploads round k's
+    host symbols (B, N·L·M / B), writes them and computes round k+1's
+    parameters, ``result()`` is the decoded plane (N, H, W, M) f32: N the
+    priors' tiles, B the streams they hold."""
+
+    def __init__(self, params_step, write_step, rounds, b, m, priors):
+        self.params_step, self.write_step = params_step, write_step
+        self.rounds, self.b, self.m = rounds, b, m
+        n, h, w = priors.shape[:3]
+        self.shape = (n, h + 4, w + 4, m)
+
+    def start(self, priors):
+        self.priors = priors
+        self.plane = torch.zeros(self.shape, dtype=torch.float32,
+                                 device=priors.device)
+        self.means, self.idx = self.params_step(
+            self.plane, priors, self.rounds[0], self.b)
+
+    def indexes(self, k):
+        return self.idx
+
+    def write(self, k, sym):
+        sym_dev = trace.upload(torch.from_numpy(sym),
+                               self.plane.device).view(-1, self.m)
+        self.plane = self.write_step(self.plane, self.rounds[k], sym_dev,
+                                     self.means)
+        if k + 1 < len(self.rounds):
+            self.means, self.idx = self.params_step(
+                self.plane, self.priors, self.rounds[k + 1], self.b)
+
+    def result(self):
+        return self.plane[:, 2:-2, 2:-2, :]
+
+
+class DecodeGraphs(DecodeRounds):
+    """``DecodeRounds`` with its device steps as CUDA graphs of one plane
+    shape and batch: ``start`` one replay, each ``write`` a copy of the
+    symbols into the round's buffer and one replay. ``result()`` is a
+    copy. The graphs share one memory pool and run in the order they were
+    captured; every output a later graph reads stays referenced."""
+
+    def __init__(self, params_step, write_step, rounds, b, m, priors):
+        super().__init__(params_step, write_step, rounds, b, m, priors)
+        dev = priors.device
+        self.priors = _static_copy(priors)
+        self.plane = torch.zeros(self.shape, dtype=torch.float32, device=dev)
+        self.syms = [torch.zeros((self.shape[0] * int(r.h.shape[0]), m),
+                                 dtype=torch.int32, device=dev)
+                     for r in rounds]
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(side):  # lazy initialisations off the graph
+            means, _ = params_step(self.plane, self.priors, rounds[0], b)
+            write_step(self.plane, rounds[0], self.syms[0], means)
+
+        def first():
+            self.plane.zero_()
+            return params_step(self.plane, self.priors, rounds[0], b)
+
+        self.first, out = _capture(first, side, pool)
+        self.outs, self.graphs = [out], []
+        for k, rnd in enumerate(rounds):
+            def step(k=k, rnd=rnd):
+                write_step(self.plane, rnd, self.syms[k], self.outs[k][0])
+                if k + 1 < len(rounds):
+                    return params_step(self.plane, self.priors,
+                                       rounds[k + 1], b)
+                return None
+
+            graph, out = _capture(step, side, pool)
+            self.graphs.append(graph)
+            self.outs.append(out)
+        torch.cuda.current_stream().wait_stream(side)
+
+    def start(self, priors):
+        self.priors.copy_(priors)
+        self.first.replay()
+
+    def indexes(self, k):
+        return self.outs[k][1]
+
+    def write(self, k, sym):
+        trace.upload_into(self.syms[k],
+                          torch.from_numpy(sym).view(-1, self.m))
+        self.graphs[k].replay()
+
+    def result(self):
+        return self.plane[:, 2:-2, 2:-2, :].clone()
+
+
 # ---- the AR codec legs of a model ------------------------------------------
 
 
@@ -335,9 +480,16 @@ class ARCodec:
     the stages add under "hyper_s", "priors_s", "enc_device_s",
     "enc_host_s", "device_s" and "host_rans_s", and the legs count
     "enc_fetch_bytes" and "rounds".
+
+    ``round_graphs``: on a CUDA device, the wavefront rounds (not the
+    serial mode's) run as CUDA graphs (``EncodeGraph``, ``DecodeGraphs``),
+    captured at a plane shape and batch's first call and kept until the
+    model's parameters or scale table move to other storage.
     """
 
     wavefront_format = "auto"
+    round_graphs = False
+    _graphs = None  # (the storage the graphs read, {key: graphs})
 
     def _upload(self, plane_nhwc: np.ndarray):
         """Host NHWC f32 ẑ → device NCHW f32, canonical strides."""
@@ -370,6 +522,23 @@ class ARCodec:
         steps = make_wavefront_decode_step(self._ar_step, table)
         return (*cache[key], encoder, *steps)
 
+    def _graphed(self, serial: bool) -> bool:
+        return (self.round_graphs and not serial
+                and self.device.type == "cuda")
+
+    def _graph(self, cls, key, *args):
+        """The cached ``cls(*args)`` of ``key``; every one is dropped when
+        the parameters or the scale table are no longer where they were
+        captured."""
+        ptrs = (self._scale_table.data_ptr(),
+                *(p.data_ptr() for p in self.module.parameters()))
+        if self._graphs is None or self._graphs[0] != ptrs:
+            self._graphs = (ptrs, {})
+        cache = self._graphs[1]
+        if key not in cache:
+            cache[key] = cls(*args)
+        return cache[key]
+
     def _ar_encode(self, target, priors, streams: int, nt: int = 1,
                    serial: bool = False):
         """(the y strings, one per stream, the reconstruction (B·nt, th, tw,
@@ -381,7 +550,14 @@ class ARCodec:
         coords, valid, rounds, encoder, *_ = self._wavefront_setup(
             th, tw, serial)
         with self._lap("ar.encode.device", "enc_device_s"):
-            syms, idxs, recon = encoder(target, priors, rounds, streams)
+            if self._graphed(serial):
+                key = ("encode", target.shape, target.dtype, priors.shape,
+                       priors.dtype, streams)
+                syms, idxs, recon = self._graph(
+                    EncodeGraph, key, encoder, rounds, streams, target,
+                    priors)(target, priors)
+            else:
+                syms, idxs, recon = encoder(target, priors, rounds, streams)
             if nt > 1:
                 flat = [flatten_wavefront_grouped(p, coords, valid, streams)
                         for p in (syms, idxs)]
@@ -428,17 +604,21 @@ class ARCodec:
         grouped = not serial and self._wf_format() == "grouped"
         decoders = [self.coder.make_stream_decoder(s) for s in y_strings]
         lut = entropy_base.get_lut(t, self.coder)
-        plane = torch.zeros((b * nt, th + 4, tw + 4, m), dtype=torch.float32,
-                            device=self.device)
+        args = (params_step, write_step, rounds, b, m, priors)
+        if self._graphed(serial):
+            dev = self._graph(DecodeGraphs, ("decode", priors.shape,
+                                             priors.dtype, b, m), *args)
+        else:
+            dev = DecodeRounds(*args)
         # round t's write and round t+1's parameters back to back: one
         # blocking u8 index fetch per round
         st = self._codec_stats
         with self._lap("ar.decode.params", "device_s"):
-            means, idx = params_step(plane, priors, rounds[0], b)
-        for k, rnd in enumerate(rounds):
+            dev.start(priors)
+        for k in range(len(rounds)):
             with trace.span("ar.decode.round", round=k):
                 with self._lap("ar.decode.fetch", "device_s"):
-                    idx_np = trace.fetch(idx.view(b, -1))
+                    idx_np = trace.fetch(dev.indexes(k).view(b, -1))
                 sym = np.empty(idx_np.shape, np.int32)
                 with self._lap("ar.decode.rans", "host_rans_s"):
                     for i in range(b):
@@ -453,10 +633,5 @@ class ARCodec:
                 if st is not None:
                     st["rounds"] = st.get("rounds", 0) + 1
                 with self._lap("ar.decode.write", "device_s"):
-                    sym_dev = trace.upload(torch.from_numpy(sym),
-                                           self.device).view(-1, m)
-                    plane = write_step(plane, rnd, sym_dev, means)
-                    if k + 1 < len(rounds):
-                        means, idx = params_step(plane, priors,
-                                                 rounds[k + 1], b)
-        return plane[:, 2:-2, 2:-2, :]
+                    dev.write(k, sym)
+        return dev.result()

@@ -458,10 +458,13 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
     per-pixel raster order (8160 rounds for a 1080p latent: small latents
     only). ``wavefront_format`` ("auto" = "lane", or "grouped") is the
     stream order of the wavefront mode (models/ar_wavefront.py::ARCodec).
-    Each picture of a batch is a stream of its own. Weights are drawn from
-    ``seed`` with an explicit CPU generator, then moved to ``device``."""
+    Each picture of a batch is a stream of its own. On the card the
+    wavefront rounds run as CUDA graphs (``round_graphs``). Weights are
+    drawn from ``seed`` with an explicit CPU generator, then moved to
+    ``device``."""
 
     has_gaussian = True
+    round_graphs = True
     _module_cls = JointAutoregressiveModule
 
     def __init__(self, N: int = 192, M: int = 192, ar_mode: str = "wavefront",
@@ -487,6 +490,11 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
         """(y, y + noise) of g_a, in the compute dtype (priors.py:686)."""
         return self.module.get_y(self._cast_in(x), generator=generator)
 
+    def _analysis_streams(self, x, streams: int):
+        """g_a of the batch in the compute dtype, run once per stream (the
+        encoder's g_a: a picture's y does not depend on its batch)."""
+        return per_stream(self.module.g_a, streams, self._cast_in(x))
+
     def _priors(self, z_hat, streams: int):
         """h_s(ẑ) (B, 2M, h, w), run once per stream, as NHWC rows of the
         rounds."""
@@ -504,13 +512,15 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
         """(``compress(x)``, the ŷ the decoder rebuilds, f32 NCHW)."""
         self._require_tables()
         b = x.shape[0]
-        with self._lap("image.hyper", "hyper_s"):
-            y = per_stream(self.module.g_a, b, self._cast_in(x))
+        with self._lap("image.g_a", "hyper_s"):
+            y = self._analysis_streams(x, b)
             z = per_stream(self.module.h_a, b, y)
+        with self._lap("image.z", "hyper_s"):
             z_np = trace.fetch(z.float().permute(0, 2, 3, 1))
             z_strings = self._eb_compress(z_np)
             z_hat = self._upload(self._eb_quantize(z_np))
-        priors = self._priors(z_hat, b)
+        with trace.span("image.priors"):
+            priors = self._priors(z_hat, b)
         y_strings, y_hat = self._ar_encode(y.permute(0, 2, 3, 1), priors, b,
                                            serial=self.ar_mode == "serial")
         return ({"strings": [y_strings, z_strings],
@@ -524,11 +534,13 @@ class JointAutoregressiveHierarchicalPriors(wf.ARCodec, CompressionModel):
         if not (isinstance(strings, list) and len(strings) == 2):
             raise ValueError("strings must be [y_strings, z_strings]")
         self._require_tables()
-        with self._lap("image.hyper", "hyper_s"):
+        with self._lap("image.z", "hyper_s"):
             z_hat = self._upload(self._eb_decompress(strings[1], shape))
-        priors = self._priors(z_hat, z_hat.shape[0])
+        with trace.span("image.priors"):
+            priors = self._priors(z_hat, z_hat.shape[0])
         y_hat = self._ar_decode(strings[0], priors, self.M,
                                 serial=self.ar_mode == "serial")
         y_hat = _nchw(y_hat.permute(0, 3, 1, 2))
-        x_hat = self.module.g_s(self._cast_in(y_hat))
+        with trace.span("image.g_s"):
+            x_hat = self.module.g_s(self._cast_in(y_hat))
         return {"x_hat": torch.clamp(x_hat, 0.0, 1.0), "y_hat": y_hat}

@@ -31,10 +31,28 @@ def _lrelu():
     return LeakyReLU(0.01)
 
 
+class _Transform(Sequential):
+    """g_a or g_s, whose f32 3×3 stride-1 convs on the card run through
+    PyTorch's own CUDA convolution (``Conv.im2col``). For some of them
+    cuDNN's heuristics (deterministic, no autotuning, TF32 off), and its
+    autotuner too, take FFT convolutions: at 136 × 240, and at 68 × 120 in a
+    batch of 4, 33 024 GEMV or complex-GEMM launches of 0.24-0.42 s for
+    22-87 GFLOP. With im2col and a cuBLAS GEMM the 1088 × 1920 g_a took
+    71 ms on an H100 where cuDNN took 823, g_s on 4 latents 334 where it
+    took 1799 (PERF.md §6). The anchor's transforms hold the same convs."""
+
+    def __init__(self, layers):
+        super().__init__(layers)
+        for m in self.modules():
+            if isinstance(m, Conv) and m.stride == 1 and \
+                    m.weight.shape[-1] == 3:
+                m.im2col = True
+
+
 class Cheng2020AnchorModule(JointAutoregressiveModule):
     def _build_g_a(self, g):
         n = self.N
-        return Sequential([
+        return _Transform([
             ResidualBlockWithStride(3, n, 2, g), ResidualBlock(n, n, g),
             ResidualBlockWithStride(n, n, 2, g), ResidualBlock(n, n, g),
             ResidualBlockWithStride(n, n, 2, g), ResidualBlock(n, n, g),
@@ -59,7 +77,7 @@ class Cheng2020AnchorModule(JointAutoregressiveModule):
 
     def _build_g_s(self, g):
         n = self.N
-        return Sequential([
+        return _Transform([
             ResidualBlock(n, n, g), ResidualBlockUpsample(n, n, 2, g),
             ResidualBlock(n, n, g), ResidualBlockUpsample(n, n, 2, g),
             ResidualBlock(n, n, g), ResidualBlockUpsample(n, n, 2, g),
@@ -70,7 +88,7 @@ class Cheng2020AnchorModule(JointAutoregressiveModule):
 class Cheng2020AttentionModule(Cheng2020AnchorModule):
     def _build_g_a(self, g):
         n = self.N
-        return Sequential([
+        return _Transform([
             ResidualBlockWithStride(3, n, 2, g), ResidualBlock(n, n, g),
             ResidualBlockWithStride(n, n, 2, g), AttentionBlock(n, g),
             ResidualBlock(n, n, g), ResidualBlockWithStride(n, n, 2, g),
@@ -79,7 +97,7 @@ class Cheng2020AttentionModule(Cheng2020AnchorModule):
 
     def _build_g_s(self, g):
         n = self.N
-        return Sequential([
+        return _Transform([
             AttentionBlock(n, g), ResidualBlock(n, n, g),
             ResidualBlockUpsample(n, n, 2, g), ResidualBlock(n, n, g),
             ResidualBlockUpsample(n, n, 2, g), AttentionBlock(n, g),

@@ -180,3 +180,14 @@ def upload(t, device, non_blocking: bool = False):
     count("h2d_bytes", t.nbytes)
     with Span(rec, "xfer.h2d", {"bytes": t.nbytes}):
         return t.to(device, non_blocking=non_blocking)
+
+
+def upload_into(dst, t):
+    """``dst.copy_(t)`` (host → an existing device buffer) in an
+    ``xfer.h2d`` span, counted under ``h2d_bytes``, as ``upload``."""
+    rec = _REC
+    if rec is None:
+        return dst.copy_(t)
+    count("h2d_bytes", t.nbytes)
+    with Span(rec, "xfer.h2d", {"bytes": t.nbytes}):
+        return dst.copy_(t)

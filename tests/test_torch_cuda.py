@@ -1214,6 +1214,78 @@ def test_cuda_image_ar_round_trip(cuda, name, quality):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_cuda_image_ar_round_graphs_match_eager(cuda, dtype):
+    """Cheng2020-attn at quality 6 on the card, f32 and bf16, two 256 × 384
+    pictures: the wavefront rounds as CUDA graphs give the eager rounds'
+    strings and ŷ bit for bit (the same kernels on the same inputs), again
+    on a replay, and each picture alone gives its batched stream."""
+    from spatiotemporalentropymodel_tpu_torch import zoo
+
+    x = torch.rand((2, 3, 256, 384), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(3))
+    runs = {}
+    for graphs in (False, True):
+        model = zoo.create_model("cheng2020-attn", 6, device=cuda, seed=1)
+        model.update()
+        model.set_compute_dtype(dtype)
+        model.round_graphs = graphs
+        got = []
+        for xs in (x, x, x[:1], x[1:]):
+            enc, y_enc = model.encode_with_y_hat(xs)
+            dec = model.decompress(enc["strings"], enc["shape"])
+            got.append((enc["strings"], y_enc, dec["y_hat"]))
+        runs[graphs] = got
+        assert bool(model._graphs) == graphs
+    for (s, y_enc, y_dec), (gs, g_enc, g_dec) in zip(runs[False],
+                                                      runs[True]):
+        assert gs == s
+        assert torch.equal(g_enc, y_enc) and torch.equal(g_dec, y_dec)
+        assert torch.equal(g_dec, g_enc)
+    both, alone = runs[True][0], runs[True][2:]
+    for i, (s, _, y_dec) in enumerate(alone):
+        assert s[0] == [both[0][0][i]]
+        assert torch.equal(y_dec[0], both[2][i])
+
+
+@pytest.mark.cuda
+def test_cuda_cheng2020_f32_transforms_take_no_fft(cuda):
+    """Cheng2020-attn(192)'s f32 g_a on one 1088 × 1920 picture and g_s on
+    four 68 × 120 latents, as the benchmark's image cell runs them: their
+    3×3 stride-1 convs go through im2col and cuBLAS (``Conv.im2col``), so
+    no FFT, GEMV or complex-GEMM kernel runs, and the outputs are cuDNN's
+    chain's within 1e-5 of their largest value (both f32 with TF32 off,
+    summed in other orders: a few ulps over about 40 layers)."""
+    from spatiotemporalentropymodel_tpu_torch.layers import Conv
+    from spatiotemporalentropymodel_tpu_torch.models.waseda import (
+        Cheng2020AttentionModule,
+    )
+
+    m = Cheng2020AttentionModule(192, 192, torch.Generator().manual_seed(2))
+    m = m.to(cuda).eval()
+    for p in m.parameters():
+        p.data.mul_(0.5)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((1, 3, 1088, 1920), device=cuda, generator=g)
+    y = torch.randn((4, 192, 68, 120), device=cuda, generator=g)
+    marked = [c for c in m.modules() if isinstance(c, Conv) and c.im2col]
+    assert len(marked) == 51
+    with torch.no_grad():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = m.g_a(x), m.g_s(y)
+            torch.cuda.synchronize()
+        for c in marked:
+            c.im2col = False
+        want = m.g_a(x), m.g_s(y)
+    names = [e.name.lower() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not [n for n in names if "fft" in n or "gemv" in n or "cf32" in n]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["analysis", "get_x"])
 def test_cuda_spatial_apply_bf16_matches_unsplit(cuda, monkeypatch, method):
     """bf16 g_a (gdn_conv_fused) and g_s (gdn_fused_bf16, then the packed

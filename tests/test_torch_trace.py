@@ -228,3 +228,38 @@ def test_wavefront_rounds_and_fetched_bytes(res):
     for stage in (s for s in rec.spans if s.name == "ar.decode.fetch"):
         assert [s.name for s in rec.spans if s.parent is stage] == \
             ["xfer.d2h"]
+
+
+def test_image_codec_spans_and_attention_counter():
+    """A recorded compress and decompress of two pictures through a small
+    Cheng2020Attention: ``image.g_a`` (g_a and h_a), ``image.z`` (ẑ's
+    fetch, rANS and upload) and ``image.priors`` (h_s) once a compress,
+    ``image.z``, ``image.priors`` and ``image.g_s`` once a decompress, each
+    a top-level span; ``attention.calls`` 2 for each picture's g_a (g_a
+    runs once per picture) and 2 for g_s (once on the batch); the stage
+    clock keeps its ``hyper_s`` key."""
+    from spatiotemporalentropymodel_tpu_torch.models import Cheng2020Attention
+
+    model = Cheng2020Attention(8, device="cpu", seed=5)
+    model.update()
+    x = torch.rand((2, 3, 64, 64), generator=torch.Generator().manual_seed(6))
+    model._codec_stats = {}
+    try:
+        with trace.record() as enc_rec:
+            enc = model.compress(x)
+        with trace.record() as dec_rec:
+            model.decompress(enc["strings"], enc["shape"])
+        st = model._codec_stats
+    finally:
+        model._codec_stats = None
+
+    def top(rec):
+        return [s.name for s in sorted(rec.spans, key=lambda s: s.start_ns)
+                if s.parent is None and s.name.startswith("image.")]
+
+    assert top(enc_rec) == ["image.g_a", "image.z", "image.priors"]
+    assert top(dec_rec) == ["image.z", "image.priors", "image.g_s"]
+    assert enc_rec.counters["attention.calls"] == 2 * 2
+    assert dec_rec.counters["attention.calls"] == 2
+    assert "hyper_s" in st and "image.hyper" not in {
+        s.name for s in enc_rec.spans + dec_rec.spans}
