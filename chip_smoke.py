@@ -53,6 +53,10 @@ Needs one CUDA card, nvcc and g++; imports no JAX, and blocks it. Phases:
                 272×480, 136×240 and 68×120, and 192 → 3 from 544×960) at
                 max|kernel − plain| ≤ 1e-5·max|plain| (both f32, summed in
                 other orders); its library call is F.conv_transpose2d f32.
+                Then conv_k5s2_f32, g_a's f32 convs, at g_a's four shapes
+                (192 → 192 from 544×960, 272×480 and 136×240, and 3 → 192
+                from 1088×1920) at max|kernel − plain| ≤ 1e-5·max|plain|;
+                its library call is F.conv2d f32, then the bias add.
                 (The widths past 192 are checked in phase 4's n256.)
   4. paths    — MeanScaleHyperprior(192, 192) and a without_spm STEM (EB 256)
                 from seeds, the benchmark workload's weight surgery (at f32),
@@ -286,8 +290,9 @@ GOP_RTOL = 1e-5  # gop_forward's bpp_est vs estimate_bpp of stem.forward
 KERNELS = ("gdn_fused", "gdn_fused_bf16", "quantize_and_index",
            "quantize_and_index_bf16", "gdn_conv_fused",
            "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
-           "igdn_deconv_fused", "igdn_deconv_wide", "deconv_k5s2_f32")
-DECONV_F32_TOL = 1e-5  # max|kernel − plain| ≤ it · max|plain|, both f32
+           "igdn_deconv_fused", "igdn_deconv_wide", "deconv_k5s2_f32",
+           "conv_k5s2_f32")
+K5S2_F32_TOL = 1e-5  # max|kernel − plain| ≤ it · max|plain|, both f32
 PK = "spatiotemporalentropymodel_tpu/ops/pallas_kernels.py"
 CSRC = "spatiotemporalentropymodel_tpu_torch/ops/csrc"
 
@@ -574,43 +579,55 @@ def _kaiming(torch, gen, shape, fan_in):
     return (w * (2.0 / fan_in) ** 0.5).to(torch.bfloat16)
 
 
-def check_deconv_f32(torch, F, kernels, c=N, o=N, b=B,
-                     sizes=((H // 4, W // 4), (H // 8, W // 8),
-                            (H // 16, W // 16))):
-    """deconv_k5s2_f32 C → O at g_s's stages of the given input sizes (by
-    default its three N → N stages; the row reports the first, the log
-    every stage) against its plain version, f32 both, at max|kernel −
-    plain| ≤ DECONV_F32_TOL·max|plain|."""
-    gen = torch.Generator(device="cuda").manual_seed(18)
-    weight = (torch.randn((c, o, 5, 5), generator=gen, device="cuda")
+def check_k5s2_f32(torch, F, kernels, name, c, o, sizes, b=B):
+    """The f32 k5 s2 kernel ``name`` C → O (deconv_k5s2_f32: g_s's
+    transposed convs; conv_k5s2_f32: g_a's convs) at the transform's stages
+    of the given input sizes (the row reports the first, the log every
+    stage) against its plain version, f32 both, at max|kernel − plain| ≤
+    K5S2_F32_TOL·max|plain|. Its library call is the chain it replaces:
+    F.conv_transpose2d f32 with its bias, or F.conv2d f32 and then the bias
+    add."""
+    deconv = name == "deconv_k5s2_f32"
+    kernel = getattr(kernels, name)
+    plain = kernels._deconv_k5s2_plain if deconv else kernels._conv_k5s2_plain
+    gen = torch.Generator(device="cuda").manual_seed(18 if deconv else 19)
+    weight = (torch.randn((c, o, 5, 5) if deconv else (o, c, 5, 5),
+                          generator=gen, device="cuda")
               * (2.0 / (25 * c)) ** 0.5)
     bias = 0.1 * torch.randn((o,), generator=gen, device="cuda")
+    if deconv:
+        def library(x):
+            return F.conv_transpose2d(x, weight, bias, 2, 2, 1)
+    else:
+        def library(x):
+            return F.conv2d(x, weight, None, 2, 2) + bias.view(1, -1, 1, 1)
     stages, worst = [], 0.0
     for hh, ww in sizes:
         x = torch.randn((b, c, hh, ww), generator=gen, device="cuda")
-        out = kernels.deconv_k5s2_f32(x, weight, bias)
-        ref = kernels._deconv_k5s2_plain(x, weight, bias)
+        out = kernel(x, weight, bias)
+        ref = plain(x, weight, bias)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         scale = float(ref.abs().max())
-        ok = bool(torch.isfinite(out).all()) and err <= DECONV_F32_TOL * scale
-        log(f"  deconv_k5s2_f32 {tuple(x.shape)} → {o}: max abs {err:.4g}, "
-            f"max|plain| {scale:.4g} (limit {DECONV_F32_TOL:g}·) ok={ok}")
+        ok = bool(torch.isfinite(out).all()) and err <= K5S2_F32_TOL * scale
+        log(f"  {name} {tuple(x.shape)} → {o}: max abs {err:.4g}, "
+            f"max|plain| {scale:.4g} (limit {K5S2_F32_TOL:g}·) ok={ok}")
         if not ok:
-            raise AssertionError(f"deconv_k5s2_f32 disagrees with its plain "
-                                 f"version at {tuple(x.shape)} → {o}")
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {tuple(x.shape)} → {o}")
         worst = max(worst, err)
+        ho, wo = out.shape[2:]
         del out, ref
-        b_ms, b_by = bound(4 * (x.numel() + 4 * b * o * hh * ww
-                                + c * o * 25 + o),
-                           2 * b * hh * ww * c * o * 25)
+        # 25 products an input pixel (transposed) or an output pixel
+        taps_at = hh * ww if deconv else ho * wo
+        b_ms, b_by = bound(4 * (x.numel() + b * o * ho * wo + c * o * 25
+                                + o),
+                           2 * b * taps_at * c * o * 25)
         stages.append(dict(
             shape=[b, c, hh, ww],
-            ms=cuda_ms(lambda: kernels.deconv_k5s2_f32(x, weight, bias)),
-            plain_ms=cuda_ms(lambda: kernels._deconv_k5s2_plain(
-                x, weight, bias)),
-            library_ms=cuda_ms(lambda: F.conv_transpose2d(
-                x, weight, bias, 2, 2, 1)),
+            ms=cuda_ms(lambda: kernel(x, weight, bias)),
+            plain_ms=cuda_ms(lambda: plain(x, weight, bias)),
+            library_ms=cuda_ms(lambda: library(x)),
             bound_ms=b_ms, bound_by=b_by))
         log(f"    stage {c}→{o} {hh}×{ww}: " + ", ".join(
             f"{k} {v:.3f}" for k, v in stages[-1].items()
@@ -622,14 +639,17 @@ def check_deconv_f32(torch, F, kernels, c=N, o=N, b=B,
                                   "bound_ms", "bound_by", "shape")})
 
 
-def _gs_deconvs(n, m, passes):
-    """LAUNCHES_BY_WIDTH of deconv_k5s2_f32 over ``passes`` f32 g_s passes
-    with no graph to record (layers/conv.py::Synthesis): M → N, N → N
-    twice, N → 3."""
+def _k5s2_f32_widths(n, m, n_ga, n_gs):
+    """LAUNCHES_BY_WIDTH of the f32 transforms' k5 s2 kernels with no graph
+    to record (layers/conv.py::Analysis, Synthesis): over n_ga g_a passes
+    conv_k5s2_f32 3 → N, N → N twice, N → M; over n_gs g_s passes
+    deconv_k5s2_f32 M → N, N → N twice, N → 3."""
     widths = {}
-    for c, o in ((m, n), (n, n), (n, n), (n, 3)):
-        key = ("deconv_k5s2_f32", c, o)
-        widths[key] = widths.get(key, 0) + passes
+    for name, passes, pairs in (
+            ("conv_k5s2_f32", n_ga, ((3, n), (n, n), (n, n), (n, m))),
+            ("deconv_k5s2_f32", n_gs, ((m, n), (n, n), (n, n), (n, 3)))):
+        for c, o in pairs:
+            widths[(name, c, o)] = widths.get((name, c, o), 0) + passes
     return {k: v for k, v in widths.items() if v}
 
 
@@ -819,8 +839,9 @@ def check_gs_lone(torch, F, kernels, c=N):
 
 def expected_launches(bf16: bool):
     """Launches per kernel over P_FRAMES encoded and decoded frames: g_a
-    runs 3 GDN stages per frame, g_s 3 IGDN stages and, at f32, its 4
-    transposed convs as deconv_k5s2_f32, the STEM one quantizer; at bf16
+    runs 3 GDN stages per frame and, at f32, its 4 convs as conv_k5s2_f32,
+    g_s 3 IGDN stages and, at f32, its 4 transposed convs as
+    deconv_k5s2_f32, the STEM one quantizer; at bf16
     g_a's stages fuse into their convs and g_s's last two into the
     packed pair, leaving its first IGDN to gdn_fused's bf16 entry, and the
     quantizer reads the bf16 nets' outputs through its bf16 entry."""
@@ -832,7 +853,8 @@ def expected_launches(bf16: bool):
                     igdn_deconv_tail_packed=P_FRAMES)
     else:
         want.update(gdn_fused=6 * P_FRAMES, quantize_and_index=P_FRAMES,
-                    deconv_k5s2_f32=4 * P_FRAMES)
+                    deconv_k5s2_f32=4 * P_FRAMES,
+                    conv_k5s2_f32=4 * P_FRAMES)
     return want
 
 
@@ -1350,15 +1372,17 @@ def run_hero_eval(torch, kernels, card, models):
         wall = time.perf_counter() - t0
         # I-frame: forward (g_a, g_s), compress (g_a), decompress (g_s);
         # P-frame: get_y (g_a), get_x (g_s); each GDN stage one gdn_fused,
-        # each g_s transposed conv one deconv_k5s2_f32
+        # each g_a conv one conv_k5s2_f32, each g_s transposed conv one
+        # deconv_k5s2_f32 (g_a and g_s run as often)
         qidx = n_i + (n_p if variant == "without_spm" else 0)
         gdn, gs = 3 * (4 * n_i + 2 * n_p), 2 * n_i + n_p
         _check_launches(kernels, tag, _want(gdn_fused=gdn,
                                             quantize_and_index=qidx,
-                                            deconv_k5s2_f32=4 * gs))
+                                            deconv_k5s2_f32=4 * gs,
+                                            conv_k5s2_f32=4 * gs))
         _check_widths(kernels, tag, {("gdn_fused", HERO_N): gdn,
                                      ("quantize_and_index",): qidx,
-                                     **_gs_deconvs(HERO_N, M, gs)})
+                                     **_k5s2_f32_widths(HERO_N, M, gs, gs)})
         snaps[tag] = _snap(kernels)
         avg = res["average"]
         log(f"  {tag}: {frames} frames in {wall:.1f} s, bpp "
@@ -1445,10 +1469,11 @@ def run_hero_serving(torch, kernels, card, i_model, stem, frames, tag,
                   ("quantize_and_index_bf16",): p_frames}
     else:
         want = _want(gdn_fused=6 * p_frames, quantize_and_index=p_frames,
-                     deconv_k5s2_f32=4 * p_frames)
+                     deconv_k5s2_f32=4 * p_frames,
+                     conv_k5s2_f32=4 * p_frames)
         widths = {("gdn_fused", HERO_N): 6 * p_frames,
                   ("quantize_and_index",): p_frames,
-                  **_gs_deconvs(HERO_N, M, p_frames)}
+                  **_k5s2_f32_widths(HERO_N, M, p_frames, p_frames)}
     _check_launches(kernels, tag, want)
     _check_widths(kernels, tag, widths)
     snap = _snap(kernels)
@@ -1495,7 +1520,8 @@ def run_gop_forward(torch, kernels, card, i_model, stem, frames, tag,
                      igdn_deconv_wide_packed=p_frames,
                      igdn_deconv_tail_packed=p_frames)
     else:
-        want = _want(gdn_fused=6 * p_frames, deconv_k5s2_f32=4 * p_frames)
+        want = _want(gdn_fused=6 * p_frames, deconv_k5s2_f32=4 * p_frames,
+                     conv_k5s2_f32=4 * p_frames)
     _check_launches(kernels, tag, want)
     snap = _snap(kernels)
     if (tuple(x_hats.shape) != (p_frames, 1, 3, H, W)
@@ -1620,8 +1646,9 @@ def _file_want(bf16, n_ga, n_gs, n_q, graph=False):
     """Launches (by kernel, by width) of n_ga hero g_a passes, n_gs g_s
     passes and n_q quantizer calls: per pass 3 GDN stages, fused in bf16 into
     two 128 → 128 and one 128 → 192 gdn_conv_fused (g_a), or gdn_fused_bf16
-    then the packed pair (g_s); in f32 g_s's 4 transposed convs run as
-    deconv_k5s2_f32, unless autograd records them (``graph``: training)."""
+    then the packed pair (g_s); in f32 g_a's 4 convs run as conv_k5s2_f32
+    and g_s's 4 transposed convs as deconv_k5s2_f32, unless autograd records
+    them (``graph``: training)."""
     if bf16:
         counts = _want(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
                        igdn_deconv_wide_packed=n_gs,
@@ -1634,11 +1661,12 @@ def _file_want(bf16, n_ga, n_gs, n_q, graph=False):
                   ("igdn_deconv_tail_packed", HERO_N, 3): n_gs,
                   ("quantize_and_index_bf16",): n_q}
     else:
-        gs = 0 if graph else n_gs
+        ga, gs = (0, 0) if graph else (n_ga, n_gs)
         counts = _want(gdn_fused=3 * (n_ga + n_gs), quantize_and_index=n_q,
-                       deconv_k5s2_f32=4 * gs)
+                       deconv_k5s2_f32=4 * gs, conv_k5s2_f32=4 * ga)
         widths = {("gdn_fused", HERO_N): 3 * (n_ga + n_gs),
-                  ("quantize_and_index",): n_q, **_gs_deconvs(HERO_N, M, gs)}
+                  ("quantize_and_index",): n_q,
+                  **_k5s2_f32_widths(HERO_N, M, ga, gs)}
     return counts, {k: v for k, v in widths.items() if v}
 
 
@@ -2531,16 +2559,18 @@ def _ar_want(kind, bf16, n_ga, n_gs, n=N):
     gdn_fused_bf16 and the last two stages as the packed pair; or
     Cheng2020 ("cheng", N = n), whose six (I)GDNs feed residual sums, so
     each runs gdn_fused alone. In f32 every (I)GDN is a gdn_fused, and
-    mbt2018's g_s runs its 4 transposed convs as deconv_k5s2_f32 (Cheng2020's
-    g_s is its own)."""
+    mbt2018's g_a runs its 4 convs as conv_k5s2_f32 and its g_s its 4
+    transposed convs as deconv_k5s2_f32 (Cheng2020's g_a and g_s are its
+    own)."""
     if not bf16 or kind == "cheng":
         name = "gdn_fused_bf16" if bf16 else "gdn_fused"
         counts = {name: 3 * (n_ga + n_gs)}
         widths = {(name, n): 3 * (n_ga + n_gs)}
         if not bf16 and kind != "cheng":
+            m = AR_M if kind == "mbt2018" else N
             counts["deconv_k5s2_f32"] = 4 * n_gs
-            widths.update(_gs_deconvs(
-                N, AR_M if kind == "mbt2018" else N, n_gs))
+            counts["conv_k5s2_f32"] = 4 * n_ga
+            widths.update(_k5s2_f32_widths(N, m, n_ga, n_gs))
     else:
         m = AR_M if kind == "mbt2018" else N
         counts = dict(gdn_conv_fused=3 * n_ga, gdn_fused_bf16=n_gs,
@@ -3993,9 +4023,10 @@ def run_gop_sharded(torch, kernels, card):
         kernels.reset_launch_counts()
         ms, out[tag] = timed_ms(torch, fn)
         _check_launches(kernels, tag, _want(gdn_fused=6 * t * n,
-                                            deconv_k5s2_f32=4 * t * n))
+                                            deconv_k5s2_f32=4 * t * n,
+                                            conv_k5s2_f32=4 * t * n))
         _check_widths(kernels, tag, {("gdn_fused", HERO_N): 6 * t * n,
-                                     **_gs_deconvs(HERO_N, M, t * n)})
+                                     **_k5s2_f32_widths(HERO_N, M, t * n, t * n)})
         snaps[tag] = _snap(kernels)
         out[tag + "_fps"] = t * GOP_SHARD_B / (ms / 1e3)
     (x_ref, bpp_ref), (x_sh, bpp_sh) = out["gop_forward_b2"], out[
@@ -4205,12 +4236,12 @@ def _n256_widths(bf16: bool, frames: int, wide_knobs: bool = False):
     three GDN stages into gdn_conv_fused, twice at (256, 256) and once at
     (256, 320), and g_s runs gdn_fused at 256 then the packed pair (under
     the wide knobs the lone wide kernel twice and the narrow one); in f32
-    every GDN is a gdn_fused at 256 and g_s's transposed convs run as
-    deconv_k5s2_f32."""
+    every GDN is a gdn_fused at 256, g_a's convs run as conv_k5s2_f32 and
+    g_s's transposed convs as deconv_k5s2_f32."""
     if not bf16:
         return {("gdn_fused", WIDE_N): 6 * frames,
                 ("quantize_and_index",): frames,
-                **_gs_deconvs(WIDE_N, WIDE_M, frames)}
+                **_k5s2_f32_widths(WIDE_N, WIDE_M, frames, frames)}
     n = WIDE_N
     gs = ({("igdn_deconv_wide", n, n): 2 * frames,
            ("igdn_deconv_fused", n, 3): frames} if wide_knobs else
@@ -4367,9 +4398,18 @@ def main() -> int:
         torch, F, kernels, 1, N, AR_M, ((H // 8, W // 8),))
     # g_s's f32 transposed convs: N → N at its three stages, then N → 3
     log("  deconv_k5s2_f32, g_s's f32 transposed convs, B = 4")
-    results["deconv_k5s2_f32"] = check_deconv_f32(torch, F, kernels)
-    hero_rows[("deconv_k5s2_f32", N, 3)] = check_deconv_f32(
-        torch, F, kernels, N, 3, B, ((H // 2, W // 2),))
+    results["deconv_k5s2_f32"] = check_k5s2_f32(
+        torch, F, kernels, "deconv_k5s2_f32", N, N,
+        ((H // 4, W // 4), (H // 8, W // 8), (H // 16, W // 16)))
+    hero_rows[("deconv_k5s2_f32", N, 3)] = check_k5s2_f32(
+        torch, F, kernels, "deconv_k5s2_f32", N, 3, ((H // 2, W // 2),))
+    # g_a's f32 convs: N → N at its three stages, then its first, 3 → N
+    log("  conv_k5s2_f32, g_a's f32 convs, B = 4")
+    results["conv_k5s2_f32"] = check_k5s2_f32(
+        torch, F, kernels, "conv_k5s2_f32", N, N,
+        ((H // 2, W // 2), (H // 4, W // 4), (H // 8, W // 8)))
+    hero_rows[("conv_k5s2_f32", 3, N)] = check_k5s2_f32(
+        torch, F, kernels, "conv_k5s2_f32", 3, N, ((H, W),))
     # the ROI trunk's first GDN, 1×128×544×960, f32 and bf16
     log(f"  the ROI trunk's GDN, C = {ROI_N}, 1×{ROI_N}×{H // 2}×{W // 2}")
     roi_rows = {(name, ROI_N): check_gdn_entry(
@@ -4479,6 +4519,8 @@ def main() -> int:
         "igdn_deconv_wide": (f"{PK}:1267", "igdn_deconv.cu"),
         # the JAX package left f32 transposed convs to XLA
         "deconv_k5s2_f32": ("none (XLA's conv_transpose)", "deconv_f32.cu"),
+        # and f32 convs
+        "conv_k5s2_f32": ("none (XLA's conv)", "conv_f32.cu"),
     }
     def row(name, kernel, res, per_path):
         line, src = replaces[kernel]

@@ -254,20 +254,20 @@ class Sequential(nn.Module):
         return x
 
 
-class Synthesis(Sequential):
-    """The synthesis transform g_s: a ``Sequential`` (the same layers and
-    parameter names) whose f32 chain runs each k5 s2 ``Deconv`` through
-    ``kernels.deconv_k5s2_f32``, f32 FMA on the CUDA cores, in place of
-    cuDNN's ``conv_transpose2d`` and the bias add. It does so on 4-D f32
-    input when autograd records nothing (grad mode off, or neither the
-    input nor a parameter requires grad) and the kernel takes the widths;
-    bf16 input takes the ``Sequential``'s peepholes, and anything else runs
-    layer by layer as there. On the CPU the wrapper runs its plain version.
-    Each such call counts ``gs.deconv_f32`` in a ``trace`` recording.
+class _F32Chain(Sequential):
+    """A ``Sequential`` (the same layers and parameter names) whose f32
+    chain runs each k5 s2 ``_layer`` through the hand-written kernel
+    ``kernels.<_kernel>``, f32 FMA on the CUDA cores, in place of cuDNN and
+    the bias add. It does so on 4-D f32 input when autograd records nothing
+    (grad mode off, or neither the input nor a parameter requires grad) and
+    the kernel takes the widths (``kernels.<_kernel>_supported``); bf16
+    input takes the ``Sequential``'s peepholes, and anything else runs layer
+    by layer as there. On the CPU the wrapper runs its plain version. Each
+    such call counts ``_counter`` in a ``trace`` recording."""
 
-    Only g_s routes here: x̂ feeds nothing that is entropy-coded, so a new
-    summation order is safe in g_s, and h_s and the STEM's HD, which set the
-    coder's (σ, μ), keep their bits."""
+    _layer = None  # Conv or Deconv
+    _kernel = ""
+    _counter = ""
 
     def _f32_route(self, x) -> bool:
         if x.dtype != torch.float32 or x.dim() != 4:
@@ -278,13 +278,37 @@ class Synthesis(Sequential):
     def forward(self, x):
         if not self._f32_route(x):
             return super().forward(x)
+        kernel = getattr(kernels, self._kernel)
+        supported = getattr(kernels, self._kernel + "_supported")
         for layer in self.layers:
-            if (_k5s2(layer, Deconv) and x.is_contiguous()
+            if (_k5s2(layer, self._layer) and x.is_contiguous()
                     and layer.weight.dtype == torch.float32
-                    and kernels.deconv_k5s2_f32_supported(
-                        *layer.weight.shape[:2])):
-                x = kernels.deconv_k5s2_f32(x, layer.weight, layer.bias)
-                trace.count("gs.deconv_f32")
+                    and supported(x.shape[1], layer.bias.shape[0])):
+                x = kernel(x, layer.weight, layer.bias)
+                trace.count(self._counter)
             else:
                 x = layer(x)
         return x
+
+
+class Synthesis(_F32Chain):
+    """The synthesis transform g_s: its f32 k5 s2 ``Deconv``s run through
+    ``kernels.deconv_k5s2_f32`` (``_F32Chain``), counted as
+    ``gs.deconv_f32``.
+
+    Only g_s routes here: x̂ feeds nothing that is entropy-coded, so a new
+    summation order is safe in g_s, and h_s and the STEM's HD, which set the
+    coder's (σ, μ), keep their bits."""
+
+    _layer, _kernel, _counter = Deconv, "deconv_k5s2_f32", "gs.deconv_f32"
+
+
+class Analysis(_F32Chain):
+    """The analysis transform g_a: its f32 k5 s2 ``Conv``s run through
+    ``kernels.conv_k5s2_f32`` (``_F32Chain``), counted as ``ga.conv_f32``.
+
+    Only g_a routes here: h_a and the STEM's HE, which set ẑ and the
+    coder's (σ, μ), keep cuDNN's bits. A new summation order in g_a moves y
+    by f32 rounding, which the coder then takes as its input."""
+
+    _layer, _kernel, _counter = Conv, "conv_k5s2_f32", "ga.conv_f32"

@@ -38,7 +38,8 @@ from torch import nn
 from ..entropy import EntropyBottleneck, GaussianConditional, build_indexes
 from ..entropy import base as entropy_base
 from ..layers import (
-    GDN, Conv, Deconv, LeakyReLU, MaskedConv2d, ReLU, Sequential, Synthesis,
+    GDN, Analysis, Conv, Deconv, LeakyReLU, MaskedConv2d, ReLU, Sequential,
+    Synthesis,
 )
 from ..layers.masked_conv import per_stream
 from ..ops import kernels
@@ -49,7 +50,7 @@ from .base import CompressionModel, _as_bytes, _nchw, _nhwc_flat, _to_nchw
 
 
 def _g_a(n, m, g):
-    return Sequential([
+    return Analysis([
         Conv(3, n, 5, 2, g), GDN(n), Conv(n, n, 5, 2, g), GDN(n),
         Conv(n, n, 5, 2, g), GDN(n), Conv(n, m, 5, 2, g),
     ])

@@ -17,7 +17,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu", "deconv_f32.cu")
+SOURCES = ("kernels.cu", "gdn_conv.cu", "igdn_deconv.cu", "deconv_f32.cu",
+           "conv_f32.cu")
 HEADERS = ("gdn_window_tc.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # -gencode names the sm_90a PTX target, which wgmma needs; "-arch=sm_90a"

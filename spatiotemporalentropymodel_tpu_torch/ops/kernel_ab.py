@@ -21,7 +21,9 @@ refuse: gdn_conv_fused at 192 → 320 on one 192 × 136 × 240 input (g_a's
 last stage of the zoo's N = 192, M = 320 models), and gdn_fused at 256
 on the same shapes as at 192. deconv_k5s2_f32 (f32 g_s's transposed
 convs) runs at g_s's four shapes of 4 × 1088 × 1920 pictures: 192 → 192
-from 68 × 120, 136 × 240 and 272 × 480, 192 → 3 from 544 × 960.
+from 68 × 120, 136 × 240 and 272 × 480, 192 → 3 from 544 × 960; and
+conv_k5s2_f32 (f32 g_a's convs) at g_a's four: 3 → 192 from 1088 × 1920,
+192 → 192 from 544 × 960, 272 × 480 and 136 × 240.
 
 Prints one JSON line per kernel and shape: the median ms per launch of
 each build over its 2N timings, their spread and the ratio other / this
@@ -52,6 +54,7 @@ SIGNATURES = {
     "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_deconv_k5s2_f32": [VP] * 4 + [I64, I32, I32, I32, I32, VP],
+    "stem_conv_k5s2_f32": [VP] * 4 + [I64, I32, I32, I32, I32, VP],
 }
 
 
@@ -163,6 +166,19 @@ def _cases(gen):
                       "stem_deconv_k5s2_f32",
                       (x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
                        out.data_ptr(), b, c, o, h, w), True))
+    for ci, (h, w) in ((3, (1088, 1920)), (c, (544, 960)), (c, (272, 480)),
+                       (c, (136, 240))):
+        weight = (torch.randn((c, ci, 5, 5), generator=gen, device=dev)
+                  * (2.0 / (25 * ci)) ** 0.5)
+        wk = kernels.pack_conv_f32_weight(weight)
+        bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+        x = torch.randn((b, ci, h, w), generator=gen, device=dev)
+        out = torch.empty((b, c, h // 2, w // 2), device=dev)
+        keep += [wk, bias, x, out]
+        cases.append((f"stem_conv_k5s2_f32 {[b, ci, h, w]} → {c}",
+                      "stem_conv_k5s2_f32",
+                      (x.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+                       out.data_ptr(), b, ci, c, h, w), True))
     return cases, keep
 
 

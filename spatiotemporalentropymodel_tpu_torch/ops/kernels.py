@@ -19,12 +19,15 @@ wrapper per Pallas kernel:
     (``_igdn_deconv_ref``). They run the same CUDA kernels as the packed
     pair, since the port's pair already writes and reads the logical layout.
 
-And one kernel with no Pallas counterpart (the JAX package left f32
-transposed convs to XLA):
+And two kernels with no Pallas counterpart (the JAX package left f32
+convs and transposed convs to XLA):
 
   * ``deconv_k5s2_f32``    — the k5 s2 transposed conv + bias in f32 FMA on
     the CUDA cores, g_s's f32 Deconvs (``_deconv_k5s2_plain``, its four
     sub-pixel phase convs).
+  * ``conv_k5s2_f32``      — the k5 s2 conv + bias in f32 FMA on the CUDA
+    cores, g_a's f32 Convs (``_conv_k5s2_plain``, its four parity-plane
+    convs).
 
 Each wrapper launches its hand-written kernel (csrc/*.cu) for a CUDA
 tensor and runs the plain PyTorch version only for a tensor on the CPU, where
@@ -67,6 +70,7 @@ LAUNCHES = {
     "igdn_deconv_fused": 0,
     "igdn_deconv_wide": 0,
     "deconv_k5s2_f32": 0,
+    "conv_k5s2_f32": 0,
 }
 
 # launches per (kernel, its channel widths): the same launches as LAUNCHES,
@@ -143,9 +147,9 @@ def _lib():
     lib.stem_igdn_deconv_narrow_bf16.restype = i32
     lib.stem_igdn_deconv_narrow_bf16.argtypes = (
         [vp] * 6 + [i64, i32, i32, i32, i32, i32, vp])
-    lib.stem_deconv_k5s2_f32.restype = i32
-    lib.stem_deconv_k5s2_f32.argtypes = [vp] * 4 + [i64, i32, i32, i32, i32,
-                                                    vp]
+    for name in ("stem_deconv_k5s2_f32", "stem_conv_k5s2_f32"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = [vp] * 4 + [i64, i32, i32, i32, i32, vp]
     for _, name in _QIDX_ENTRIES.values():
         getattr(lib, name).restype = i32
         getattr(lib, name).argtypes = (
@@ -829,3 +833,75 @@ def deconv_k5s2_f32(x, weight, bias):
     own; the widths ``deconv_k5s2_f32_supported`` names."""
     return _KernelFn.apply("deconv_k5s2_f32", _deconv_k5s2_plain,
                            _deconv_launch, x, weight, bias)
+
+
+# ---------------------------------------------------------------------------
+# the k5 s2 conv of g_a, f32 (no Pallas counterpart)
+# ---------------------------------------------------------------------------
+
+
+def conv_k5s2_f32_supported(in_ch: int, out_ch: int) -> bool:
+    """The widths the port routes to conv_f32.cu: O a multiple of 32 (the
+    kernel's channel blocks), with C = 3 (the narrow variant, g_a's first
+    conv) or C a multiple of 16 (the wide one, g_a's N → N and N → M, which
+    takes C in stages of 8)."""
+    if out_ch <= 0 or out_ch % 32:
+        return False
+    return in_ch == 3 or (in_ch > 0 and in_ch % 16 == 0)
+
+
+def _conv_k5s2_plain(x, weight, bias):
+    """``conv_k5s2_f32``'s plain version: Conv2d(k5, s2, p2) as four
+    stride-1 convs, one per parity plane (r, s) of the input padded by two,
+    with the kernel's taps ky ≡ r, kx ≡ s (mod 2): 3×3, 3×2, 2×3 and 2×2
+    taps, summed into (B, O, ⌈H/2⌉, ⌈W/2⌉); then the bias. weight (O, C, 5,
+    5) as Conv2d stores it, bias (O,)."""
+    h, w = x.shape[-2:]
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    xp = F.pad(x, (2, 2, 2, 2))
+    out = 0
+    for r in range(2):
+        for s in range(2):
+            out = out + F.conv2d(xp[:, :, r::2, s::2],
+                                 weight[:, :, r::2, s::2])[..., :ho, :wo]
+    return out + bias.to(out.dtype).view(1, -1, 1, 1)
+
+
+def pack_conv_f32_weight(weight):
+    """Conv2d weight (O, C, 5, 5) → conv_f32.cu's (C, 25, O): [c][ky·5 +
+    kx][o]."""
+    o, c = weight.shape[:2]
+    return weight.permute(1, 2, 3, 0).reshape(c, 25, o).contiguous()
+
+
+def _conv_launch(x, weight, bias):
+    name = "conv_k5s2_f32"
+    f32 = torch.float32
+    _check_cuda(name, [(x, f32), (weight, f32), (bias, f32)])
+    if x.dim() != 4 or weight.dim() != 4:
+        raise ValueError(f"{name}: x (B, C, H, W) and weight (O, C, 5, 5), "
+                         f"got {tuple(x.shape)}, {tuple(weight.shape)}")
+    b, c, h, w = x.shape
+    o = weight.shape[0]
+    if (weight.shape != (o, c, 5, 5) or bias.shape != (o,)
+            or not conv_k5s2_f32_supported(c, o) or b > 65535):
+        raise ValueError(f"{name}: no kernel for x {tuple(x.shape)}, weight "
+                         f"{tuple(weight.shape)} and bias {tuple(bias.shape)}")
+    wk = pack_conv_f32_weight(weight)
+    out = torch.empty((b, o, (h + 1) // 2, (w + 1) // 2), dtype=f32,
+                      device=x.device)
+    rc = _lib().stem_conv_k5s2_f32(
+        x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), b, c,
+        o, h, w, _stream(x.device))
+    _raise_on(rc, name)
+    _count(name, c, o)
+    return out
+
+
+def conv_k5s2_f32(x, weight, bias):
+    """Conv2d(k5, s2, padding 2) + bias on NCHW f32 x (B, C, H, W) → (B, O,
+    ⌈H/2⌉, ⌈W/2⌉) f32, in f32 FMA on the CUDA cores (conv_f32.cu). weight
+    (O, C, 5, 5) and bias (O,) f32, the Conv's own; the widths
+    ``conv_k5s2_f32_supported`` names."""
+    return _KernelFn.apply("conv_k5s2_f32", _conv_k5s2_plain, _conv_launch,
+                           x, weight, bias)

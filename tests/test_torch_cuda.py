@@ -874,6 +874,135 @@ def test_cuda_g_s_f32_runs_the_deconv_kernel(cuda):
     assert kernels.LAUNCHES["deconv_k5s2_f32"] == n0 + 4
 
 
+# g_a's four f32 convs of 4 streams of 1088 × 1920 pictures: (B, C, O, H,
+# W) of each input
+CONV_F32_SHAPES = [(4, 3, 192, 1088, 1920), (4, 192, 192, 544, 960),
+                   (4, 192, 192, 272, 480), (4, 192, 192, 136, 240)]
+
+
+def _conv_f32_inputs(device, b, c, o, h, w, seed):
+    """x ~ N(0, 1), the Conv's Kaiming weights (fan-in 25·C) and a bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=gen, device=device)
+    weight = (torch.randn((o, c, 5, 5), generator=gen, device=device)
+              * (2.0 / (25 * c)) ** 0.5)
+    bias = 0.1 * torch.randn((o,), generator=gen, device=device)
+    return x, weight, bias
+
+
+def _conv_f32_errors(x, weight, bias, out):
+    """(max|out − ref|, max|cuDNN f32 − ref|, max|ref|) of the k5 s2 conv +
+    bias, ref in float64 (TF32 off for the f32 call, its bias added after
+    as the port's Conv adds it)."""
+    ref = F.conv2d(x.double(), weight.double(), bias.double(), 2, 2)
+    lib = F.conv2d(x, weight, None, 2, 2) + bias.view(1, -1, 1, 1)
+    return (float((out.double() - ref).abs().max()),
+            float((lib.double() - ref).abs().max()),
+            float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,o,h,w", CONV_F32_SHAPES)
+def test_cuda_conv_k5s2_f32_at_g_a_shapes(cuda, b, c, o, h, w):
+    """conv_k5s2_f32 at g_a's shapes: its max error against float64 at most
+    1.25 times cuDNN f32's against the same float64, two launches
+    bit-identical, each counted under its widths."""
+    x, weight, bias = _conv_f32_inputs(cuda, b, c, o, h, w, seed=h)
+    n0 = kernels.LAUNCHES["conv_k5s2_f32"]
+    w0 = kernels.LAUNCHES_BY_WIDTH.get(("conv_k5s2_f32", c, o), 0)
+    out = kernels.conv_k5s2_f32(x, weight, bias)
+    again = kernels.conv_k5s2_f32(x, weight, bias)
+    assert kernels.LAUNCHES["conv_k5s2_f32"] == n0 + 2
+    assert kernels.LAUNCHES_BY_WIDTH[("conv_k5s2_f32", c, o)] == w0 + 2
+    assert out.shape == (b, o, h // 2, w // 2) and out.dtype == torch.float32
+    assert torch.equal(out, again)
+    del again
+    err, lib_err, _ = _conv_f32_errors(x, weight, bias, out)
+    assert err <= 1.25 * lib_err, (err, lib_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,o,h,w", [
+    (2, 192, 192, 35, 69), (1, 16, 32, 9, 11), (3, 64, 64, 18, 68),
+    (1, 256, 320, 8, 8), (2, 3, 128, 27, 130), (1, 3, 32, 1, 1),
+    (2, 128, 192, 66, 130), (1, 3, 192, 80, 262), (2, 192, 192, 40, 136)])
+def test_cuda_conv_k5s2_f32_edge_tiles(cuda, b, c, o, h, w):
+    """Partial tiles on both edges, tiles larger than the image, odd sides,
+    W not a multiple of 4 (x staged element by element) and an output
+    width not a multiple of 4 (stored pixel by pixel), one stage (C = 16)
+    and the narrow C = 3: the error against float64 within 1.25 times
+    cuDNN f32's (or 2⁻²⁰ of the output's range, where cuDNN's is smaller),
+    and bit-identical launches."""
+    x, weight, bias = _conv_f32_inputs(cuda, b, c, o, h, w, seed=w)
+    out = kernels.conv_k5s2_f32(x, weight, bias)
+    assert out.shape == (b, o, (h + 1) // 2, (w + 1) // 2)
+    assert torch.equal(out, kernels.conv_k5s2_f32(x, weight, bias))
+    err, lib_err, top = _conv_f32_errors(x, weight, bias, out)
+    assert err <= 1.25 * max(lib_err, 2.0**-20 * top), (err, lib_err, top)
+
+
+@pytest.mark.cuda
+def test_cuda_conv_k5s2_f32_rejects_bad_inputs(cuda):
+    """On a CUDA tensor the wrapper launches or raises: bf16, a
+    non-contiguous x, widths the kernel does not take (O = 48, C = 8) and
+    a mismatched bias raise, and nothing is counted."""
+    x, weight, bias = _conv_f32_inputs(cuda, 1, 16, 64, 8, 8, seed=1)
+    n0 = dict(kernels.LAUNCHES)
+    bad = [(x.to(torch.bfloat16), weight, bias),
+           (x.transpose(2, 3), weight, bias),
+           (x, weight[:48], bias[:48]),
+           (x[:, :8].contiguous(), weight[:, :8].contiguous(), bias),
+           (x, weight, bias[:32])]
+    for args in bad:
+        with pytest.raises((TypeError, ValueError)):
+            kernels.conv_k5s2_f32(*args)
+    assert kernels.LAUNCHES == n0
+
+
+def _g_a_float64(g_a, x):
+    """g_a's layers in float64: the convs with their biases, the GDNs on
+    the f32 (γᵀ, β) the kernels take."""
+    from spatiotemporalentropymodel_tpu_torch.layers import GDN
+
+    x = x.double()
+    for layer in g_a.layers:
+        if isinstance(layer, GDN):
+            gamma_t, beta = layer.kernel_weights()
+            x = kernels._gdn_ref(x, gamma_t.double(), beta.double(),
+                                 layer.inverse)
+        else:
+            x = F.conv2d(x, layer.weight.double(), layer.bias.double(), 2, 2)
+    return x
+
+
+@pytest.mark.cuda
+def test_cuda_g_a_f32_runs_the_conv_kernel(cuda):
+    """MeanScaleHyperprior(192, 192).g_a on an f32 picture with no graph to
+    record: its four Convs launch conv_k5s2_f32 (4 a call) and y lies
+    within 1.25 times the cuDNN chain's error of float64 layers (TF32 off);
+    with gradients the chain runs cuDNN, and h_a never launches the
+    kernel."""
+    from spatiotemporalentropymodel_tpu_torch.layers import Sequential
+
+    model = MeanScaleHyperprior(192, 192, device=cuda, seed=3)
+    g_a, h_a = model.module.g_a, model.module.h_a
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.rand((2, 3, 192, 320), generator=gen, device=cuda)
+    n0 = kernels.LAUNCHES["conv_k5s2_f32"]
+    with torch.no_grad():
+        got = g_a(x)
+        lib = Sequential.forward(g_a, x)
+        h_a(got)
+        ref = _g_a_float64(g_a, x)
+    assert kernels.LAUNCHES["conv_k5s2_f32"] == n0 + 4
+    err = float((got.double() - ref).abs().max())
+    lib_err = float((lib.double() - ref).abs().max())
+    assert err <= 1.25 * lib_err + 1e-7, (err, lib_err)
+    y = g_a(x)  # grad mode on and the parameters require grad: cuDNN
+    assert y.grad_fn is not None
+    assert kernels.LAUNCHES["conv_k5s2_f32"] == n0 + 4
+
+
 GRAD_CASES = ["gdn_fused", "gdn_fused_bf16", "gdn_conv_fused",
               "igdn_deconv_wide_packed", "igdn_deconv_tail_packed",
               "igdn_deconv_fused", "igdn_deconv_wide"]
@@ -944,6 +1073,7 @@ def _plain_wrappers(monkeypatch):
     monkeypatch.setattr(kernels, "gdn_conv_fused", kernels._gdn_conv_ref)
     monkeypatch.setattr(kernels, "deconv_k5s2_f32",
                         kernels._deconv_k5s2_plain)
+    monkeypatch.setattr(kernels, "conv_k5s2_f32", kernels._conv_k5s2_plain)
     monkeypatch.setattr(kernels, "gdn_fused",
                         lambda x, g, b, inverse=False:
                         kernels._gdn_plain(x, g, b, inverse))

@@ -194,12 +194,15 @@ def _spy(monkeypatch):
     return calls
 
 
-def _chain(seq, x, f32_deconv=False):
-    """The plain chain: every layer on its own (with ``f32_deconv``, each
-    Deconv as ``kernels.deconv_k5s2_f32``)."""
+def _chain(seq, x, f32_kernels=False):
+    """The plain chain: every layer on its own (with ``f32_kernels``, each
+    Deconv as ``kernels.deconv_k5s2_f32`` and each Conv as
+    ``kernels.conv_k5s2_f32``)."""
     for layer in seq.layers:
-        if f32_deconv and isinstance(layer, tl.Deconv):
+        if f32_kernels and isinstance(layer, tl.Deconv):
             x = kernels.deconv_k5s2_f32(x, layer.weight, layer.bias)
+        elif f32_kernels and isinstance(layer, tl.Conv):
+            x = kernels.conv_k5s2_f32(x, layer.weight, layer.bias)
         else:
             x = layer(x)
     return x
@@ -220,11 +223,14 @@ def test_peepholes_fire_in_bf16_only_and_match_the_plain_chain(msh,
         y32 = module.g_a(xt)
         x32 = module.g_s(y32)
         assert calls == {}
-        assert torch.equal(y32, _chain(module.g_a, xt))
-        # f32 g_s fuses nothing either, but runs each k5 s2 Deconv as
-        # deconv_k5s2_f32 (layers/conv.py::Synthesis): exactly that chain,
-        # and the Deconv layers' chain to f32 rounding
-        assert torch.equal(x32, _chain(module.g_s, y32, f32_deconv=True))
+        # f32 g_a and g_s fuse nothing, but run each k5 s2 Conv as
+        # conv_k5s2_f32 (layers/conv.py::Analysis) and each k5 s2 Deconv as
+        # deconv_k5s2_f32 (Synthesis): exactly those chains, and the layers'
+        # own chains to f32 rounding
+        assert torch.equal(y32, _chain(module.g_a, xt, f32_kernels=True))
+        torch.testing.assert_close(y32, _chain(module.g_a, xt), rtol=1e-5,
+                                   atol=1e-5)
+        assert torch.equal(x32, _chain(module.g_s, y32, f32_kernels=True))
         torch.testing.assert_close(x32, _chain(module.g_s, y32), rtol=1e-5,
                                    atol=1e-5)
 
