@@ -515,7 +515,7 @@ class WavefrontVideoPipeline:
     does not wait for it. ŷ is the recurrence carry (evalSTEM.py:144-153),
     so x̂ never serializes the GOP on the host. g_s stays on the current
     stream: on a side stream it served no more frames/s on the H100
-    (eval/gs_stream_ab.py).
+    (PERF.md §6, PR 10).
 
     Multi-stream serving: the batch axis is S independent GOP streams; the
     rounds stack every stream's tiles along the tile-batch axis and host rANS

@@ -58,11 +58,11 @@
 // Bound on the H100 at g_a's first stage (4 × 192 × 544 × 960 → 272 × 480):
 // 9.6e11 conv operations (0.97 ms at the bf16 tensor-core peak) and 1.5e11
 // norm operations, which shared between the CUDA cores and the tensor cores
-// (3 bf16 products each there) leave 1.20 ms (chip_smoke.py::fused_bound).
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 5.52 ms
+// (3 bf16 products each there) leave 1.20 ms (PERF.md §6, kernel table).
+// Measured (the same table) on an NVIDIA H100 80GB HBM3 at 700 W: 5.52 ms
 // at stage 1 and 1.73 / 0.64 ms at stages 2 / 3. A block of stage 1 takes
 // about 150k cycles: 13 % window load, 36 % norm, 51 % conv, the conv
-// bound by its weight reads from L2 (ops/phase_probe.py; PERF.md §5-6).
+// bound by its weight reads from L2 (PERF.md §5-6).
 // At (192, 320), mbt2018's 1 × 192 × 136 × 240 stage, on the same card:
 // 0.224 ms alone (ops/kernel_ab.py), 0.402 ms through the wrapper, against
 // a bound of 0.027 ms by operations and the unfused pair's 0.181 ms. At
@@ -134,7 +134,6 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
   bf16* win = reinterpret_cast<bf16*>(smem);
   const uint32_t win_u32 = tc::smem_u32(smem);
 
-  STEM_PHASE(0);
   // the block's first output channel; its rows of each weight stage
   const int o0 = S > 1 ? static_cast<int>(blockIdx.z) * OB : 0;
   const bf16* wb = w + o0 * 64;
@@ -158,9 +157,7 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
   tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
                         2 * oy0 - 2, 2 * ox0 - 2, T::kWinH, T::kWinW,
                         T::slot);
-  STEM_PHASE(1);
   const int q0 = tc::gdn_window_tc<C, false>(win, T::kSlots, ring, 0, beta);
-  STEM_PHASE(2);
 
   // warpgroup wg: output channels o0 + gi·OBG + [wg·N, (wg + 1)·N) of all
   // the tile's pixels, group gi after group; its warp w: output row w of
@@ -206,7 +203,6 @@ gdn_conv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gamma_s,
       }
     }
   }
-  STEM_PHASE(3);
 }
 
 template <int C, int O, int S = 1, int TW = 16, int G = 1>

@@ -53,28 +53,6 @@
 
 namespace stem {
 
-// STEM_PHASE(i): with -DSTEM_PHASE_PROBE (ops/phase_probe.py), thread 0 of
-// every STEM_PHASE_EVERY-th block stamps clock64() behind a barrier at the
-// block's start (0), after the window load (1), after the norm (2) and at
-// the end (3). Without it, nothing.
-#ifdef STEM_PHASE_PROBE
-static __device__ unsigned long long stem_phase_clock[4 * STEM_PHASE_MAX];
-#define STEM_PHASE(i)                                                      \
-  do {                                                                     \
-    __syncthreads();                                                       \
-    if (threadIdx.x == 0) {                                                \
-      const unsigned lin = blockIdx.y * gridDim.x + blockIdx.x;            \
-      if (lin % STEM_PHASE_EVERY == 0 &&                                   \
-          lin / STEM_PHASE_EVERY < STEM_PHASE_MAX)                         \
-        stem_phase_clock[(lin / STEM_PHASE_EVERY) * 4 + (i)] = clock64(); \
-    }                                                                      \
-  } while (0)
-#else
-#define STEM_PHASE(i) \
-  do {                \
-  } while (0)
-#endif
-
 namespace tc {
 
 using bf16 = __nv_bfloat16;

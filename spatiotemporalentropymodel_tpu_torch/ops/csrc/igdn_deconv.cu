@@ -52,16 +52,16 @@
 // 64 accumulators per thread) over one window, the norm in two chunks of
 // 128, and the ring holds 128 rows: 229,696 B.
 // Registers (nvcc -Xptxas -v): 198 / 146 / 103 at C = 192 / 128 / 64, 167
-// at 256, no spills. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3
-// at 700 W: 4.11 ms at 272 × 480 and 1.54 ms at 136 × 240; a block at 272
-// × 480 takes about 423k cycles, 6 % window load, 16 % norm, 78 % conv
-// (ops/phase_probe.py; PERF.md §5-6). At C = 256: 6.65 ms at 272 × 480,
-// 2.08 ms at 136 × 240.
+// at 256, no spills. Measured (PERF.md §6, kernel table) on an NVIDIA H100
+// 80GB HBM3 at 700 W: 4.11 ms at 272 × 480 and 1.54 ms at 136 × 240; a
+// block at 272 × 480 takes about 423k cycles, 6 % window load, 16 % norm,
+// 78 % conv (PERF.md §5-6). At C = 256: 6.65 ms at 272 × 480, 2.08 ms at
+// 136 × 240.
 //
 // igdn_deconv_narrow_kernel (C → F ≤ 32): bound on the H100 by its norm,
 // 1.5e11 f32 operations at F = 3 and 544 × 960 × 192 against 1.2e10 of
 // deconv: 0.44 ms with the norm shared between the CUDA cores and the
-// tensor cores (chip_smoke.py::fused_bound), 2.3 ms on the CUDA cores
+// tensor cores (PERF.md §6, kernel table), 2.3 ms on the CUDA cores
 // alone, so it runs on the tensor cores as the wide kernel's does. All 4
 // phases share one implicit GEMM on wgmma with the pixels as rows and
 // N = rows GEMM columns (row = o·4 + a·2 + b; rows ≥ 4F are zero) over the
@@ -79,10 +79,10 @@
 // -Xptxas -v) at C = 256 / 192 / 128 / 64: 170 / 143 / 110 / 93 (rows
 // 16), 190 / 154 / 122 / 91 (32), 143 / 190 / 154 / 123 (64), 147 / 145 /
 // 135 / 157 (96), 163 / 168 / 164 / 182 (128), no spills.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 3.75-3.93
-// ms at 544 × 960 → 3 (5.85-5.91 at C = 256); a block takes about 98k
-// cycles, 18 % window load, 66 % norm, 16 % conv (ops/phase_probe.py;
-// PERF.md §5-6).
+// Measured (PERF.md §6, kernel table) on an NVIDIA H100 80GB HBM3 at 700 W:
+// 3.75-3.93 ms at 544 × 960 → 3 (5.85-5.91 at C = 256); a block takes
+// about 98k cycles, 18 % window load, 66 % norm, 16 % conv (PERF.md
+// §5-6).
 
 #include "gdn_window_tc.cuh"
 
@@ -153,7 +153,6 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
   bf16* win = reinterpret_cast<bf16*>(smem);
   const uint32_t win_u32 = tc::smem_u32(smem);
 
-  STEM_PHASE(0);
   const auto ring = tc::make_ring_fn<S::kSlotRows>(
       tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
         if (q < kNorm) {
@@ -172,9 +171,7 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
   const int ix0 = (blockIdx.x % tiles_w) * kTileW;
   tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
                         iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
-  STEM_PHASE(1);
   int q = tc::gdn_window_tc<C, true>(win, kSlots, ring, 0, beta);
-  STEM_PHASE(2);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -225,7 +222,6 @@ igdn_deconv_wide_kernel(const bf16* __restrict__ x,
       }
     }
   }
-  STEM_PHASE(3);
 }
 
 // One stage of the narrow kernel's GEMM: KS chunks of 64 input channels of
@@ -306,7 +302,6 @@ igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
   bf16* win = reinterpret_cast<bf16*>(smem);
   const uint32_t win_u32 = tc::smem_u32(smem);
 
-  STEM_PHASE(0);
   const auto ring = tc::make_ring_fn<S::kSlotRows>(
       tc::ring_base<C>(smem, kSlots), kStagesAll, [=](uint32_t dst, int q) {
         if (q < kNorm)
@@ -322,9 +317,7 @@ igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
   const int ix0 = (blockIdx.x % tiles_w) * kTileW;
   tc::load_window_tc<C>(win, x + static_cast<long long>(b) * C * H * W, H, W,
                         iy0 - 1, ix0 - 1, kWinH, kWinW, deconv_slot);
-  STEM_PHASE(1);
   int q = tc::gdn_window_tc<C, true>(win, kSlots, ring, 0, beta);
-  STEM_PHASE(2);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -372,7 +365,6 @@ igdn_deconv_narrow_kernel(const bf16* __restrict__ x,
       }
     }
   }
-  STEM_PHASE(3);
 }
 
 bool grid_of(long long batch, int H, int W, int* tiles_w, long long* tiles) {

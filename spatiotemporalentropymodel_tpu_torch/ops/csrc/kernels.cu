@@ -37,7 +37,7 @@ namespace tc = stem::tc;
 // Bound on the H100: bytes. The f32 entry at (2088960, 192) moves 3.2 GB
 // (0.958 ms at 3.35 TB/s); its norm, 1.5e11 products, takes 2.3 ms on the
 // CUDA cores in f32 but 0.93 ms as six bf16 products on the tensor cores,
-// and less shared between the two (chip_smoke.py::gdn_bound).
+// and less shared between the two (PERF.md §6, kernel table).
 //
 // Design (gdn_kernel, both entries): the norm is a GEMM on wgmma with the
 // pixels as rows. A block takes 128 pixels of one image (blockIdx.x runs
@@ -83,8 +83,8 @@ namespace tc = stem::tc;
 // 64: 203 / 156 / 106 (f32), 182 / 139 / 90 (bf16); chunks of 192 / 128 /
 // 64 with a window: 189 / 175 / 143 (f32), 180 / 158 / 126 (bf16); of
 // 128 without: 169 (f32), 158 (bf16); no spills.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, through
-// the wrapper (γ's split included): f32 2.24-2.35 ms at (2088960, 192),
+// Measured (PERF.md §6, kernel table) on an NVIDIA H100 80GB HBM3 at 700 W,
+// through the wrapper (γ's split included): f32 2.24-2.35 ms at (2088960, 192),
 // 2.3-2.4× its byte bound; bf16 0.22-0.23 ms at (130560, 192), bound
 // 0.030 ms; f32 5.25 ms at (2088960, 256), 4.1× its byte bound of 1.28 ms
 // (PERF.md §6). Alone (ops/kernel_ab.py, the same card): f32 2.13 ms at

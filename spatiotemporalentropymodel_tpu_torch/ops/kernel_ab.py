@@ -10,10 +10,11 @@ both trees share, on the same inputs and in one process: quantize_and_index
 at the y plane of 4 × 1088 × 1920 frames (its contiguous f32 entry),
 gdn_fused's f32 entry at g_a's first GDN (4 × 192 × 544 × 960) and its
 bf16 entry at g_s's first IGDN (4 × 192 × 136 × 240), gdn_conv_fused at
-g_a's three stages and the wide g_s kernel at 272 × 480 and 136 × 240 (C =
-192). For each, N rounds of this, other, other, this, each timed with CUDA
-events over 20 launches. The wrappers' host time (argument checks,
-packing) is left out, so the ratio is the kernels' alone. An entry the
+g_a's three stages, the wide g_s kernel at 272 × 480 and 136 × 240 (C =
+192) and the narrow one (g_s's packed tail, igdn_deconv_tail_packed) at
+544 × 960 → 3. For each, N rounds of this, other, other, this, each timed
+with CUDA events over 20 launches. The wrappers' host time (argument
+checks, packing) is left out, so the ratio is the kernels' alone. An entry the
 other tree lacks (quantize_and_index's strided f32 and bf16 entries, which
 read (σ, μ) as the halves of one (B, 2M, H, W) tensor) is timed in this
 tree's build alone, 2N times, and so are the widths trees before them
@@ -53,6 +54,7 @@ SIGNATURES = {
     "stem_gdn_fused_bf16": [VP] * 4 + [I64, I32, I64, I32, VP],
     "stem_gdn_conv_fused_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
     "stem_igdn_deconv_wide_bf16": [VP] * 6 + [I64, I32, I32, I32, I32, VP],
+    "stem_igdn_deconv_narrow_bf16": [VP] * 6 + [I64] + [I32] * 5 + [VP],
     "stem_deconv_k5s2_f32": [VP] * 4 + [I64, I32, I32, I32, I32, VP],
     "stem_conv_k5s2_f32": [VP] * 4 + [I64, I32, I32, I32, I32, VP],
 }
@@ -141,6 +143,23 @@ def _cases(gen):
                           (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
                            wp.data_ptr(), bias.data_ptr(), out.data_ptr(), b,
                            c, c, h, w), True))
+    # the narrow kernel C → 3 from 544 × 960, its weights, bias and rows as
+    # kernels._narrow_launch hands them over
+    f, (h, w) = 3, (544, 960)
+    weight = (torch.randn((c, f, 5, 5), generator=gen, device=dev)
+              * (2.0 / (25 * c)) ** 0.5).to(torch.bfloat16)
+    _, _, rows_o, live = kernels._narrow_index(torch.device(dev), f)
+    bias_m = torch.where(live, (0.1 * torch.randn(
+        (f,), generator=gen, device=dev))[rows_o], 0.0)
+    wn = kernels.pack_narrow_weight(weight)
+    x = torch.randn((b, c, h, w), generator=gen, device=dev).to(torch.bfloat16)
+    out = torch.empty((b, f, 2 * h, 2 * w), dtype=torch.bfloat16, device=dev)
+    keep += [wn, bias_m, x, out]
+    cases.append((f"stem_igdn_deconv_narrow_bf16 {[b, c, h, w]} → {f}",
+                  "stem_igdn_deconv_narrow_bf16",
+                  (x.data_ptr(), gs.data_ptr(), beta.data_ptr(),
+                   wn.data_ptr(), bias_m.data_ptr(), out.data_ptr(), b, c, f,
+                   kernels.narrow_rows(f), h, w), True))
     o, (h, w) = 320, (136, 240)
     weight = (torch.randn((o, c, 5, 5), generator=gen, device=dev)
               * (2.0 / (25 * c)) ** 0.5).to(torch.bfloat16)
